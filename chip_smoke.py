@@ -14,12 +14,24 @@ Phases, in order; any failure raises and the script exits non-zero:
   (d) main path, float tiles: train_model(algo="mf", mf_method="densesgd")
       at 100,000 x 20,000, density 0.005 (~9.9M continuous ratings), k=64;
   (e) main path, code tiles: the ML-20M shape (138,000 x 27,000, ~20M
-      half-star ratings), k=64.
+      half-star ratings), k=64;
+  (f) top-N kernel vs plain: csrc/topk.cu against topk_plain on the same
+      CUDA tensors at k = 32, 64, 128 and n = 1, 10, 100, 1000, on a ragged
+      catalog with invalid items, heavy and fully rated users, mu and
+      biases (scores at rtol 1e-5 / atol 1e-6, ids where scores are
+      further apart than that), and on exact-score cases with duplicated
+      item rows, where ids must match exactly, smallest id first;
+  (g) the ranking path: train_model(algo="bpr", mf_method="train") at
+      100,000 x 20,000 (bench.py's BPR and HR@10 shape), k=64, 8 epochs
+      with val HR@10 through the kernel after each; then kernel vs plain
+      on the best view (top-10 of every user, val HR@10, test ARHR at
+      n=1000) and Recommender.from_checkpoint answering 2,048 users.
 (d) and (e) check that every stripe went through the kernel (launch count),
 that val RMSE is finite and below its value at the initial state, replay
 the main path's first epoch on its staged tiles through the kernel and
 through the plain version and hold them together (rtol 1e-3 / atol 1e-5),
-and time both on those tensors.
+and time both on those tensors. (g) checks the top-N launch count, that
+HR@10 is finite every epoch and its best above the initial state's.
 
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -29,6 +41,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -39,11 +52,17 @@ import torch
 from matfac_tpu_torch import (Data, Params, low_rank_ratings,
                               split_train_test_val)
 from matfac_tpu_torch.models.base import init_state
+from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops import dense_row_kernel as drk
+from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.ops.dense_block_kernel import dense_sweep_rows
+from matfac_tpu_torch.serving import Recommender
 from matfac_tpu_torch.train.loop import train_model
 
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
+TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
+# top-N: f32 dot products summed in another order at k <= 128
+TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 1e-3, 1e-5   # summation order over bu and over panels
 # Phase (c) steps at the main path's learn rate. Without collision
 # normalization a stripe's gradient is a SUM over ~COUNT_PER_USER valid
@@ -102,11 +121,14 @@ def phase_env() -> str:
 
 
 def phase_build() -> float:
+    """Both sources at once (one nvcc each), then load both."""
     t0 = time.perf_counter()
+    paths = _build.build_all(["dense_rows", "topk"])
     drk.library()
+    tk.library()
     dt = time.perf_counter() - t0
-    log(f"(b) build + load of {SOURCE}: {dt:.2f} s "
-        f"({drk._build.library_path('dense_rows').name})")
+    log(f"(b) build + load of {SOURCE} and {TOPK_SOURCE}: {dt:.2f} s "
+        f"({', '.join(p.name for p in paths.values())})")
     return dt
 
 
@@ -357,6 +379,259 @@ def run_cell(tag: str):
     return phase_main_path(tag, data, Params(**params_kw), expect_codes)
 
 
+# ----------------------------------------------------------------------
+# (f) and (g): the top-N kernel and the ranking path
+# ----------------------------------------------------------------------
+
+# bench.py's BPR + HR@10 shape and step (bench.py:44-55, 191-193,
+# 210-211), split 80/10/10, with the regularization of the JAX package's
+# own end-to-end BPR run at this shape (scripts/tpu_bpr_end2end.py:65):
+# at bench.py's 0.01 the per-occurrence decay shrinks the popular items
+# faster than lr 0.005 (x0.9 per epoch) grows them, and val HR@10 falls
+# below its initial value and stays there (30 epochs at 20k x 4k on the
+# CPU). Cut to 8 epochs: HR@10 dips in the first two and lifts from the
+# third (same CPU run); the margin is for the 5x larger catalog.
+BPR_CELL = (dict(n_users=100_000, n_items=20_000, density=0.005, noise=0.1,
+                 power_law=0.6, stars=False, val_pc=0.1),
+            dict(fac_dim=64, u_reg=0.001, i_reg=0.001, learn_rate=0.005,
+                 seed=0, batch_size=65_536, n_negatives=2,
+                 bpr_sampler="rankgap", eval_user_block=4096,
+                 eval_item_block=32768, max_iter=8, obj_iter=1,
+                 disp_iter=1, save_iter=1))
+RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke")
+
+
+def _csr(rated: torch.Tensor):
+    """(int64 indptr, int32 indices) of a [n_users, n_items] bool mask."""
+    r, c = rated.nonzero(as_tuple=True)
+    indptr = torch.zeros(rated.shape[0] + 1, dtype=torch.int64)
+    indptr[1:] = torch.cumsum(torch.bincount(r, minlength=rated.shape[0]),
+                              0)
+    return indptr, c.to(torch.int32)
+
+
+def topk_case(n_users: int, n_items: int, k: int, exact: bool,
+              gen: torch.Generator, dev) -> dict:
+    """topk_catalog's inputs. ~5% invalid items; train rows at ~5% density;
+    users 0-3 rated every item but 40 (fewer scorable items than n at
+    n >= 100), users 4-5 every item (none scorable); every user queried,
+    in a random order, some twice. exact=True: factors +-m/256 (_dyadic
+    rounded to bf16, m in 65..127), biases and mu multiples of 1/64, so
+    every score is exact in f32 in any summation order; a tenth of the
+    items copy another item's row and bias: exact ties."""
+    if exact:
+        u = _dyadic((n_users, k), gen).bfloat16().float()
+        i = _dyadic((n_items, k), gen).bfloat16().float()
+        ub = torch.randint(-64, 65, (n_users,), generator=gen) / 64.0
+        ib = torch.randint(-64, 65, (n_items,), generator=gen) / 64.0
+        mu = torch.tensor(0.25)
+        dst = torch.randperm(n_items, generator=gen)[: n_items // 10]
+        src = torch.randint(0, n_items, (len(dst),), generator=gen)
+        i[dst], ib[dst] = i[src], ib[src]
+    else:
+        u = 0.3 * torch.randn((n_users, k), generator=gen)
+        i = 0.3 * torch.randn((n_items, k), generator=gen)
+        ub = 0.1 * torch.randn((n_users,), generator=gen)
+        ib = 0.1 * torch.randn((n_items,), generator=gen)
+        mu = torch.tensor(0.3)
+    rated = torch.rand((n_users, n_items), generator=gen) < 0.05
+    rated[:6] = True
+    for r in range(4):
+        rated[r, torch.randperm(n_items, generator=gen)[:40]] = False
+    indptr, indices = _csr(rated)
+    users = torch.cat([torch.randperm(n_users, generator=gen),
+                       torch.randint(0, n_users, (37,), generator=gen)])
+    case = dict(u_fac=u, i_fac=i, i_bias=ib, u_bias=ub, mu=mu,
+                invalid=torch.rand((n_items,), generator=gen) < 0.05,
+                indptr=indptr, indices=indices, users=users)
+    return {key: t.to(dev) for key, t in case.items()}
+
+
+def topk_agree(got, want, exact: bool):
+    """(ok, max abs score error, share of slots whose ids were held).
+    Scores within TOPK_RTOL / TOPK_ATOL (exact: equal); ids equal at every
+    slot whose score is further than twice that from both neighbours
+    (exact: every slot); id -1 slots always."""
+    gs, gi = (t.cpu() for t in got)
+    ws, wi = (t.cpu() for t in want)
+    tol = TOPK_ATOL + TOPK_RTOL * ws.abs()
+    err = float((gs - ws).abs().max()) if ws.numel() else 0.0
+    if exact:
+        ok_s = torch.equal(gs, ws)
+        held = torch.ones_like(wi, dtype=torch.bool)
+    else:
+        ok_s = bool(((gs - ws).abs() <= tol).all())
+        inf = torch.full((ws.shape[0], 1), float("inf"))
+        gap = ws[:, :-1] - ws[:, 1:]
+        before = torch.cat([inf, gap], 1)
+        after = torch.cat([gap, inf], 1)
+        held = ((before > 2 * tol) & (after > 2 * tol)) | (wi == -1)
+    ok = ok_s and bool((gi[held] == wi[held]).all())
+    return ok, err, float(held.float().mean())
+
+
+def phase_topk_vs_plain(dev="cuda") -> float:
+    """Max abs score error over all (f) cases."""
+    gen = torch.Generator().manual_seed(3)
+    n_users, n_items = 600, 3001   # ragged against every tile
+    worst, failures = 0.0, []
+    for exact in (False, True):
+        for k in (32, 64, 128):
+            case = topk_case(n_users, n_items, k, exact, gen, dev)
+            for n in (1, 10, 100, 1000):
+                got = tk.topk_catalog(**case, n=n)
+                want = tk.topk_plain(**case, n=n)
+                torch.cuda.synchronize()
+                ok, err, held = topk_agree(got, want, exact)
+                worst = max(worst, err)
+                pads = int((want[1] == -1).sum())
+                ties = int((want[0][:, 1:] == want[0][:, :-1]).logical_and(
+                    want[1][:, 1:] >= 0).sum())
+                log(f"(f) {'exact' if exact else 'random'} k={k:3d} "
+                    f"n={n:4d} max_abs {err:.3e} ids held at {held:.4f} of "
+                    f"slots; -1 slots {pads}, tied neighbours {ties} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append((exact, k, n))
+    if failures:
+        raise AssertionError(f"top-N kernel disagrees with topk_plain "
+                             f"(rtol {TOPK_RTOL}, atol {TOPK_ATOL}; exact "
+                             f"cases exactly): {failures}")
+    return worst
+
+
+def _cuda_ms(fn, reps: int = 1) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _held_metric(tag, name, kern, plain, rows_differ, n_val):
+    """A LOO metric from the kernel's and the plain version's ids: equal,
+    but for users whose id rows differ at near-ties (one credit each)."""
+    bound = rows_differ / max(n_val, 1)
+    ok = abs(kern - plain) <= bound
+    log(f"(g) {name}: kernel {kern!r} plain {plain!r} ({rows_differ} of "
+        f"the users' id rows differ at near-ties, bound {bound:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"({tag}) {name} kernel vs plain")
+
+
+def phase_ranking(dev="cuda"):
+    """(g): returns (launches, max abs error, kernel ms, plain ms) of the
+    HR@10 top-N pass over every user."""
+    data_kw, params_kw = BPR_CELL
+    data = bench_data(**data_kw)
+    params = Params(**params_kw)
+    os.makedirs(RUN_DIR, exist_ok=True)
+    prefix = os.path.join(RUN_DIR, "bpr")
+    tk.topk_catalog.launches = 0
+    t0 = time.perf_counter()
+    rep, model, scorer, _ = train_model(data, params, algo="bpr",
+                                        mf_method="train", device=dev,
+                                        prefix=prefix,
+                                        log_fn=lambda s: log(f"(g) {s}"))
+    wall = time.perf_counter() - t0
+    launches = tk.topk_catalog.launches
+    epochs = len(rep.history)
+    assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
+        (rep.stop_reason, epochs)
+    per_pass = (-(-data.n_users // tk.chunk_users(data.n_items))
+                * tk.KERNELS_PER_CHUNK)
+    want = (1 + epochs) * per_pass   # the initial check and one per epoch
+    assert launches == want, f"top-N launches {launches} != {want}"
+    solver = rep.solver
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    hr0 = scorer.hit_rate(model.eval_view(s0), data.val_mat, 10)
+    hrs = [h.val_rmse for h in rep.history]
+    log(f"(g) {solver.n_pos} positives in {solver.n_batches} batches; "
+        f"train_model wall {wall:.1f} s; val HR@10 at init {hr0!r}, per "
+        f"epoch {hrs!r}, best {rep.best_metric!r} at epoch "
+        f"{rep.best_iter}; top-N launches {launches}")
+    assert all(np.isfinite(hrs)), hrs
+    assert rep.best_metric > hr0, (rep.best_metric, hr0)
+
+    view = model.eval_view(rep.best_state)
+    args = dict(u_fac=view.u_fac, i_fac=view.i_fac, i_bias=view.i_bias,
+                u_bias=view.u_bias, mu=view.mu,
+                invalid=scorer.invalid_items_dev, indptr=scorer.indptr,
+                indices=scorer.indices, users=scorer._all_users)
+    got = tk.topk_catalog(**args, n=10)
+    want10 = tk.topk_plain(**args, n=10)
+    ok, err, held = topk_agree(got, want10, False)
+    log(f"(g) top-10 of all {data.n_users} users on the best view, kernel "
+        f"vs plain: max_abs {err:.3e}, ids held at {held:.4f} of slots "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(g) top-10 kernel vs plain")
+    n_val = scorer._loo_staged(data.val_mat)[2]
+    _held_metric("g", "val HR@10", scorer.hit_rate(view, data.val_mat, 10),
+                 scorer.loo_credit(want10[1], data.val_mat, False),
+                 int((got[1] != want10[1]).any(1).sum()), n_val)
+    got1k = tk.topk_catalog(**args, n=1000)
+    want1k = tk.topk_plain(**args, n=1000)
+    ok1k, err1k, held1k = topk_agree(got1k, want1k, False)
+    log(f"(g) top-1000, kernel vs plain: max_abs {err1k:.3e}, ids held at "
+        f"{held1k:.4f} of slots {'ok' if ok1k else 'FAIL'}")
+    if not ok1k:
+        raise AssertionError("(g) top-1000 kernel vs plain")
+    n_test = scorer._loo_staged(data.test_mat)[2]
+    _held_metric("g", "test ARHR (n=1000)",
+                 scorer.arhr(view, data.test_mat, 1000),
+                 scorer.loo_credit(want1k[1], data.test_mat, True),
+                 int((got1k[1] != want1k[1]).any(1).sum()), n_test)
+    del got1k, want1k
+
+    rec = Recommender.from_checkpoint(prefix, params, data, device=dev)
+    users = torch.randperm(data.n_users, generator=torch.Generator()
+                           .manual_seed(5))[:2048]
+    items, scores = rec.recommend(users.numpy(), n=10)
+    rv = rec.view
+    want_r = tk.topk_plain(rv.u_fac, rv.i_fac, rv.i_bias, rv.u_bias, rv.mu,
+                           scorer.invalid_items_dev, scorer.indptr,
+                           scorer.indices, users.to(dev), 10)
+    ok_r, err_r, held_r = topk_agree(
+        (torch.from_numpy(scores), torch.from_numpy(items).to(torch.int32)),
+        want_r, False)
+    log(f"(g) Recommender.from_checkpoint: 2048 users at n=10 vs plain: "
+        f"max_abs {err_r:.3e}, ids held at {held_r:.4f} of slots "
+        f"{'ok' if ok_r else 'FAIL'}")
+    if not ok_r:
+        raise AssertionError("(g) Recommender kernel vs plain")
+
+    # timings: the loop's epochs (host clock, synced), and the HR@10 top-N
+    # pass over every user, CUDA events after the bench's 2 warm-ups, in
+    # turns plain, kernel, kernel, plain
+    epoch_ms = [1e3 * h.seconds for h in rep.history]
+    steady = float(np.median(epoch_ms[1:])) if epochs > 1 else epoch_ms[0]
+    kern = lambda: tk.topk_catalog(**args, n=10)
+    plain = lambda: tk.topk_plain(**args, n=10)
+    for _ in range(2):
+        kern(), plain()
+    p_ms = [_cuda_ms(plain)]
+    k_ms = [_cuda_ms(kern), _cuda_ms(kern)]
+    p_ms.append(_cuda_ms(plain))
+    hr_ms = _cuda_ms(lambda: scorer.hit_rate(view, data.val_mat, 10), 2)
+    log(f"(g) BPR epoch in the loop (host clock, synchronized): "
+        f"{epoch_ms!r} ms; median after the first {steady:.3f} ms = "
+        f"{solver.n_pos / steady * 1e3:.4e} pairs/s")
+    log(f"(g) HR@10 top-N pass over {data.n_users} users x "
+        f"{data.n_items} items (CUDA events): kernel {k_ms!r} ms, plain "
+        f"{p_ms!r} ms; scorer.hit_rate (kernel, LOO credit included) "
+        f"{hr_ms:.3f} ms")
+    del rep, solver, scorer, rec, got, want10
+    torch.cuda.empty_cache()
+    return (launches, max(err, err1k, err_r), float(np.mean(k_ms)),
+            float(np.mean(p_ms)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to run",
@@ -368,6 +643,8 @@ def main() -> int:
     exact = phase_bf16_rounding()
     n_d, err_d, k_d, p_d = run_cell("d")
     n_e, err_e, k_e, p_e = run_cell("e")
+    err_f = phase_topk_vs_plain()
+    n_g, err_g, k_g, p_g = phase_ranking()
 
     float_err = max(worst["f32+W"], worst["bf16+W"], exact["f32+W"],
                     exact["bf16+W"], err_d)
@@ -383,6 +660,10 @@ def main() -> int:
          "launches": n_e,
          "max_abs_err": max(worst["codes"], exact["codes"], err_e),
          "ms": k_e, "plain_ms": p_e},
+        {"name": "topk_catalog", "route": "cuda", "source": TOPK_SOURCE,
+         "replaces": "matfac_tpu/ops/topk_kernel.py:118",
+         "launches": n_g, "max_abs_err": max(err_f, err_g), "ms": k_g,
+         "plain_ms": p_g},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,10 +6,14 @@ The port imports ``torch`` and never ``jax``. The numpy-only parts of the
 JAX package (``config``, ``data``, ``utils.freq``) are imported, not
 copied.
 
-Slice covered so far: plain MF trained by the row-dense stripe SGD engine
+Slices covered so far: plain MF trained by the row-dense stripe SGD engine
 (``train.loop.train_model(algo="mf", mf_method="densesgd")``), whose stripe
-update runs as a hand-written CUDA kernel (``csrc/dense_rows.cu``) on a
-CUDA tensor and as plain PyTorch on a CPU tensor.
+update runs as a hand-written CUDA kernel (``csrc/dense_rows.cu``); and the
+ranking path, BPR trained with model selection on val HR@10
+(``train_model(algo="bpr")``), ranking eval (``eval.ranking``) and serving
+(``serving.Recommender``), whose full-catalog top-N runs as a hand-written
+CUDA kernel (``csrc/topk.cu``). Each kernel runs on a CUDA tensor, its
+plain PyTorch version on a CPU tensor.
 """
 
 from matfac_tpu.config import Params

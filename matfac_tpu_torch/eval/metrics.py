@@ -1,6 +1,6 @@
-"""Pointwise evaluation: RMSE and the regularized objective (port of the
-training-time part of matfac_tpu/eval/metrics.py; ``objective_sing``,
-``full_low_rank_err`` and NDCG are ROADMAP queue 1, item 4).
+"""Pointwise evaluation: RMSE, the regularized objective and NDCG@n (port
+of matfac_tpu/eval/metrics.py; ``objective_sing`` and
+``full_low_rank_err`` are ROADMAP queue 1, item 4).
 
 Semantics of the reference (model.cpp:214-251 RMSE with invalid
 filtering, model.cpp:1770-1815 objective). Torch runs eagerly, so the COO
@@ -90,6 +90,11 @@ class Evaluator:
             (~invalid_users).astype(np.float32)).to(device)
         self.valid_i = torch.from_numpy(
             (~invalid_items).astype(np.float32)).to(device)
+        self.invalid_users = invalid_users
+        self.invalid_items = invalid_items
+        self.device = torch.device(device)
+        self._data = data
+        self._ndcg_cache = {}
         stage = lambda mat: None if mat is None else stage_coo(
             mat, invalid_users, invalid_items, self.n_users, self.n_items,
             device)
@@ -120,3 +125,71 @@ class Evaluator:
                                self.valid_u, self.valid_i, float(p.u_reg),
                                float(p.i_reg))
         return float(s + reg)
+
+    # -- NDCG ----------------------------------------------------------
+    def _padded_test(self, which: str):
+        if which not in self._ndcg_cache:
+            mat = (self._data.test_mat if which == "test"
+                   else self._data.val_mat)
+            cols, vals, mask = mat.pad_rows()
+            # invalid items are excluded from the scan (model.cpp:785)
+            mask = mask & ~self.invalid_items[cols]
+            user_ids = np.arange(mat.nrows, dtype=np.int64)
+            user_valid = ~self.invalid_users[:mat.nrows]
+            self._ndcg_cache[which] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (cols.astype(np.int64), vals.astype(np.float32),
+                          mask, user_ids, user_valid))
+        return self._ndcg_cache[which]
+
+    def ndcg(self, view: EvalView, which: str = "test", n: int = 10,
+             user_mask=None) -> float:
+        """``user_mask``: optional boolean [n_users-ish] restricting the
+        averaged users (quartileNDCG, main.cpp:568)."""
+        cols, vals, mask, user_ids, user_valid = self._padded_test(which)
+        if user_mask is not None:
+            um = torch.from_numpy(np.asarray(
+                user_mask[: user_valid.shape[0]], bool)).to(self.device)
+            user_valid = user_valid & um
+        total, cnt = ndcg_at_n(view, cols, vals, mask, user_ids,
+                               user_valid, n=n, eps=self.params.eps)
+        return total / cnt if cnt else 0.0
+
+
+def ndcg_at_n(view: EvalView, test_cols: torch.Tensor,
+              test_vals: torch.Tensor, test_mask: torch.Tensor,
+              user_ids: torch.Tensor, user_valid: torch.Tensor, n: int = 10,
+              eps: float = 1e-5) -> Tuple[float, int]:
+    """NDCG@n with the reference's protocol (model.cpp:760-830): per user,
+    keep the n test items with the HIGHEST PREDICTED rating (equal
+    predictions in column order, as lax.top_k); DCG uses their actual
+    ratings in prediction order, the ideal DCG re-sorts those same n by
+    actual rating. Users with <2 valid test entries or ideal DCG <= eps
+    are skipped. Inputs are padded per-user test rows [B, C] (bool mask
+    and validity); returns (sum of NDCG in float64, contributing users)."""
+    B, C = test_cols.shape
+    preds = ((view.mu + view.u_bias[user_ids][:, None])
+             + view.i_bias[test_cols]) + torch.einsum(
+                 "bk,bck->bc", view.u_fac[user_ids], view.i_fac[test_cols])
+    neg_inf = float(np.float32(-3e38))
+    masked = torch.where(test_mask, preds, neg_inf)
+    n_eff = min(n, C)
+    top_idx = torch.sort(masked, dim=1, descending=True,
+                         stable=True)[1][:, :n_eff]
+    rels = torch.gather(test_vals, 1, top_idx)
+    sel_valid = torch.gather(test_mask, 1, top_idx)
+    discounts = 1.0 / torch.log2(torch.arange(
+        2, n_eff + 2, dtype=torch.float32, device=preds.device))
+    gains = torch.where(sel_valid, torch.exp2(rels) - 1.0, 0.0)
+    dcg = (gains * discounts[None, :]).sum(dim=1)
+    # ideal order: valid gains (negative for negative ratings) sorted
+    # descending and COMPACTED to the front: masked padding sorts last
+    sort_key = torch.where(sel_valid, gains, neg_inf)
+    ideal_sorted = torch.sort(sort_key, dim=1, descending=True)[0]
+    ideal_gains = torch.where(ideal_sorted > neg_inf / 2, ideal_sorted, 0.0)
+    idcg = (ideal_gains * discounts[None, :]).sum(dim=1)
+    counts = test_mask.sum(dim=1)
+    ok = user_valid & (counts >= 2) & (idcg > eps)
+    ratio = dcg / torch.clamp(idcg, min=eps)
+    return (float(torch.where(ok, ratio, 0.0).sum(dtype=torch.float64)),
+            int(ok.sum()))

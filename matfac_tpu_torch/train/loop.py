@@ -1,5 +1,5 @@
-"""The training loop and its front door (port of matfac_tpu/train/loop.py
-for plain MF on the row-dense engine).
+"""The training loops and their front door (port of matfac_tpu/train/loop.py
+for plain MF on the row-dense engine and for plain BPR).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -13,6 +13,7 @@ Termination is Model::isTerminateModel (model.cpp:1471-1540):
   * |prevObj - currObj| < EPS -> stop ("converged").
 
 Best-on-validation is what gets checkpointed (modelMF.cpp:135-146).
+``TrainLoopHR`` is the ranking counterpart (Model::isTerminateModelHR).
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ import torch
 from matfac_tpu.config import Params
 from matfac_tpu.utils import freq as ufreq
 from matfac_tpu_torch.eval.metrics import Evaluator
+from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import MFState, ModelMF, init_state
+from matfac_tpu_torch.models.bpr import ModelMFBPR
 from matfac_tpu_torch.solvers.block_sgd import BlockSGDSolver
+from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
 
 
@@ -37,7 +41,8 @@ from matfac_tpu_torch.train import checkpoint as ckpt
 class EpochLog:
     epoch: int
     objective: float
-    val_rmse: float
+    val_rmse: float      # the selection metric (val HR@10 in TrainLoopHR)
+    train_rmse: float    # nan unless the loop tracks it
     lr: float
     seconds: float
 
@@ -46,7 +51,7 @@ class EpochLog:
 class TrainReport:
     state: MFState               # final running state
     best_state: MFState          # best-on-validation snapshot
-    best_metric: float           # val RMSE
+    best_metric: float   # val RMSE (TrainLoop) or val HR@10 (TrainLoopHR)
     best_iter: int
     stop_reason: str
     history: List[EpochLog]
@@ -69,7 +74,8 @@ class TrainLoop:
                  prefix: Optional[str] = None,
                  invalid_users: Optional[np.ndarray] = None,
                  invalid_items: Optional[np.ndarray] = None,
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print,
+                 track_train_rmse: bool = False):
         self.model = model
         self.solver = solver
         self.ev = evaluator
@@ -78,6 +84,7 @@ class TrainLoop:
         self.invalid_users = invalid_users
         self.invalid_items = invalid_items
         self.log_fn = log_fn
+        self.track_train_rmse = track_train_rmse
 
     def _objective(self, state: MFState) -> float:
         return self.ev.objective(self.model.eval_view(state), state,
@@ -164,7 +171,9 @@ class TrainLoop:
                 converged = abs(prev_obj - obj) < p.eps
                 prev_obj = obj
 
-                history.append(EpochLog(it, obj, val, lr, dt))
+                tr_rmse = (self.ev.rmse(view, "train")
+                           if self.track_train_rmse else float("nan"))
+                history.append(EpochLog(it, obj, val, tr_rmse, lr, dt))
                 if it % p.disp_iter == 0:
                     self.log_fn(
                         f"epoch {it}: obj {obj:.6e} val_rmse {val:.6f} "
@@ -199,6 +208,138 @@ class TrainLoop:
                            history)
 
 
+class TrainLoopHR:
+    """Ranking-model training loop: model selection on validation HR@10.
+
+    Model::isTerminateModelHR (model.cpp:1335-1377) around
+    ModelMFBPR::train's epoch structure (modelMFBPR.cpp:469-554): lr
+    decays x0.9 every epoch, best snapshot on an HR improvement, halving
+    after 100 stagnant epochs, CHANCE_ITER give-up, a stop on a non-finite
+    loss. ``EpochLog.objective`` holds the epoch's BPR loss and
+    ``val_rmse`` the selection metric."""
+
+    def __init__(self, model, solver, scorer, val_mat, params: Params,
+                 log_fn: Callable[[str], None] = print,
+                 metric_fn: Optional[Callable] = None,
+                 prefix: Optional[str] = None,
+                 invalid_users: Optional[np.ndarray] = None,
+                 invalid_items: Optional[np.ndarray] = None):
+        """``metric_fn(view) -> float`` (higher = better) overrides val
+        HR@10, e.g. NDCG for trainHog / trainHogPosNeg
+        (modelMFBPR.cpp:633, isTerminateModelNDCG model.cpp:1379).
+        ``prefix`` enables TrainLoop's checkpoint protocol (bestModel,
+        model.cpp:89-101)."""
+        self.model = model
+        self.solver = solver
+        self.scorer = scorer
+        self.val_mat = val_mat
+        self.params = params
+        self.log_fn = log_fn
+        self.prefix = prefix
+        self.invalid_users = invalid_users
+        self.invalid_items = invalid_items
+        self.metric_fn = metric_fn or (
+            lambda view: self.scorer.hit_rate(view, self.val_mat, 10))
+
+    def run(self, state: MFState, resume: bool = False) -> TrainReport:
+        """``resume=True`` with a prefix continues exactly from the last
+        {prefix}_loop.npz: epoch counter, decayed lr, best HR and
+        snapshot, the solver's generator state and its last loss and
+        inversions."""
+        p = self.params
+        lr = p.learn_rate
+        best_iter = -1
+        start_iter = 0
+        history: List[EpochLog] = []
+        stop = "max_iter"
+        sig = (ckpt.model_signature(p, self.model.n_users,
+                                    self.model.n_items)
+               if self.prefix else None)
+        loop_path = f"{self.prefix}_loop.npz" if self.prefix else None
+        best_path = f"{self.prefix}_loop_best.npz" if self.prefix else None
+        device = state.u_fac.device
+
+        resuming = bool(resume and loop_path and os.path.exists(loop_path)
+                        and os.path.exists(best_path))
+        if resume and loop_path and os.path.exists(loop_path) \
+                and not resuming:
+            self.log_fn(f"resume requested but {best_path} is missing "
+                        "(interrupted mid-save?) — starting fresh")
+        if resuming:
+            state, extra = ckpt.load_state(loop_path, device)
+            best_state, _ = ckpt.load_state(best_path, device)
+            lr = float(extra["lr"])
+            best_hr = float(extra["best_hr"])
+            best_iter = int(extra["best_iter"])
+            start_iter = int(extra["epoch"]) + 1
+            self.solver.set_internal_state(
+                {k[len("solver__"):]: v for k, v in extra.items()
+                 if k.startswith("solver__")})
+            self.solver.last_loss = torch.tensor(
+                float(extra["last_loss"]), device=device)
+            self.solver.last_inversions = torch.tensor(
+                int(extra["last_inversions"]), device=device)
+            self.log_fn(f"resumed from {loop_path} at epoch {start_iter}")
+        else:
+            best_state = _snapshot(state)
+            best_hr = self.metric_fn(self.model.eval_view(state))
+
+        for it in range(start_iter, p.max_iter):
+            t0 = time.perf_counter()
+            state = self.solver.epoch(state, lr)
+            _sync(state)
+            dt = time.perf_counter() - t0
+            loss = float(self.solver.last_loss)
+            if not np.isfinite(loss):
+                # the reference exits hard (modelMFBPR.cpp:527-530)
+                self.log_fn(f"epoch {it}: non-finite BPR loss {loss} — "
+                            "stopping (decrease learn rate)")
+                stop = "nonfinite_loss"
+                break
+            lr *= 0.9  # modelMFBPR.cpp:533
+
+            if it % p.obj_iter == 0 or it == p.max_iter - 1:
+                hr = self.metric_fn(self.model.eval_view(state))
+                if hr > best_hr:
+                    best_state = _snapshot(state)
+                    best_hr = hr
+                    best_iter = it
+                if it - best_iter >= 100 and lr > 1e-5:
+                    lr /= 2
+                if it - best_iter >= p.chance_iter:
+                    stop = "not_converged_chance_iter"
+                    break
+                history.append(EpochLog(it, loss, hr, float("nan"), lr, dt))
+                if it % p.disp_iter == 0:
+                    self.log_fn(
+                        f"epoch {it}: HR {hr:.4f} best {best_hr:.4f} "
+                        f"loss {loss:.4e} inversions "
+                        f"{int(self.solver.last_inversions)} "
+                        f"lr {lr:g} {dt*1000:.1f}ms")
+
+                if self.prefix and (it % p.save_iter == 0
+                                    or it == p.max_iter - 1):
+                    ckpt.save_facs(best_state, self.prefix, sig)
+                    ckpt.save_state(
+                        loop_path, state, epoch=np.int64(it),
+                        lr=np.float64(lr), best_hr=np.float64(best_hr),
+                        best_iter=np.int64(best_iter),
+                        last_loss=np.float64(loss),
+                        last_inversions=np.int64(
+                            int(self.solver.last_inversions)),
+                        **{"solver__" + k: np.asarray(v) for k, v in
+                           self.solver.internal_state().items()})
+                    ckpt.save_state(best_path, best_state)
+
+        if self.prefix:
+            ckpt.save_facs(best_state, self.prefix, sig)
+            if self.invalid_users is not None:
+                ckpt.save_invalid(self.prefix, self.invalid_users,
+                                  self.invalid_items)
+        return TrainReport(state, best_state, best_hr, best_iter, stop,
+                           history)
+
+
 # ----------------------------------------------------------------------
 # one-call front door
 # ----------------------------------------------------------------------
@@ -209,18 +350,33 @@ def train_model(data, params: Params, algo: str = "mf",
                 prefix: Optional[str] = None, mesh=None,
                 resume: bool = False, device="cuda"):
     """Build model + solver and train; the JAX package's front door for
-    the slice ported so far: ``algo="mf"`` with ``mf_method="densesgd"``.
-    Everything else raises NotImplementedError naming its ROADMAP item.
-    Returns (report, model, evaluator, (invalid_users, invalid_items))."""
+    the slices ported so far: ``algo="mf"`` with ``mf_method="densesgd"``,
+    and ``algo="bpr"`` (the pairwise stream or posneg engine with model
+    selection on val HR@10, or NDCG for hog / posneg). Everything else
+    raises NotImplementedError naming its ROADMAP item. Returns (report,
+    model, evaluator or scorer, (invalid_users, invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is ROADMAP queue 1, item 13")
+    if a in ("bprpoissondropout", "bpr_poisson"):
+        raise NotImplementedError(
+            f"algo={algo!r}: the BPR x TMF+Poisson hybrid needs the "
+            "long-tail models, ROADMAP queue 1, item 7")
+    inval_u, inval_i = ufreq.invalid_users_items(
+        data.train_mat, data.n_users, data.n_items)
+    if a == "bpr":
+        if m == "auto":
+            # ranking trains through the one pairwise engine; 'train'
+            # (stream mode + HR selection) is the reference default
+            m = "train"
+            log_fn("mf_method=auto resolved to 'train' (BPR stream)")
+        return _train_ranking(data, params, m, log_fn, init_state_override,
+                              inval_u, inval_i, prefix, resume, device)
     if a != "mf":
         raise NotImplementedError(
-            f"algo={algo!r}: only plain MF is ported (long-tail models are "
-            "ROADMAP queue 1, item 7; BPR item 11; othersrc variants "
-            "item 14)")
+            f"algo={algo!r}: only plain MF and BPR are ported (long-tail "
+            "models are ROADMAP queue 1, item 7; othersrc variants item 14)")
     if m == "auto":
         raise NotImplementedError(
             "mf_method='auto' resolves to ALS for plain MF, which is "
@@ -231,8 +387,6 @@ def train_model(data, params: Params, algo: str = "mf",
             "blocksgd are ROADMAP queue 1, item 9; ALS item 10; CCD/CCD++ "
             "item 12)")
 
-    inval_u, inval_i = ufreq.invalid_users_items(
-        data.train_mat, data.n_users, data.n_items)
     model = ModelMF(params, data.n_users, data.n_items)
     try:
         solver = BlockSGDSolver(model, params, data.train_mat, inval_u,
@@ -251,3 +405,46 @@ def train_model(data, params: Params, algo: str = "mf",
     report = loop.run(state, resume=resume)
     report.solver = solver
     return report, model, ev, (inval_u, inval_i)
+
+
+def _train_ranking(data, params: Params, mf_method: str, log_fn,
+                   init_state_override, inval_u, inval_i, prefix, resume,
+                   device):
+    """Plain BPR (the JAX ``_train_ranking``): 'hogposneg' / 'posneg'
+    train in posneg mode, every other method in stream mode; 'hog',
+    'hogposneg' and 'posneg' select on val NDCG@10 (trainHog /
+    trainHogPosNeg, modelMFBPR.cpp:245-402, :633), the rest on val
+    HR@10."""
+    if getattr(params, "bpr_engine", "stream") == "dense":
+        raise NotImplementedError(
+            "bpr_engine='dense' (solvers/bpr_dense.py, stripe score "
+            "panels) is ROADMAP queue 1, item 11")
+    model = ModelMFBPR(params, data.n_users, data.n_items)
+    mode = "posneg" if mf_method in ("hogposneg", "posneg") else "stream"
+    solver = BPRSolver(model, params, data.train_mat, inval_u, inval_i,
+                       n_tries=params.n_negatives, mode=mode,
+                       sampler=params.bpr_sampler, device=device)
+    scorer = CatalogScorer(data.train_mat, inval_u, inval_i, data.n_users,
+                           data.n_items,
+                           user_block=min(params.eval_user_block,
+                                          _round_up_pow2(data.n_users)),
+                           item_block=params.eval_item_block, device=device)
+    state = init_state_override or init_state(
+        params, data.n_users, data.n_items, device=device)
+    metric_fn = None
+    if mf_method in ("hog", "hogposneg", "posneg"):
+        ev = Evaluator(data, inval_u, inval_i, params, device)
+        metric_fn = lambda view: ev.ndcg(view, "val")
+    loop = TrainLoopHR(model, solver, scorer, data.val_mat, params,
+                       log_fn=log_fn, metric_fn=metric_fn, prefix=prefix,
+                       invalid_users=inval_u, invalid_items=inval_i)
+    report = loop.run(state, resume=resume)
+    report.solver = solver
+    return report, model, scorer, (inval_u, inval_i)
+
+
+def _round_up_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p

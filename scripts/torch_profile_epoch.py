@@ -1,23 +1,30 @@
-"""Where one epoch of the PyTorch port's main path spends its time on a GPU.
+"""Where one epoch of the PyTorch port's main paths spends its time on a GPU.
 
-    python scripts/torch_profile_epoch.py [--cell d e] [--out DIR]
+    python scripts/torch_profile_epoch.py [--cell d e g] [--out DIR]
 
-For each cell of chip_smoke.py (d: 100,000 x 20,000 continuous ratings,
-bf16 R + int8 W tiles; e: the ML-20M shape, int8 code tiles; both k=64) it
-trains two epochs through ``train_model(..., device="cuda")``, then
-profiles with ``torch.profiler`` (CUDA activity), each in its own window:
+Cells of chip_smoke.py. d: 100,000 x 20,000 continuous ratings, bf16 R +
+int8 W tiles; e: the ML-20M shape, int8 code tiles; both k=64, trained two
+epochs through ``train_model(..., device="cuda")``, then profiled with
+``torch.profiler`` (CUDA activity), each in its own window:
 
   * one solver epoch (the hand-written kernel's route, with the views);
   * one plain PyTorch epoch on the same staged tiles;
   * one objective (train SSE + regularization) and one val RMSE.
 
+g: the ranking path, plain BPR at 100,000 x 20,000, k=64, trained two
+epochs through ``train_model(algo="bpr", device="cuda")``; windows:
+
+  * one BPR epoch (sampler, gathers, scatters);
+  * one val HR@10 through the scorer (the top-N kernel, LOO credit);
+  * the same top-10 pass through the plain version.
+
 It prints per window the CUDA-event wall, the device time of each kernel
 (summed over launches) and the device's idle share of the window, one
 stream: 1 - summed kernel time / wall. The profiler can drop device
-events; for the solver epoch it prints the wrapper's own launch count
-beside the launches the profiler saw, and an idle share is only as good
-as that match. Then the peak device memory. With ``--out`` the
-profiler's full tables go to DIR/profile_<cell>.txt.
+events; where a window launches a hand-written kernel it prints the
+wrapper's own launch count beside the launches the profiler saw, and an
+idle share is only as good as that match. Then the peak device memory.
+With ``--out`` the profiler's full tables go to DIR/profile_<cell>.txt.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 from matfac_tpu_torch import Params  # noqa: E402
 from matfac_tpu_torch.ops import dense_row_kernel as drk  # noqa: E402
+from matfac_tpu_torch.ops import topk_kernel as tk  # noqa: E402
 from matfac_tpu_torch.ops.dense_block_kernel import (  # noqa: E402
     dense_sweep_rows)
 from matfac_tpu_torch.train.loop import train_model  # noqa: E402
@@ -104,18 +112,54 @@ def profile_cell(tag: str, out_dir) -> None:
                ("plain epoch", plain),
                ("objective", objective),
                ("val RMSE", lambda: ev.rmse(model.eval_view(state), "val"))]
+    run_windows(tag, windows, (drk.dense_rows_epoch, ("stripe_",)), out_dir)
+    del rep, solver, state, current, ev, u3, i_tab
+    torch.cuda.empty_cache()
+
+
+def profile_ranking(tag: str, out_dir) -> None:
+    data_kw, params_kw = cs.BPR_CELL
+    data = cs.bench_data(**data_kw)
+    params = Params(**dict(params_kw, max_iter=2))
+    torch.cuda.reset_peak_memory_stats()
+    rep, model, scorer, _ = train_model(data, params, algo="bpr",
+                                        mf_method="train", device="cuda",
+                                        log_fn=lambda s: None)
+    solver, lr = rep.solver, params.learn_rate
+    state = rep.state
+    view = model.eval_view(rep.best_state)
+    args = dict(u_fac=view.u_fac, i_fac=view.i_fac, i_bias=view.i_bias,
+                u_bias=view.u_bias, mu=view.mu,
+                invalid=scorer.invalid_items_dev, indptr=scorer.indptr,
+                indices=scorer.indices, users=scorer._all_users)
+    windows = [
+        ("BPR epoch", lambda: solver.epoch(state, lr)),
+        ("val HR@10 (top-N kernel)",
+         lambda: scorer.hit_rate(view, data.val_mat, 10)),
+        ("top-10 pass, plain version", lambda: tk.topk_plain(**args, n=10))]
+    run_windows(tag, windows,
+                (tk.topk_catalog, ("score_kernel", "select_kernel")), out_dir)
+    print(f"({tag}) {solver.n_pos} positives per epoch", flush=True)
+    del rep, solver, state, scorer, view, args
+    torch.cuda.empty_cache()
+
+
+def run_windows(tag: str, windows, counted, out_dir) -> None:
+    """Profile each (name, fn) window after one warm call; ``counted`` is
+    (wrapper with a ``launches`` count, substrings of its kernels' names)."""
+    wrapper, parts = counted
     tables = []
     for what, fn in windows:
         fn()   # warm
-        before = drk.dense_rows_epoch.launches
+        before = wrapper.launches
         wall, kernels, prof = profiled(fn)
         report(tag, what, wall, kernels)
-        launched = drk.dense_rows_epoch.launches - before
+        launched = wrapper.launches - before
         if launched:
             seen = sum(n for name, (n, _) in kernels.items()
-                       if "stripe_" in name)
-            print(f"({tag})   stripe kernel launches: {launched} by the "
-                  f"wrapper's count, {seen} seen by the profiler",
+                       if any(p in name for p in parts))
+            print(f"({tag})   hand-written kernel launches: {launched} by "
+                  f"the wrapper's count, {seen} seen by the profiler",
                   flush=True)
         tables.append(f"== {what}\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=25))
@@ -126,14 +170,12 @@ def profile_cell(tag: str, out_dir) -> None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
             f.write("\n\n".join(tables))
-    del rep, solver, state, current, ev, u3, i_tab
-    torch.cuda.empty_cache()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", nargs="+", default=["d", "e"],
-                    choices=sorted(cs.CELLS))
+    ap.add_argument("--cell", nargs="+", default=["d", "e", "g"],
+                    choices=sorted(cs.CELLS) + ["g"])
     ap.add_argument("--out", default=None,
                     help="directory for the profiler's full tables")
     args = ap.parse_args()
@@ -142,7 +184,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     for tag in args.cell:
-        profile_cell(tag, args.out)
+        if tag == "g":
+            profile_ranking(tag, args.out)
+        else:
+            profile_cell(tag, args.out)
     return 0
 
 

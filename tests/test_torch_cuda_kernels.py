@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernel (matfac_tpu_torch/csrc/dense_rows.cu)
-against its plain PyTorch version, on the card. Every test here is marked
+"""The hand-written CUDA kernels (matfac_tpu_torch/csrc/dense_rows.cu and
+csrc/topk.cu) against their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips without a CUDA device. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -12,6 +12,7 @@ import torch
 
 from matfac_tpu_torch.ops import dense_block_kernel as tdbk
 from matfac_tpu_torch.ops import dense_row_kernel as tdrk
+from matfac_tpu_torch.ops import topk_kernel as ttk
 
 LR, U_REG, I_REG = 0.05, 0.01, 0.02
 
@@ -129,3 +130,80 @@ def test_kernel_rejects_float_weights():
     with pytest.raises(ValueError, match="int8 W"):
         tdrk.dense_rows_epoch(u3, i_tab, torch.arange(2), LR, R, R.clone(),
                               None, U_REG, I_REG, True, False)
+
+
+def _topk_inputs(rng, n_users, n_items, k, exact, dev):
+    """topk_catalog's inputs: ~10% invalid items, ~5% rated, user 0 rates
+    all but 5 items, user 1 every item; exact=True: scores exact in f32
+    (factors m/128, biases and mu multiples of 1/64) and every other item
+    a copy of its neighbour: exact ties."""
+    if exact:
+        u = rng.integers(-127, 128, (n_users, k)) / 128.0
+        i = rng.integers(-127, 128, (n_items, k)) / 128.0
+        ub = rng.integers(-64, 65, n_users) / 64.0
+        ib = rng.integers(-64, 65, n_items) / 64.0
+        i[1::2], ib[1::2] = i[0:n_items - 1:2], ib[0:n_items - 1:2]
+    else:
+        u, i = rng.normal(0, 0.3, (n_users, k)), rng.normal(0, 0.3,
+                                                            (n_items, k))
+        ub, ib = rng.normal(0, 0.1, n_users), rng.normal(0, 0.1, n_items)
+    rated = rng.random((n_users, n_items)) < 0.05
+    rated[0] = True
+    rated[0, rng.choice(n_items, 5, replace=False)] = False
+    rated[1] = True
+    r, c = np.nonzero(rated)
+    indptr = np.concatenate([[0], np.cumsum(rated.sum(1))])
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                                 device=dev)
+    return dict(u_fac=f32(u), i_fac=f32(i), u_bias=f32(ub), i_bias=f32(ib),
+                mu=f32(0.25),
+                invalid=torch.from_numpy(rng.random(n_items) < 0.1).to(dev),
+                indptr=torch.from_numpy(indptr.astype(np.int64)).to(dev),
+                indices=torch.from_numpy(c.astype(np.int32)).to(dev),
+                users=torch.from_numpy(rng.permutation(n_users)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("n", [1, 10, 100, 1000])
+@pytest.mark.parametrize("k", [32, 64, 128])
+def test_topk_kernel_matches_plain(k, n, exact):
+    """A ragged catalog (1201 items), users with fewer scorable items than
+    n and none at all. Scores at rtol 1e-5 / atol 1e-6 (f32 dot products
+    in another order; exact cases equal), ids equal where no neighbour is
+    within that (exact cases: everywhere, the smaller id first on ties)."""
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(k + n), 200, 1201, k, exact,
+                        dev)
+    before = ttk.topk_catalog.launches
+    gs, gi = ttk.topk_catalog(**args, n=n)
+    assert ttk.topk_catalog.launches - before == ttk.KERNELS_PER_CHUNK
+    ws, wi = ttk.topk_plain(**args, n=n)
+    torch.cuda.synchronize()
+    gs, gi, ws, wi = gs.cpu(), gi.cpu(), ws.cpu(), wi.cpu()
+    if exact:
+        assert torch.equal(gs, ws) and torch.equal(gi, wi)
+        if n > 1:   # the ties are there, and the smaller id leads
+            tie = (gs[:, 1:] == gs[:, :-1]) & (gi[:, 1:] >= 0)
+            assert bool(tie.any())
+            assert bool((gi[:, :-1][tie] < gi[:, 1:][tie]).all())
+        return
+    torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-6)
+    tol = 2 * (1e-6 + 1e-5 * ws.abs())
+    inf = torch.full((ws.shape[0], 1), float("inf"))
+    gap = ws[:, :-1] - ws[:, 1:]
+    held = ((torch.cat([inf, gap], 1) > tol) & (torch.cat([gap, inf], 1)
+                                                > tol)) | (wi == -1)
+    assert torch.equal(gi[held], wi[held])
+    row1 = (args["users"] == 1).nonzero().item()
+    assert (gi[row1] == -1).all()   # user 1 rated every item
+
+
+@pytest.mark.cuda
+def test_topk_kernel_rejects_what_it_cannot_take():
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(0), 8, 50, 4, False, dev)
+    with pytest.raises(ValueError, match="n <= 4096"):
+        ttk.topk_catalog(**args, n=5000)
+    with pytest.raises(ValueError, match="float32"):
+        ttk.topk_catalog(**dict(args, u_fac=args["u_fac"].double()), n=3)

@@ -101,3 +101,27 @@ def test_rmse_of_a_missing_matrix_raises():
     tev = tm.Evaluator(data, iu, ii, p, device="cpu")
     with pytest.raises(ValueError, match="no val"):
         tev.rmse(None, "val")
+
+
+@pytest.mark.parametrize("extra_invalid", [False, True])
+@pytest.mark.parametrize("n", [3, 10])
+def test_ndcg_matches_jax(extra_invalid, n):
+    """NDCG@n over the padded test / val rows with invalid items masked
+    out of the scan (model.cpp:785); f32 per user, summed in another
+    order: rel 1e-6."""
+    data, p, iu, ii, leaves = _case(extra_invalid)
+    js = JState(*(jnp.asarray(a) for a in leaves))
+    ts = state_from_numpy(*leaves, device="cpu")
+    jev = JEvaluator(data, iu, ii, p)
+    tev = tm.Evaluator(data, iu, ii, p, device="cpu")
+    from matfac_tpu.models.base import EvalView as JView
+    from matfac_tpu_torch.models.base import EvalView
+    # the full view, biases and mu included
+    jv, tv = JView(*js), EvalView(*ts)
+    mask = np.random.default_rng(2).random(data.n_users) < 0.6
+    for which in ("test", "val"):
+        want = jev.ndcg(jv, which, n=n)
+        assert 0.0 < want < 1.0
+        assert tev.ndcg(tv, which, n=n) == pytest.approx(want, rel=1e-6)
+        assert tev.ndcg(tv, which, n=n, user_mask=mask) == pytest.approx(
+            jev.ndcg(jv, which, n=n, user_mask=mask), rel=1e-6)

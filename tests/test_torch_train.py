@@ -289,11 +289,41 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf"), "item 7"), (dict(algo="bpr"), "item 11"),
+    (dict(algo="tmf"), "item 7"),
+    (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11"),
     (dict(mf_method="als"), "item 10"), (dict(mf_method="sgd"), "item 9"),
     (dict(mf_method="ccd++"), "item 12"), (dict(mf_method="auto"), "item 10"),
-    (dict(mesh=object()), "item 13")])
+    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
+    """BPR is ported; its dense engine and Poisson hybrid are not."""
     data, p = _data()
+    kw = dict(kw)
+    p = p.replace(**kw.pop("params", {}))
     with pytest.raises(NotImplementedError, match=item):
         train_model(data, p, device="cpu", log_fn=lambda s: None, **kw)
+
+
+def test_epoch_log_has_the_jax_fields_and_tracks_train_rmse():
+    """EpochLog carries the JAX field set in the JAX order (train_rmse
+    between val_rmse and lr), and TrainLoop fills train_rmse when asked."""
+    import dataclasses
+
+    from matfac_tpu.train.loop import EpochLog as JEpochLog
+    from matfac_tpu_torch.train.loop import EpochLog
+    names = lambda c: [f.name for f in dataclasses.fields(c)]
+    assert names(EpochLog) == names(JEpochLog)
+    log = EpochLog(3, 1.0, 0.5, 0.25, 0.01, 2.0)
+    assert (log.train_rmse, log.lr, log.seconds) == (0.25, 0.01, 2.0)
+
+    data, p = _data()
+    p = p.replace(max_iter=2)
+    rep, model, ev, _ = train_model(data, p, device="cpu",
+                                    log_fn=lambda s: None)
+    assert all(np.isnan(h.train_rmse) for h in rep.history)
+    loop = TrainLoop(model, rep.solver, ev, p, log_fn=lambda s: None,
+                     track_train_rmse=True)
+    rep2 = loop.run(rep.state)
+    for h in rep2.history:
+        assert np.isfinite(h.train_rmse) and h.lr == pytest.approx(0.05)
+    assert rep2.history[-1].train_rmse == pytest.approx(
+        ev.rmse(model.eval_view(rep2.state), "train"), rel=1e-12)
