@@ -26,12 +26,35 @@ Phases, in order; any failure raises and the script exits non-zero:
       with val HR@10 through the kernel after each; then kernel vs plain
       on the best view (top-10 of every user, val HR@10, test ARHR at
       n=1000) and Recommender.from_checkpoint answering 2,048 users.
+  (h) one-hot cell kernel vs plain: csrc/block_sgd.cu against the plain
+      PyTorch versions on the same CUDA tensors: the row schedule, the diag
+      schedule (with a dummy lane) and fused_cell_update's single cell;
+      collision normalization, rank mask, 0/1 and float weights, ids
+      repeating within every batch, batch offsets and several steps per
+      cell, deltas in shared memory and in the global scratch; f32 and
+      bf16 products; then one-step cases whose bf16 rounding is exact, each
+      with a control in the other precision that must FAIL;
+  (i) main path of the one-hot engine: train_model(algo="mf",
+      mf_method="blocksgd") on (d)'s data, k=64, lr 0.005, 5 epochs: the
+      DSGD diag schedule, 384-blocks (261 x 53), 1024-rating steps, one
+      kernel launch per round; then fused_cell_update over the cells of one
+      round of its staged streams, one call per cell;
+  (j) the long-tail models on the same engine: algo="tmf" (rank masks)
+      and algo="ifwmf" (float weights), 2 epochs each;
+  (k) the row schedule at full shape: one epoch of
+      BlockSGDSolver(engine="pallas", schedule="row", batch_size=1024) with
+      the JAX default blocks of 1024 (98 x 20; the deltas take the global
+      scratch), one launch per user-block row.
 (d) and (e) check that every stripe went through the kernel (launch count),
 that val RMSE is finite and below its value at the initial state, replay
 the main path's first epoch on its staged tiles through the kernel and
 through the plain version and hold them together (rtol 1e-3 / atol 1e-5),
 and time both on those tensors. (g) checks the top-N launch count, that
-HR@10 is finite every epoch and its best above the initial state's.
+HR@10 is finite every epoch and its best above the initial state's. (i),
+(j) and (k) check the launch count, that the objective and val RMSE are
+finite and fall, replay a first epoch on the staged streams through kernel
+and plain with one schedule and hold them to (h)'s bf16 class, and time
+both.
 
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -51,16 +74,21 @@ import torch
 
 from matfac_tpu_torch import (Data, Params, low_rank_ratings,
                               split_train_test_val)
-from matfac_tpu_torch.models.base import init_state
+from matfac_tpu_torch.models.base import ModelMF, init_state
 from matfac_tpu_torch.ops import _build
+from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
+from matfac_tpu_torch.ops import sgd_kernel as sk
 from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.ops.dense_block_kernel import dense_sweep_rows
 from matfac_tpu_torch.serving import Recommender
-from matfac_tpu_torch.train.loop import train_model
+from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
+                                                stage_batch_collision_counts)
+from matfac_tpu_torch.train.loop import TrainLoop, train_model
 
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
 TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
+BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 1e-3, 1e-5   # summation order over bu and over panels
@@ -121,14 +149,15 @@ def phase_env() -> str:
 
 
 def phase_build() -> float:
-    """Both sources at once (one nvcc each), then load both."""
+    """Every source at once (one nvcc each), then load each."""
     t0 = time.perf_counter()
-    paths = _build.build_all(["dense_rows", "topk"])
+    paths = _build.build_all(["dense_rows", "topk", "block_sgd"])
     drk.library()
     tk.library()
+    bsk.library()
     dt = time.perf_counter() - t0
-    log(f"(b) build + load of {SOURCE} and {TOPK_SOURCE}: {dt:.2f} s "
-        f"({', '.join(p.name for p in paths.values())})")
+    log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE} and {BLOCK_SOURCE}: "
+        f"{dt:.2f} s ({', '.join(p.name for p in paths.values())})")
     return dt
 
 
@@ -287,22 +316,7 @@ def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2):
                              f"version on the main path's tiles (rtol "
                              f"{RTOL}, atol {ATOL})")
 
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    kernel(), plain()   # warm-up
-    torch.cuda.synchronize()
-    plain_ms = [timed(plain)]
-    kernel_ms = [timed(kernel), timed(kernel)]
-    plain_ms.append(timed(plain))
-    return a, float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    return (a, *_alternate(kernel, plain, reps))
 
 
 def phase_main_path(tag: str, data: Data, params: Params,
@@ -632,6 +646,450 @@ def phase_ranking(dev="cuda"):
             float(np.mean(p_ms)))
 
 
+# ----------------------------------------------------------------------
+# (h) - (k): the one-hot cell kernel and the paths that run it
+# ----------------------------------------------------------------------
+
+# f32 products: the class the JAX package pins between its two engines
+# (tests/test_block_sgd.py:235-249), summation order only
+BLOCK_RTOL, BLOCK_ATOL = 1e-5, 1e-6
+# bf16 products over several steps: a prediction summed in another order
+# can differ by one f32 ulp and flip the bf16 rounding of one -lr * g
+# term, one bf16 ulp (2^-8 to 2^-7) of it. The random cases therefore take
+# factors of 0.03 and lr 0.005, so a flip moves a factor by ~5e-6, below
+# atol, while each step still moves the factors by ~10% (a wrong product,
+# mask or count shows far above the tolerance); the main-path replays start
+# from the init of +-0.01 at lr 0.005.
+BF16_RTOL, BF16_ATOL = 1e-3, 1e-5
+# fused_cell_update: the tolerance of the JAX package's own test of it
+# against plain jnp (tests/test_pallas.py:66-101)
+FUSED_ATOL = 1e-5
+# (bu, bi, k): the deltas fit shared memory, or take the global scratch
+BLOCK_ROUTES = {"smem": (64, 48, 64), "scratch": (256, 256, 128)}
+# (i), (j), (k): bench.py's full shape (cell (d)'s data), k=64, and its
+# step: batch_size 65,536, which train_model cuts to 1024 per lane and
+# step. lr 0.005 as in bench.py: at 20,000 x 4,000, density 0.025 (the same
+# per-user and per-item degrees) on the CPU, val RMSE falls from 3.267 to
+# 0.593 in 5 epochs (mf), and by ~1e-3 in 2 epochs (tmf, ifwmf).
+BLOCK_PARAMS = dict(fac_dim=64, u_reg=0.01, i_reg=0.01, learn_rate=0.005,
+                    seed=0, batch_size=65_536, max_iter=5, obj_iter=1,
+                    disp_iter=1)
+
+
+def _zero_block_counts() -> None:
+    bsk.block_sgd_epoch.launches = 0
+    bsk.block_sgd_diag_epoch.launches = 0
+    sk.fused_cell_update.launches = 0
+
+
+def _cell_streams(gen: torch.Generator, n_rows: int, S: int, bs: int,
+                  bu: int, bi: int, k: int, float_w: bool, dummy: bool,
+                  dev):
+    """Streams [n_rows (+ an all-invalid dummy row), S] as the solver
+    stages them: ~80% valid slots, padding slots w = 0, ids 0, lam 1; ids
+    from 16 rows, so they repeat within every batch; weights 0/1 or float
+    in [0.2, 1); host-staged collision counts per static batch slice."""
+    valid = torch.rand((n_rows, S), generator=gen) < 0.8
+    if dummy:
+        valid = torch.cat([valid, torch.zeros((1, S), dtype=torch.bool)])
+    shape = valid.shape
+    ids = lambda n: torch.where(valid, torch.randint(0, min(16, n), shape,
+                                                     generator=gen), 0)
+    u, i = ids(bu).to(torch.int32), ids(bi).to(torch.int32)
+    r = torch.where(valid, 3.0 + torch.randn(shape, generator=gen), 0.0)
+    w = valid.float()
+    if float_w:
+        w = w * (0.2 + 0.8 * torch.rand(shape, generator=gen))
+    lam = torch.where(valid, torch.randint(1, k + 1, shape, generator=gen),
+                      1).to(torch.int32)
+    cnu = torch.from_numpy(stage_batch_collision_counts(w.numpy(),
+                                                        u.numpy(), bs, bu))
+    cni = torch.from_numpy(stage_batch_collision_counts(w.numpy(),
+                                                        i.numpy(), bs, bi))
+    return [x.to(dev) for x in (u, i, r, w, cnu, cni, lam)]
+
+
+def _block_kw(bs, bu, bi, NI, cn, mask, mm) -> dict:
+    return dict(bs=bs, bu=bu, bi=bi, NI=NI, u_reg=REG, i_reg=REG,
+                collision_norm=cn, use_mask=mask, mm_bf16=mm)
+
+
+def _block_case(schedule: str, route: str, gen: torch.Generator, dev,
+                exact: bool = False):
+    """(tables, schedule, streams, NI, bs) of one small case. Row: 3 rows x
+    2 cells x 3 steps; diag: 5 x 3 blocks in 6 rounds with a dummy lane, 2
+    steps per cell; both from random batch offsets. exact: one step per
+    block, factors from _dyadic (one row of one cell, or one round of 4
+    lanes)."""
+    bu, bi, k = BLOCK_ROUTES[route]
+    if exact:
+        NU = NI = 1 if schedule == "row" else 4
+        bs, n_steps = 128, 1
+    else:
+        (NU, NI), bs = ((3, 2) if schedule == "row" else (5, 3)), 64
+        n_steps = 3 if schedule == "row" else 2
+    S = bs * n_steps
+    if exact:
+        u_tab = _dyadic((NU * bu, k), gen).to(dev)
+        i_tab = _dyadic((NI * bi, k), gen).to(dev)
+    else:
+        u_tab = torch.randn((NU * bu, k), generator=gen).to(dev)
+        i_tab = torch.randn((NI * bi, k), generator=gen).to(dev)
+    if schedule == "row":
+        sched = (torch.randperm(NU, generator=gen),
+                 torch.stack([torch.randperm(NI, generator=gen)
+                              for _ in range(NU)]),
+                 torch.randint(0, n_steps, (NU, NI), generator=gen))
+    elif exact:
+        sched = (torch.randperm(NU, generator=gen)[None],
+                 torch.arange(NI)[None], torch.zeros((1, NI), dtype=torch.int64))
+    else:
+        sched = bsk.diag_schedule(gen, NU, NI, n_steps)
+        assert bool((sched[0] == NU).any())   # a dummy lane
+    return u_tab, i_tab, sched, (NU, NI, S, bs, k)
+
+
+def _block_pair(schedule, u_tab, i_tab, sched, lr, streams, kw):
+    """(kernel result, plain result) from the same inputs; checks that the
+    wrapper launched once per row or round."""
+    fn, plain = ((bsk.block_sgd_epoch, bsk.block_sweep_rows)
+                 if schedule == "row" else
+                 (bsk.block_sgd_diag_epoch, bsk.block_sweep_diag))
+    before = fn.launches
+    got = fn(u_tab.clone(), i_tab.clone(), *sched, lr, *streams, **kw)
+    # every round of these cases has a real lane
+    assert fn.launches - before == sched[0].shape[0], \
+        (fn.launches - before, sched[0].shape[0])
+    want = plain(u_tab.clone(), i_tab.clone(), *sched, lr, *streams, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def phase_block_vs_plain(dev="cuda") -> dict:
+    """(h): max abs error per kernel use ("row", "diag", "cell") over all
+    cases."""
+    gen = torch.Generator().manual_seed(6)
+    worst = {"row": 0.0, "diag": 0.0, "cell": 0.0}
+    failures = []
+    lib = bsk.library()
+    for route, (bu, bi, k) in BLOCK_ROUTES.items():
+        assert (lib.block_sgd_scratch_floats(1, bu, bi, k) > 0) == \
+            (route == "scratch"), route
+    for schedule in ("row", "diag"):
+        for route in BLOCK_ROUTES:
+            for cn in (True, False):
+                for mask in (False, True):
+                    for float_w in (False, True):
+                        for mm in (False, True):
+                            u_tab, i_tab, sched, (NU, NI, S, bs, k) = \
+                                _block_case(schedule, route, gen, dev)
+                            bu, bi, _ = BLOCK_ROUTES[route]
+                            rows = NU * NI
+                            streams = _cell_streams(
+                                gen, rows, S, bs, bu, bi, k, float_w,
+                                schedule == "diag", dev)
+                            if schedule == "row":
+                                streams = [x.view(NU, NI * S)
+                                           for x in streams]
+                            scale, lr = (0.03, 0.005) if mm else (0.3, LR)
+                            lr = lr if cn else lr / 4
+                            rtol, atol = ((BF16_RTOL, BF16_ATOL) if mm else
+                                          (BLOCK_RTOL, BLOCK_ATOL))
+                            got, want = _block_pair(
+                                schedule, scale * u_tab, scale * i_tab,
+                                sched, lr, streams,
+                                _block_kw(bs, bu, bi, NI, cn, mask, mm))
+                            a, r, ratio = _errors(got, want, rtol, atol)
+                            ok = ratio <= 1.0
+                            worst[schedule] = max(worst[schedule], a)
+                            log(f"(h) {schedule:4s} {route:7s} cn={cn!s:5s} "
+                                f"mask={mask!s:5s} float_w={float_w!s:5s} "
+                                f"mm_bf16={mm!s:5s} max_abs {a:.3e} max_rel "
+                                f"{r:.3e} err/tol {ratio:.3e} "
+                                f"{'ok' if ok else 'FAIL'}")
+                            if not ok:
+                                failures.append((schedule, route, cn, mask,
+                                                 float_w, mm))
+    # one step per block from factors exact in bf16: no rounding can flip,
+    # so both precisions hold at the f32 class, and each misses the plain
+    # version of the other precision
+    for schedule in ("row", "diag"):
+        for cn in (True, False):
+            for mask, float_w in ((False, False), (True, True)):
+                u_tab, i_tab, sched, (NU, NI, S, bs, k) = _block_case(
+                    schedule, "smem", gen, dev, exact=True)
+                bu, bi, _ = BLOCK_ROUTES["smem"]
+                streams = _cell_streams(gen, NU * NI, S, bs, bu, bi, k,
+                                        float_w, schedule == "diag", dev)
+                lr = LR if cn else LR / 4
+                res = {mm: _block_pair(schedule, u_tab, i_tab, sched, lr,
+                                       streams, _block_kw(bs, bu, bi, NI, cn,
+                                                          mask, mm))
+                       for mm in (True, False)}
+                for mm in (True, False):
+                    a, r, ratio = _errors(res[mm][0], res[mm][1],
+                                          BLOCK_RTOL, BLOCK_ATOL)
+                    ctl = _errors(res[mm][0], res[not mm][1], BLOCK_RTOL,
+                                  BLOCK_ATOL)[2]
+                    ok = ratio <= 1.0 and ctl > 1.0
+                    worst[schedule] = max(worst[schedule], a)
+                    log(f"(h) exact-bf16 {schedule:4s} cn={cn!s:5s} "
+                        f"mask={mask!s:5s} float_w={float_w!s:5s} "
+                        f"mm_bf16={mm!s:5s} max_abs {a:.3e} err/tol "
+                        f"{ratio:.3e}; control vs mm_bf16={not mm!s:5s} "
+                        f"err/tol {ctl:.3e} (must be > 1) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(("exact", schedule, cn, mask, mm))
+    # fused_cell_update: the JAX package's interpret-mode case and two more
+    for BU, BI, k, S, bs in ((32, 24, 8, 64, 16), (8, 8, 32, 96, 32),
+                             (384, 384, 64, 2048, 256)):
+        args = (0.1 * torch.randn((BU, k), generator=gen),
+                0.1 * torch.randn((BI, k), generator=gen),
+                torch.randint(0, BU, (S,), generator=gen).to(torch.int32),
+                torch.randint(0, BI, (S,), generator=gen).to(torch.int32),
+                torch.randn((S,), generator=gen),
+                (torch.rand((S,), generator=gen) > 0.2).float())
+        args = [x.to(dev) for x in args]
+        before = sk.fused_cell_update.launches
+        got = sk.fused_cell_update(*args, LR, bs, REG, 2 * REG)
+        assert sk.fused_cell_update.launches - before == 1
+        want = sk.fused_cell_plain(*args, LR, bs, REG, 2 * REG)
+        torch.cuda.synchronize()
+        a, r, ratio = _errors(got, want, 0.0, FUSED_ATOL)
+        worst["cell"] = max(worst["cell"], a)
+        ok = ratio <= 1.0
+        log(f"(h) fused_cell_update BU={BU} BI={BI} k={k} S={S} bs={bs} "
+            f"max_abs {a:.3e} err/tol {ratio:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(("cell", BU, BI, k, S, bs))
+    if failures:
+        raise AssertionError(
+            f"block kernel disagrees with the plain version (f32 rtol "
+            f"{BLOCK_RTOL} / atol {BLOCK_ATOL}, bf16 rtol {BF16_RTOL} / atol "
+            f"{BF16_ATOL}, fused atol {FUSED_ATOL}; a control that agrees "
+            f"fails too): {failures}")
+    return worst
+
+
+def _alternate(kernel, plain, reps: int = 1):
+    """(kernel ms, plain ms), CUDA events over ``reps`` calls, in turns
+    plain, kernel, kernel, plain, after one warm call of each."""
+    kernel(), plain()
+    torch.cuda.synchronize()
+    p_ms = [_cuda_ms(plain, reps)]
+    k_ms = [_cuda_ms(kernel, reps), _cuda_ms(kernel, reps)]
+    p_ms.append(_cuda_ms(plain, reps))
+    return float(np.mean(k_ms)), float(np.mean(p_ms))
+
+
+def _replay(tag: str, solver, state, lr: float, sched):
+    """One epoch of the solver's staged streams from ``state`` with one
+    schedule, through the kernel and through the plain version, held at
+    (h)'s bf16 class (f32 class without mm_bf16); then both timed.
+    Returns (max abs error, kernel ms, plain ms)."""
+    u_tab, i_tab = solver.stage_factors(state)
+    diag = solver.schedule == "diag"
+    fn = bsk.block_sgd_diag_epoch if diag else bsk.block_sgd_epoch
+    plain_fn = bsk.block_sweep_diag if diag else bsk.block_sweep_rows
+    args = (*sched, lr, *solver.streams)
+    kw = solver.sweep_kwargs()
+    kernel = lambda: fn(u_tab.clone(), i_tab.clone(), *args, **kw)
+    plain = lambda: plain_fn(u_tab.clone(), i_tab.clone(), *args, **kw)
+    rtol, atol = ((BF16_RTOL, BF16_ATOL) if solver.mm_bf16
+                  else (BLOCK_RTOL, BLOCK_ATOL))
+    a, r, ratio = _errors(kernel(), plain(), rtol, atol)
+    log(f"({tag}) first epoch replayed on the staged streams, kernel vs "
+        f"plain: max_abs {a:.3e} max_rel {r:.3e} err/tol {ratio:.3e} "
+        f"{'ok' if ratio <= 1.0 else 'FAIL'}")
+    if ratio > 1.0:
+        raise AssertionError(f"({tag}) kernel disagrees with the plain "
+                             f"version on the path's streams (rtol {rtol}, "
+                             f"atol {atol})")
+    k_ms, p_ms = _alternate(kernel, plain)
+    return a, k_ms, p_ms
+
+
+def _train_block(tag: str, data: Data, params: Params, algo: str,
+                 dev="cuda"):
+    """train_model(algo, mf_method="blocksgd") with the counts zeroed just
+    before; checks the launches, the staging and that the objective and
+    val RMSE are finite and fall. Returns (report, model, evaluator,
+    invalid masks, launches, initial state)."""
+    _zero_block_counts()
+    t0 = time.perf_counter()
+    rep, model, ev, inval = train_model(data, params, algo=algo,
+                                        mf_method="blocksgd", device=dev,
+                                        log_fn=lambda s: log(f"({tag}) {s}"))
+    wall = time.perf_counter() - t0
+    launches = (bsk.block_sgd_diag_epoch.launches,
+                bsk.block_sgd_epoch.launches, sk.fused_cell_update.launches)
+    solver = rep.solver
+    epochs = len(rep.history)
+    R = -(-solver.NU // solver.NI) * solver.NI
+    log(f"({tag}) {algo}: staged NU={solver.NU} NI={solver.NI} bu={solver.bu} "
+        f"bs={solver.bs} S={solver.S} use_mask={solver.use_mask} nnz="
+        f"{solver.nnz} pad_frac {solver.pad_frac:.3f}; {R} rounds per epoch; "
+        f"train_model wall {wall:.1f} s; stop={rep.stop_reason}; launches "
+        f"(diag, row, cell) {launches}")
+    # at the full shape: 261 x 53 blocks, 265 rounds
+    assert (solver.engine, solver.schedule, solver.bu, solver.bi, solver.bs,
+            solver.NU, solver.NI) == ("xla", "diag", 384, 384, 1024,
+                                      -(-data.n_users // 384),
+                                      -(-data.n_items // 384))
+    assert solver.use_mask == (algo == "tmf")
+    assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
+        (rep.stop_reason, epochs)
+    assert launches == (epochs * R, 0, 0), launches
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    loop = TrainLoop(model, solver, ev, params, log_fn=lambda s: None)
+    obj0 = loop._objective(s0)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    vals = [h.val_rmse for h in rep.history]
+    objs = [h.objective for h in rep.history]
+    log(f"({tag}) {algo}: val RMSE at init {val0!r}, per epoch {vals!r}; "
+        f"objective at init {obj0!r}, per epoch {objs!r}")
+    assert all(np.isfinite(vals + objs)), (vals, objs)
+    assert rep.best_metric < val0 and objs[-1] < obj0, (vals, objs)
+    for t in rep.state[:2]:
+        assert bool(torch.isfinite(t).all())
+    assert tuple(rep.state.u_fac.shape) == (data.n_users, params.fac_dim)
+    return rep, model, ev, inval, launches[0], s0
+
+
+def phase_blocksgd(data: Data, dev="cuda"):
+    """(i): returns (diag launches, replay error, kernel ms, plain ms),
+    then the single-cell path's (launches, error, kernel ms, plain ms), the
+    evaluator, the invalid masks and the initial state."""
+    params = Params(**BLOCK_PARAMS)
+    rep, model, ev, inval, launches, s0 = _train_block("i", data, params,
+                                                       "mf", dev)
+    solver = rep.solver
+    loop_ms = [1e3 * h.seconds for h in rep.history]
+    sched = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.NU,
+                              solver.NI, solver.S // solver.bs)
+    err, k_ms, p_ms = _replay("i", solver, s0, params.learn_rate, sched)
+    log(f"(i) solver epoch in the loop with its views (host clock, "
+        f"synchronized): {loop_ms!r} ms")
+    log(f"(i) diag epoch alone (CUDA events): kernel {k_ms:.3f} ms = "
+        f"{solver.nnz / k_ms * 1e3:.4e} ratings/s; plain PyTorch "
+        f"{p_ms:.3f} ms = {solver.nnz / p_ms * 1e3:.4e} ratings/s")
+    cell = phase_cells(solver, s0, params, sched)
+    del rep, solver
+    torch.cuda.empty_cache()
+    return (launches, err, k_ms, p_ms), cell, ev, inval, s0
+
+
+def phase_cells(solver, s0, params: Params, sched):
+    """fused_cell_update over the cells of round 0 of (i)'s diag schedule,
+    one call per cell on its staged stream, in 256-rating minibatches
+    (counts zeroed just before); each cell held to its plain version at
+    FUSED_ATOL, then the round timed both ways. Returns (launches, max abs
+    error, kernel ms, plain ms)."""
+    u_tab, i_tab = solver.stage_factors(s0)
+    bu, bi, NI, NU = solver.bu, solver.bi, solver.NI, solver.NU
+    lanes = [(int(u), int(i)) for u, i in zip(sched[0][0], sched[1][0])
+             if int(u) < NU]
+    p = params
+
+    def cells(fn):
+        out = []
+        for ub, ib in lanes:
+            c = ub * NI + ib
+            out.append(fn(u_tab[ub * bu:(ub + 1) * bu],
+                          i_tab[ib * bi:(ib + 1) * bi], solver.u_loc[c],
+                          solver.i_loc[c], solver.vals[c], solver.wts[c],
+                          p.learn_rate, 256, p.u_reg, p.i_reg))
+        return out
+
+    _zero_block_counts()
+    got = cells(sk.fused_cell_update)
+    launches = sk.fused_cell_update.launches
+    assert launches == len(lanes), (launches, len(lanes))
+    want = cells(sk.fused_cell_plain)
+    torch.cuda.synchronize()
+    err = max(_errors(g, w, 0.0, FUSED_ATOL)[0] for g, w in zip(got, want))
+    ratio = max(_errors(g, w, 0.0, FUSED_ATOL)[2] for g, w in zip(got, want))
+    log(f"(i) fused_cell_update over the {len(lanes)} cells of one round, "
+        f"kernel vs plain: max_abs {err:.3e} err/tol {ratio:.3e} "
+        f"{'ok' if ratio <= 1.0 else 'FAIL'}")
+    if ratio > 1.0:
+        raise AssertionError("(i) fused_cell_update disagrees with its "
+                             f"plain version (atol {FUSED_ATOL})")
+    k_ms, p_ms = _alternate(lambda: cells(sk.fused_cell_update),
+                            lambda: cells(sk.fused_cell_plain))
+    log(f"(i) one round of cells through fused_cell_update (CUDA events): "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    return launches, err, k_ms, p_ms
+
+
+def phase_longtail(data: Data, dev="cuda") -> float:
+    """(j): TMF and IFWMF, 2 epochs each; returns the max replay error."""
+    worst = 0.0
+    for algo in ("tmf", "ifwmf"):
+        params = Params(**dict(BLOCK_PARAMS, max_iter=2))
+        rep, model, ev, _, _, s0 = _train_block("j", data, params, algo,
+                                                dev)
+        solver = rep.solver
+        if algo == "ifwmf":
+            w = solver.wts[solver.wts > 0]
+            log(f"(j) ifwmf weights on the stream: min {float(w.min())!r} "
+                f"max {float(w.max())!r}")
+            assert float(w.min()) < 1.0
+        sched = bsk.diag_schedule(torch.Generator().manual_seed(2),
+                                  solver.NU, solver.NI,
+                                  solver.S // solver.bs)
+        err, k_ms, p_ms = _replay("j", solver, s0, params.learn_rate, sched)
+        log(f"(j) {algo} diag epoch alone (CUDA events): kernel {k_ms:.3f} "
+            f"ms, plain {p_ms:.3f} ms")
+        worst = max(worst, err)
+        del rep, solver
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
+    """(k): one row-schedule epoch at the JAX default blocks (counts zeroed
+    just before); returns (launches, replay error, kernel ms, plain ms)."""
+    params = Params(**BLOCK_PARAMS)
+    model = ModelMF(params, data.n_users, data.n_items)
+    solver = BlockSGDSolver(model, params, data.train_mat, *inval,
+                            batch_size=1024, engine="pallas", schedule="row",
+                            device=dev)
+    scratch = bsk.library().block_sgd_scratch_floats(1, solver.bu, solver.bi,
+                                                     params.fac_dim)
+    log(f"(k) staged NU={solver.NU} NI={solver.NI} bu={solver.bu} "
+        f"bs={solver.bs} S={solver.S} ({solver.S // solver.bs} steps per "
+        f"cell); global scratch {scratch} floats per CTA")
+    # at the full shape: 98 x 20 blocks
+    assert (solver.NU, solver.NI, solver.bu, solver.bi) == (
+        -(-data.n_users // 1024), -(-data.n_items // 1024), 1024, 1024)
+    assert scratch > 0, "1024-blocks should take the global-scratch route"
+    _zero_block_counts()
+    t0 = time.perf_counter()
+    state = solver.epoch(s0, params.learn_rate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsk.block_sgd_epoch.launches
+    assert (launches, bsk.block_sgd_diag_epoch.launches,
+            sk.fused_cell_update.launches) == (solver.NU, 0, 0)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    val1 = ev.rmse(model.eval_view(state), "val")
+    log(f"(k) one epoch through BlockSGDSolver.epoch: {wall * 1e3:.1f} ms "
+        f"(host clock); {launches} launches; val RMSE {val0!r} -> {val1!r}")
+    assert np.isfinite(val1) and val1 < val0, (val0, val1)
+    rng = np.random.default_rng(3)
+    sched = (rng.permutation(solver.NU),
+             np.stack([rng.permutation(solver.NI) for _ in range(solver.NU)]),
+             rng.integers(0, solver.S // solver.bs, (solver.NU, solver.NI)))
+    err, k_ms, p_ms = _replay("k", solver, s0, params.learn_rate, sched)
+    log(f"(k) row epoch alone (CUDA events): kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms")
+    del solver, state
+    torch.cuda.empty_cache()
+    return launches, err, k_ms, p_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to run",
@@ -641,10 +1099,17 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     exact = phase_bf16_rounding()
-    n_d, err_d, k_d, p_d = run_cell("d")
+    data_d = bench_data(**CELLS["d"][0])
+    n_d, err_d, k_d, p_d = phase_main_path("d", data_d,
+                                           Params(**CELLS["d"][1]),
+                                           CELLS["d"][2])
     n_e, err_e, k_e, p_e = run_cell("e")
     err_f = phase_topk_vs_plain()
     n_g, err_g, k_g, p_g = phase_ranking()
+    block = phase_block_vs_plain()
+    (n_i, err_i, k_i, p_i), cell, ev, inval, s0 = phase_blocksgd(data_d)
+    err_j = phase_longtail(data_d)
+    n_k, err_k, k_k, p_k = phase_rows(data_d, ev, inval, s0)
 
     float_err = max(worst["f32+W"], worst["bf16+W"], exact["f32+W"],
                     exact["bf16+W"], err_d)
@@ -664,6 +1129,19 @@ def main() -> int:
          "replaces": "matfac_tpu/ops/topk_kernel.py:118",
          "launches": n_g, "max_abs_err": max(err_f, err_g), "ms": k_g,
          "plain_ms": p_g},
+        {"name": "block_sgd<diag>", "route": "cuda", "source": BLOCK_SOURCE,
+         "replaces": "matfac_tpu/ops/block_sgd_kernel.py:148",
+         "launches": n_i, "max_abs_err": max(block["diag"], err_i, err_j),
+         "ms": k_i, "plain_ms": p_i},
+        {"name": "block_sgd<row>", "route": "cuda", "source": BLOCK_SOURCE,
+         "replaces": "matfac_tpu/ops/block_sgd_kernel.py:148",
+         "launches": n_k, "max_abs_err": max(block["row"], err_k),
+         "ms": k_k, "plain_ms": p_k},
+        {"name": "fused_cell_update", "route": "cuda",
+         "source": BLOCK_SOURCE,
+         "replaces": "matfac_tpu/ops/sgd_kernel.py:73",
+         "launches": cell[0], "max_abs_err": max(block["cell"], cell[1]),
+         "ms": cell[2], "plain_ms": cell[3]},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -79,27 +79,62 @@ def rank_mask(ranks: torch.Tensor, k: int) -> torch.Tensor:
 
 class ModelMF:
     """Plain MF: estRating = <p_u, q_i> (model.cpp:547-549); SGD update
-    weight 1, full rank."""
+    weight 1, full rank. The hooks below are the JAX ModelMF's; the
+    solvers read them to stage weights and rank masks."""
 
     name = "mf"
     use_bias = False
     use_factors = True
+    # True when the training rank is drawn at random per update: such a
+    # model needs an engine that samples ranks, not one that stages static
+    # per-pair ranks (the block engine refuses it)
+    stochastic_rank = False
 
-    def __init__(self, params: Params, n_users: int, n_items: int):
+    def __init__(self, params: Params, n_users: int, n_items: int,
+                 user_freq: Optional[np.ndarray] = None,
+                 item_freq: Optional[np.ndarray] = None):
         self.params = params
         self.n_users = n_users
         self.n_items = n_items
         self.k = params.fac_dim
+        self.user_freq = user_freq
+        self.item_freq = item_freq
+
+    # ---- prediction -------------------------------------------------
+    def entity_ranks(self):
+        """(rank_u [n_users], rank_i [n_items]) inference truncation
+        ranks, or None for full rank."""
+        return None
 
     def eval_view(self, state: MFState) -> EvalView:
-        """Full-rank factors; biases and mu are not part of plain MF."""
-        return EvalView(state.u_fac, state.i_fac,
-                        torch.zeros_like(state.u_bias),
+        """Factors masked to their entity ranks; biases only when the
+        model has them."""
+        u_fac, i_fac = state.u_fac, state.i_fac
+        ranks = self.entity_ranks()
+        if ranks is not None:
+            r_u, r_i = (r.to(u_fac.device) for r in ranks)
+            u_fac = u_fac * rank_mask(r_u, self.k).to(u_fac.dtype)
+            i_fac = i_fac * rank_mask(r_i, self.k).to(i_fac.dtype)
+        if not self.use_factors:
+            u_fac = torch.zeros_like(u_fac)
+            i_fac = torch.zeros_like(i_fac)
+        if self.use_bias:
+            return EvalView(u_fac, i_fac, state.u_bias, state.i_bias,
+                            torch.zeros_like(state.mu))
+        return EvalView(u_fac, i_fac, torch.zeros_like(state.u_bias),
                         torch.zeros_like(state.i_bias),
                         torch.zeros_like(state.mu))
 
+    # ---- SGD hooks ---------------------------------------------------
     def example_weight(self, u_idx: torch.Tensor, i_idx: torch.Tensor
                        ) -> torch.Tensor:
         """Per-example data-fit weight (1 for plain MF)."""
         return torch.ones(u_idx.shape, dtype=torch.float32,
                           device=u_idx.device)
+
+    def update_side_masks(self, u_idx: torch.Tensor, i_idx: torch.Tensor):
+        """Per-side update gates (m_u, m_i) multiplying the whole user- or
+        item-side gradient, or None. A model that overrides this carries
+        gates that only the scatter SGD engine honours; the block engine
+        refuses it (the JAX solver's test of the override)."""
+        return None

@@ -1,5 +1,6 @@
 """The training loops and their front door (port of matfac_tpu/train/loop.py
-for plain MF on the row-dense engine and for plain BPR).
+for plain MF, IFWMF and TMF on the one-hot cell engine, plain MF on the
+row-dense engine, and plain BPR).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -32,6 +33,8 @@ from matfac_tpu_torch.eval.metrics import Evaluator
 from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import MFState, ModelMF, init_state
 from matfac_tpu_torch.models.bpr import ModelMFBPR
+from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
+                                              ModelInvPopMF)
 from matfac_tpu_torch.solvers.block_sgd import BlockSGDSolver
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
@@ -85,9 +88,14 @@ class TrainLoop:
         self.invalid_items = invalid_items
         self.log_fn = log_fn
         self.track_train_rmse = track_train_rmse
+        # IFWMF weights its objective (modelInvPopMF.cpp:22-32)
+        w = model.example_weight(evaluator.train_coo.rows,
+                                 evaluator.train_coo.cols)
+        self.obj_weights = None if bool((w == 1.0).all()) else w
 
     def _objective(self, state: MFState) -> float:
         return self.ev.objective(self.model.eval_view(state), state,
+                                 self.obj_weights,
                                  use_factors=self.model.use_factors,
                                  use_bias=self.model.use_bias)
 
@@ -350,19 +358,22 @@ def train_model(data, params: Params, algo: str = "mf",
                 prefix: Optional[str] = None, mesh=None,
                 resume: bool = False, device="cuda"):
     """Build model + solver and train; the JAX package's front door for
-    the slices ported so far: ``algo="mf"`` with ``mf_method="densesgd"``,
-    and ``algo="bpr"`` (the pairwise stream or posneg engine with model
-    selection on val HR@10, or NDCG for hog / posneg). Everything else
-    raises NotImplementedError naming its ROADMAP item. Returns (report,
-    model, evaluator or scorer, (invalid_users, invalid_items))."""
+    the slices ported so far: ``algo`` "mf", "ifwmf" or "tmf" with
+    ``mf_method="blocksgd"`` (the one-hot cell engine, diag schedule),
+    "mf" with ``mf_method="densesgd"`` (the row-dense engine, falling back
+    to blocksgd when its tiles miss the budget), and ``algo="bpr"`` (the
+    pairwise stream or posneg engine with model selection on val HR@10,
+    or NDCG for hog / posneg). Everything else raises NotImplementedError
+    naming its ROADMAP item. Returns (report, model, evaluator or scorer,
+    (invalid_users, invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is ROADMAP queue 1, item 13")
-    if a in ("bprpoissondropout", "bpr_poisson"):
+    if a in ("bprpoissondropout", "bpr_poisson", "tmfdropout"):
         raise NotImplementedError(
-            f"algo={algo!r}: the BPR x TMF+Poisson hybrid needs the "
-            "long-tail models, ROADMAP queue 1, item 7")
+            f"algo={algo!r}: the Poisson-sampled TMF models are ROADMAP "
+            "queue 1, item 7")
     inval_u, inval_i = ufreq.invalid_users_items(
         data.train_mat, data.n_users, data.n_items)
     if a == "bpr":
@@ -373,29 +384,66 @@ def train_model(data, params: Params, algo: str = "mf",
             log_fn("mf_method=auto resolved to 'train' (BPR stream)")
         return _train_ranking(data, params, m, log_fn, init_state_override,
                               inval_u, inval_i, prefix, resume, device)
-    if a != "mf":
+    if a == "mf_bias":
         raise NotImplementedError(
-            f"algo={algo!r}: only plain MF and BPR are ported (long-tail "
-            "models are ROADMAP queue 1, item 7; othersrc variants item 14)")
+            "algo='mf_bias': bias models train through scatter SGD, "
+            "ROADMAP queue 1, item 9")
+    if a not in ("mf", "ifwmf", "tmf"):
+        raise NotImplementedError(
+            f"algo={algo!r}: the othersrc model variants are ROADMAP "
+            "queue 1, item 14")
+    user_freq, item_freq = ufreq.row_col_freq(data.train_mat)
+    # zero-pad: entities seen only in test / val have zero train frequency
+    user_freq = _pad_rows(user_freq, data.n_users)
+    item_freq = _pad_rows(item_freq, data.n_items)
+    if a == "ifwmf":
+        model = ModelInvPopMF(params, data.n_users, data.n_items,
+                              user_freq=user_freq, item_freq=item_freq,
+                              invalid_users=inval_u, invalid_items=inval_i)
+    elif a == "tmf":
+        model = ModelDropoutSigmoid(params, data.n_users, data.n_items,
+                                    user_freq=user_freq, item_freq=item_freq)
+    else:
+        model = ModelMF(params, data.n_users, data.n_items)
     if m == "auto":
         raise NotImplementedError(
-            "mf_method='auto' resolves to ALS for plain MF, which is "
-            "ROADMAP queue 1, item 10 — pass mf_method='densesgd'")
-    if m != "densesgd":
+            "mf_method='auto' resolves to ALS for plain MF (ROADMAP queue 1, "
+            "item 10) and to densesgd for IFWMF / TMF, whose float-W and "
+            "mask kernel instantiations are item 7 — pass "
+            "mf_method='blocksgd' or 'densesgd'")
+    if m not in ("densesgd", "blocksgd"):
         raise NotImplementedError(
-            f"mf_method={mf_method!r}: only 'densesgd' is ported (sgd and "
-            "blocksgd are ROADMAP queue 1, item 9; ALS item 10; CCD/CCD++ "
+            f"mf_method={mf_method!r}: only 'densesgd' and 'blocksgd' are "
+            "ported (sgd is ROADMAP queue 1, item 9; ALS item 10; CCD/CCD++ "
             "item 12)")
-
-    model = ModelMF(params, data.n_users, data.n_items)
-    try:
-        solver = BlockSGDSolver(model, params, data.train_mat, inval_u,
-                                inval_i, bu=None, bi=None, device=device)
-    except ValueError as e:
-        # the JAX front door falls back to blocksgd here
+    if m == "densesgd" and a != "mf":
         raise NotImplementedError(
-            f"densesgd unavailable ({e}); the blocksgd fallback is "
-            "ROADMAP queue 1, item 9") from e
+            f"algo={algo!r} on densesgd needs the stripe kernel's float-W "
+            "and mask instantiations, ROADMAP queue 1, item 7 — pass "
+            "mf_method='blocksgd'")
+    if params.reg_exponent:
+        raise ValueError(
+            f"reg_exponent is implemented for 'als' and the sgd engine, "
+            f"not '{m}' — drop the exponent or switch method")
+
+    # the one-hot cell engine as the JAX front door builds it: the DSGD
+    # diag schedule, 384-blocks, at most 1024 ratings per lane and step
+    # (JAX's pad_k=128 fills the TPU's matrix lanes; the port drops it)
+    blocksgd = lambda: BlockSGDSolver(
+        model, params, data.train_mat, inval_u, inval_i,
+        batch_size=min(params.batch_size, 1024), bu=384, bi=384,
+        schedule="diag", device=device)
+    if m == "blocksgd":
+        solver = blocksgd()
+    else:
+        try:
+            solver = BlockSGDSolver(model, params, data.train_mat, inval_u,
+                                    inval_i, engine="dense", bu=None,
+                                    bi=None, device=device)
+        except ValueError as e:
+            # over-budget grids fall back rather than crash
+            log_fn(f"densesgd unavailable ({e}); falling back to blocksgd")
+            solver = blocksgd()
     ev = Evaluator(data, inval_u, inval_i, params, device)
     state = init_state_override or init_state(
         params, data.n_users, data.n_items, device=device)
@@ -405,6 +453,15 @@ def train_model(data, params: Params, algo: str = "mf",
     report = loop.run(state, resume=resume)
     report.solver = solver
     return report, model, ev, (inval_u, inval_i)
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """Truncate or zero-pad (never tile) the leading axis to length n."""
+    a = np.asarray(a)
+    if a.shape[0] >= n:
+        return a[:n]
+    pad = [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+    return np.pad(a, pad)
 
 
 def _train_ranking(data, params: Params, mf_method: str, log_fn,

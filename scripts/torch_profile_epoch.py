@@ -1,6 +1,6 @@
 """Where one epoch of the PyTorch port's main paths spends its time on a GPU.
 
-    python scripts/torch_profile_epoch.py [--cell d e g] [--out DIR]
+    python scripts/torch_profile_epoch.py [--cell d e g i] [--out DIR]
 
 Cells of chip_smoke.py. d: 100,000 x 20,000 continuous ratings, bf16 R +
 int8 W tiles; e: the ML-20M shape, int8 code tiles; both k=64, trained two
@@ -17,6 +17,14 @@ epochs through ``train_model(algo="bpr", device="cuda")``; windows:
   * one BPR epoch (sampler, gathers, scatters);
   * one val HR@10 through the scorer (the top-N kernel, LOO credit);
   * the same top-10 pass through the plain version.
+
+i: the one-hot cell engine, train_model(algo="mf", mf_method="blocksgd")
+on cell d's data (diag schedule, 384-blocks, 1024-rating steps, lr 0.005),
+trained two epochs; windows:
+
+  * one solver epoch (the block kernel, one launch per diag round);
+  * one plain PyTorch diag epoch on the same staged streams and schedule;
+  * one objective and one val RMSE.
 
 It prints per window the CUDA-event wall, the device time of each kernel
 (summed over launches) and the device's idle share of the window, one
@@ -43,6 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke as cs  # noqa: E402
 from matfac_tpu_torch import Params  # noqa: E402
+from matfac_tpu_torch.ops import block_sgd_kernel as bsk  # noqa: E402
 from matfac_tpu_torch.ops import dense_row_kernel as drk  # noqa: E402
 from matfac_tpu_torch.ops import topk_kernel as tk  # noqa: E402
 from matfac_tpu_torch.ops.dense_block_kernel import (  # noqa: E402
@@ -117,6 +126,44 @@ def profile_cell(tag: str, out_dir) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_block(tag: str, out_dir) -> None:
+    data = cs.bench_data(**cs.CELLS["d"][0])
+    params = Params(**dict(cs.BLOCK_PARAMS, max_iter=2))
+    torch.cuda.reset_peak_memory_stats()
+    rep, model, ev, _ = train_model(data, params, algo="mf",
+                                    mf_method="blocksgd", device="cuda",
+                                    log_fn=lambda s: None)
+    solver, state, lr = rep.solver, rep.state, params.learn_rate
+    u_tab, i_tab = solver.stage_factors(state)
+    sched = solver.draw_schedule()
+    kw = solver.sweep_kwargs()
+
+    def plain():
+        bsk.block_sweep_diag(u_tab.clone(), i_tab.clone(), *sched, lr,
+                             *solver.streams, **kw)
+
+    current = [state]
+
+    def epoch():   # chained, so the solver's resident tables are reused
+        current[0] = solver.epoch(current[0], lr)
+
+    def objective():
+        obj = ev.objective(model.eval_view(state), state)
+        print(f"({tag}) objective {obj!r}", flush=True)
+
+    windows = [("solver epoch (kernel)", epoch),
+               ("plain epoch", plain),
+               ("objective", objective),
+               ("val RMSE", lambda: ev.rmse(model.eval_view(state), "val"))]
+    print(f"({tag}) {solver.NU} x {solver.NI} blocks of {solver.bu}, "
+          f"{-(-solver.NU // solver.NI) * solver.NI} rounds per epoch, "
+          f"{solver.nnz} ratings", flush=True)
+    run_windows(tag, windows, (bsk.block_sgd_diag_epoch, ("cell_sgd",)),
+                out_dir)
+    del rep, solver, state, current, ev, u_tab, i_tab
+    torch.cuda.empty_cache()
+
+
 def profile_ranking(tag: str, out_dir) -> None:
     data_kw, params_kw = cs.BPR_CELL
     data = cs.bench_data(**data_kw)
@@ -174,8 +221,8 @@ def run_windows(tag: str, windows, counted, out_dir) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", nargs="+", default=["d", "e", "g"],
-                    choices=sorted(cs.CELLS) + ["g"])
+    ap.add_argument("--cell", nargs="+", default=["d", "e", "g", "i"],
+                    choices=sorted(cs.CELLS) + ["g", "i"])
     ap.add_argument("--out", default=None,
                     help="directory for the profiler's full tables")
     args = ap.parse_args()
@@ -186,6 +233,8 @@ def main() -> int:
     for tag in args.cell:
         if tag == "g":
             profile_ranking(tag, args.out)
+        elif tag == "i":
+            profile_block(tag, args.out)
         else:
             profile_cell(tag, args.out)
     return 0

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (matfac_tpu_torch/csrc/dense_rows.cu and
-csrc/topk.cu) against their plain PyTorch versions, on the card. Every test here is marked
+"""The hand-written CUDA kernels (matfac_tpu_torch/csrc/dense_rows.cu,
+csrc/topk.cu and csrc/block_sgd.cu) against their plain PyTorch versions, on
+the card. Every test here is marked
 ``cuda`` and skips without a CUDA device. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -10,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from matfac_tpu_torch.ops import block_sgd_kernel as tbsk
 from matfac_tpu_torch.ops import dense_block_kernel as tdbk
 from matfac_tpu_torch.ops import dense_row_kernel as tdrk
+from matfac_tpu_torch.ops import sgd_kernel as tsk
 from matfac_tpu_torch.ops import topk_kernel as ttk
+from matfac_tpu_torch.solvers.block_sgd import stage_batch_collision_counts
 
 LR, U_REG, I_REG = 0.05, 0.01, 0.02
 
@@ -207,3 +211,212 @@ def test_topk_kernel_rejects_what_it_cannot_take():
         ttk.topk_catalog(**args, n=5000)
     with pytest.raises(ValueError, match="float32"):
         ttk.topk_catalog(**dict(args, u_fac=args["u_fac"].double()), n=3)
+
+
+# ----------------------------------------------------------------------
+# the one-hot cell kernel (csrc/block_sgd.cu)
+# ----------------------------------------------------------------------
+
+# (bu, bi, k): the deltas fit shared memory, or go to the global scratch
+BLOCK_ROUTES = {"smem": (64, 48, 64), "scratch": (256, 256, 128)}
+
+
+def _cell_streams(rng, n_rows, S, bs, bu, bi, k, weights, dummy=False):
+    """Streams [n_rows (+ 1 all-invalid dummy row), S] as the solver stages
+    them: ~80% valid slots, padding slots w = 0, ids 0, lam 1; ids from 8
+    rows, so they repeat within every batch; weights 0/1 or float in
+    [0.2, 1) on the valid slots (IFWMF-like); collision counts of each
+    static batch slice."""
+    valid = rng.random((n_rows, S)) < 0.8
+    if dummy:
+        valid = np.concatenate([valid, np.zeros((1, S), bool)])
+    shape = valid.shape
+    u = np.where(valid, rng.integers(0, min(8, bu), shape), 0)
+    i = np.where(valid, rng.integers(0, min(8, bi), shape), 0)
+    r = np.where(valid, rng.normal(3.0, 1.0, shape), 0.0)
+    w = valid * (1.0 if weights == "01" else rng.uniform(0.2, 1.0, shape))
+    lam = np.where(valid, rng.integers(1, k + 1, shape), 1)
+    u, i, lam = (a.astype(np.int32) for a in (u, i, lam))
+    r, w = r.astype(np.float32), w.astype(np.float32)
+    cnu = stage_batch_collision_counts(w, u, bs, bu)
+    cni = stage_batch_collision_counts(w, i, bs, bi)
+    return [torch.from_numpy(a) for a in (u, i, r, w, cnu, cni, lam)]
+
+
+def _block_kw(bs, bu, bi, NI, collision_norm, use_mask, mm_bf16):
+    return dict(bs=bs, bu=bu, bi=bi, NI=NI, u_reg=U_REG, i_reg=I_REG,
+                collision_norm=collision_norm, use_mask=use_mask,
+                mm_bf16=mm_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["smem", "scratch"])
+@pytest.mark.parametrize("weights", ["01", "float"])
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("collision_norm", [False, True])
+def test_block_row_kernel_matches_plain(collision_norm, use_mask, weights,
+                                        route):
+    """The row schedule (one launch per user-block row, one CTA walking the
+    row's cells) at f32, 3 rows x 2 cells x 3 steps from random batch
+    offsets, ids repeating within every batch: rtol 1e-5 / atol 1e-6, the
+    class the JAX package pins between its two engines (summation order
+    only). Without collision normalization a row's step is the sum of ~8
+    repeats, so the step takes lr / 8."""
+    dev = _cuda()
+    bu, bi, k = BLOCK_ROUTES[route]
+    assert (tbsk.library().block_sgd_scratch_floats(1, bu, bi, k) > 0) == \
+        (route == "scratch")
+    rng = np.random.default_rng(21)
+    NU, NI, bs, n_steps = 3, 2, 64, 3
+    S = bs * n_steps
+    streams = [x.reshape(NU, NI * S).to(dev) for x in _cell_streams(
+        rng, NU * NI, S, bs, bu, bi, k, weights)]
+    u_tab = torch.from_numpy(0.3 * rng.normal(size=(NU * bu, k))).float()
+    i_tab = torch.from_numpy(0.3 * rng.normal(size=(NI * bi, k))).float()
+    u_tab, i_tab = u_tab.to(dev), i_tab.to(dev)
+    sched = (rng.permutation(NU),
+             np.stack([rng.permutation(NI) for _ in range(NU)]),
+             rng.integers(0, n_steps, (NU, NI)))
+    assert sched[2].any()
+    lr = LR if collision_norm else LR / 8
+    kw = _block_kw(bs, bu, bi, NI, collision_norm, use_mask, False)
+    before = tbsk.block_sgd_epoch.launches
+    got = tbsk.block_sgd_epoch(u_tab.clone(), i_tab.clone(), *sched, lr,
+                               *streams, **kw)
+    assert tbsk.block_sgd_epoch.launches - before == NU
+    want = tbsk.block_sweep_rows(u_tab.clone(), i_tab.clone(), *sched, lr,
+                                 *streams, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["smem", "scratch"])
+@pytest.mark.parametrize("weights", ["01", "float"])
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("collision_norm", [False, True])
+def test_block_diag_kernel_matches_plain(collision_norm, use_mask, weights,
+                                         route):
+    """The diag schedule (one launch per round, one CTA per real lane) at
+    f32: 5 user blocks x 3 item blocks in 6 rounds of 3 lanes, one of them
+    a dummy lane; 2 steps per cell from random batch offsets. Tolerance as
+    for the row schedule."""
+    dev = _cuda()
+    bu, bi, k = BLOCK_ROUTES[route]
+    rng = np.random.default_rng(22)
+    NU, NI, bs, n_steps = 5, 3, 64, 2
+    S = bs * n_steps
+    streams = [x.to(dev) for x in _cell_streams(
+        rng, NU * NI, S, bs, bu, bi, k, weights, dummy=True)]
+    u_tab = torch.from_numpy(0.3 * rng.normal(size=(NU * bu, k))).float()
+    i_tab = torch.from_numpy(0.3 * rng.normal(size=(NI * bi, k))).float()
+    u_tab, i_tab = u_tab.to(dev), i_tab.to(dev)
+    sched = tbsk.diag_schedule(torch.Generator().manual_seed(4), NU, NI,
+                               n_steps)
+    assert bool((sched[0] == NU).any()) and bool(sched[2].any())
+    lr = LR if collision_norm else LR / 8
+    kw = _block_kw(bs, bu, bi, NI, collision_norm, use_mask, False)
+    before = tbsk.block_sgd_diag_epoch.launches
+    got = tbsk.block_sgd_diag_epoch(u_tab.clone(), i_tab.clone(), *sched,
+                                    lr, *streams, **kw)
+    assert tbsk.block_sgd_diag_epoch.launches - before == sched[0].shape[0]
+    want = tbsk.block_sweep_diag(u_tab.clone(), i_tab.clone(), *sched, lr,
+                                 *streams, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_weights", [(False, "01"), (True, "float")])
+@pytest.mark.parametrize("collision_norm", [True, False])
+@pytest.mark.parametrize("schedule", ["row", "diag"])
+def test_block_kernel_bf16_rounding_exact(schedule, collision_norm,
+                                          mask_weights):
+    """One step per factor block from factors whose bf16 rounding is exact
+    (_dyadic): the predictions are exact in any summation order, so no
+    rounding can flip, and the kernel matches the plain version in its own
+    precision at rtol 1e-5 / atol 1e-6 and misses the plain version in the
+    other precision (the control that shows mm_bf16's rounding points are
+    what is checked). Row: one row of one cell; diag: one round of 4
+    lanes."""
+    dev = _cuda()
+    use_mask, weights = mask_weights
+    rng = np.random.default_rng(23)
+    bu, bi, k, bs = 64, 48, 64, 128
+    NU = NI = 1 if schedule == "row" else 4
+    streams = [x.to(dev) for x in _cell_streams(
+        rng, NU * NI, bs, bs, bu, bi, k, weights, dummy=schedule == "diag")]
+    u_tab = _dyadic(rng, (NU * bu, k)).to(dev)
+    i_tab = _dyadic(rng, (NI * bi, k)).to(dev)
+    if schedule == "row":
+        sched, fn, plain = ((np.zeros(1), np.zeros((1, 1)),
+                             np.zeros((1, 1))),
+                            tbsk.block_sgd_epoch, tbsk.block_sweep_rows)
+    else:
+        sched, fn, plain = ((rng.permutation(NU)[None], np.arange(NI)[None],
+                             np.zeros((1, NI))),
+                            tbsk.block_sgd_diag_epoch, tbsk.block_sweep_diag)
+    lr = LR if collision_norm else LR / 8
+    kern, ref = {}, {}
+    for mm in (True, False):
+        kw = _block_kw(bs, bu, bi, NI, collision_norm, use_mask, mm)
+        kern[mm] = fn(u_tab.clone(), i_tab.clone(), *sched, lr, *streams,
+                      **kw)
+        ref[mm] = plain(u_tab.clone(), i_tab.clone(), *sched, lr, *streams,
+                        **kw)
+    torch.cuda.synchronize()
+    for mm in (True, False):
+        for got, want, ctl in zip(kern[mm], ref[mm], ref[not mm]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            assert not torch.allclose(got, ctl, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(32, 24, 8, 64, 16), (8, 8, 32, 96, 32),
+                                  (384, 384, 64, 2048, 1024)])
+def test_fused_cell_update_kernel_matches_plain(case):
+    """fused_cell_update's one-lane launch against its plain version (the
+    Pallas body's index_add_ per term) on the cases of the JAX package's
+    interpret-mode test and two more, atol 1e-5 as there."""
+    dev = _cuda()
+    BU, BI, k, S, bs = case
+    rng = np.random.default_rng(S)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    args = (f32(0.1 * rng.standard_normal((BU, k))),
+            f32(0.1 * rng.standard_normal((BI, k))),
+            i32(rng.integers(0, BU, S)), i32(rng.integers(0, BI, S)),
+            f32(rng.standard_normal(S)), f32(rng.random(S) > 0.2))
+    before = tsk.fused_cell_update.launches
+    got = tsk.fused_cell_update(*args, 0.05, bs, 0.01, 0.02)
+    assert tsk.fused_cell_update.launches - before == 1
+    want = tsk.fused_cell_plain(*args, 0.05, bs, 0.01, 0.02)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0.0, atol=1e-5)
+    assert not torch.equal(got[0], args[0])   # the inputs are not updated
+
+
+@pytest.mark.cuda
+def test_block_kernel_rejects_what_it_cannot_take():
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    streams = [x.to(dev) for x in _cell_streams(rng, 4, 64, 64, 16, 16, 8,
+                                                "01", dummy=True)]
+    u_tab = torch.zeros((32, 8), device=dev)
+    i_tab = torch.zeros((16, 8), device=dev)
+    sched = tbsk.diag_schedule(torch.Generator().manual_seed(0), 2, 1, 1)
+    kw = _block_kw(64, 16, 16, 1, True, False, True)
+    bad = [s.clone() for s in streams]
+    bad[0][0, 0] = 16
+    with pytest.raises(ValueError, match="outside"):
+        tbsk.block_sgd_diag_epoch(u_tab, i_tab, *sched, LR, *bad, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        tbsk.block_sgd_diag_epoch(u_tab.double(), i_tab, *sched, LR,
+                                  *streams, **kw)
+    with pytest.raises(ValueError, match="share a block"):
+        tbsk.block_sgd_diag_epoch(u_tab, i_tab, np.zeros((1, 2)),
+                                  np.zeros((1, 2)), np.zeros((1, 2)), LR,
+                                  *streams, **dict(kw, NI=2))

@@ -20,7 +20,10 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.ops.topk_kernel",
             "matfac_tpu_torch.eval.ranking", "matfac_tpu_torch.serving",
             "matfac_tpu_torch.models.bpr",
-            "matfac_tpu_torch.solvers.bpr"} <= set(MODULES)
+            "matfac_tpu_torch.solvers.bpr",
+            "matfac_tpu_torch.ops.block_sgd_kernel",
+            "matfac_tpu_torch.ops.sgd_kernel",
+            "matfac_tpu_torch.models.longtail"} <= set(MODULES)
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "import chip_smoke\n"

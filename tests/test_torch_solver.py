@@ -101,7 +101,8 @@ def _both_solvers(kind, kw, n_users=60, n_items=40, bu=None):
     j = jbs.BlockSGDSolver(JModelMF(params, n_users, n_items), params, mat,
                            iu, ii, bu=bu, bi=None, engine="dense", **kw)
     t = tbs.BlockSGDSolver(ModelMF(params, n_users, n_items), params, mat,
-                           iu, ii, bu=bu, device="cpu", **kw)
+                           iu, ii, bu=bu, bi=None, engine="dense",
+                           device="cpu", **kw)
     return j, t, params
 
 
@@ -130,13 +131,15 @@ def test_ladder_picks_and_grids_match_jax(case):
 def test_budget_error_raises_like_jax():
     mat, params, iu, ii = _setup()
     for pkg, model, extra in ((jbs, JModelMF, dict(bu=None, bi=None)),
-                              (tbs, ModelMF, dict(device="cpu"))):
+                              (tbs, ModelMF, dict(bu=None, bi=None,
+                                                  device="cpu"))):
         with pytest.raises(ValueError, match="dense_budget"):
             pkg.BlockSGDSolver(model(params, 60, 40), params, mat, iu, ii,
                                engine="dense", dense_codes="off",
                                dense_budget_bytes=1000, **extra)
     with pytest.raises(ValueError, match="star-grid"):
         tbs.BlockSGDSolver(ModelMF(params, 60, 40), params, mat, iu, ii,
+                           bu=None, bi=None, engine="dense",
                            dense_codes="codes", device="cpu")
 
 
@@ -164,7 +167,7 @@ def test_two_epochs_match_jax_with_its_stripe_order(kind, codes,
 def test_second_epoch_uses_the_resident_tables():
     mat, params, iu, ii = _setup()
     t = tbs.BlockSGDSolver(ModelMF(params, 60, 40), params, mat, iu, ii,
-                           device="cpu")
+                           bu=None, bi=None, engine="dense", device="cpu")
     calls = []
     stage = t.stage_factors
     t.stage_factors = lambda st: calls.append(1) or stage(st)
@@ -181,7 +184,8 @@ def test_second_epoch_uses_the_resident_tables():
 def test_internal_state_round_trips_the_stripe_order():
     mat, params, iu, ii = _setup()
     mk = lambda: tbs.BlockSGDSolver(ModelMF(params, 60, 40), params, mat,
-                                    iu, ii, device="cpu")
+                                    iu, ii, bu=None, bi=None,
+                                    engine="dense", device="cpu")
     a, b = mk(), mk()
     a._stripe_order()
     b.set_internal_state(a.internal_state())
@@ -189,10 +193,16 @@ def test_internal_state_round_trips_the_stripe_order():
 
 
 def test_unported_layouts_and_engines_raise():
+    """The one-hot engines are ported (tests/test_torch_block_sgd.py); the
+    dense engine's cell grid and its rank-mask tables are not."""
+    from matfac_tpu_torch.models.longtail import ModelDropoutSigmoid
     mat, params, iu, ii = _setup()
     model = ModelMF(params, 60, 40)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbs.BlockSGDSolver(model, params, mat, iu, ii, engine="xla",
-                           device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
-        tbs.BlockSGDSolver(model, params, mat, iu, ii, bi=16, device="cpu")
+        tbs.BlockSGDSolver(model, params, mat, iu, ii, bu=None, bi=16,
+                           engine="dense", device="cpu")
+    uf, if_ = freq.row_col_freq(mat)
+    tmf = ModelDropoutSigmoid(params, 60, 40, user_freq=uf, item_freq=if_)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=None,
+                           engine="dense", device="cpu")

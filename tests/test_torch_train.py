@@ -1,8 +1,9 @@
 """The port's training loop, front door and checkpoints
 (matfac_tpu_torch.train) — the branch tests of tests/test_train.py with
-scripted stubs, resume, and train_model(algo="mf", mf_method="densesgd")
+scripted stubs, resume, train_model(algo="mf", mf_method="densesgd")
 against the JAX train_model from the same initial state and stripe
-orders."""
+orders, and train_model(mf_method="blocksgd") for plain MF and TMF with
+the JAX solver's diag schedules."""
 
 import os
 
@@ -46,6 +47,9 @@ class StubModel:
     def eval_view(self, state):
         return state
 
+    def example_weight(self, rows, cols):
+        return torch.ones(rows.shape)
+
 
 class StubSolver:
     """Each epoch adds one to u_fac."""
@@ -66,7 +70,13 @@ class StubEvaluator:
         self.vals = vals
         self.i = -1
 
-    def objective(self, view, state, use_factors=True, use_bias=False):
+        class _C:
+            rows = torch.zeros(1, dtype=torch.int64)
+            cols = torch.zeros(1, dtype=torch.int64)
+        self.train_coo = _C()
+
+    def objective(self, view, state, weights=None, use_factors=True,
+                  use_bias=False):
         self.i += 1
         return self.objs[min(self.i, len(self.objs) - 1)]
 
@@ -289,13 +299,18 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf"), "item 7"),
+    (dict(algo="tmf"), "item 7"), (dict(algo="ifwmf"), "item 7"),
+    (dict(algo="tmf", mf_method="auto"), "item 7"),
+    (dict(algo="tmfdropout", mf_method="blocksgd"), "item 7"),
+    (dict(algo="mf_loc", mf_method="blocksgd"), "item 14"),
     (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11"),
     (dict(mf_method="als"), "item 10"), (dict(mf_method="sgd"), "item 9"),
     (dict(mf_method="ccd++"), "item 12"), (dict(mf_method="auto"), "item 10"),
     (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    """BPR is ported; its dense engine and Poisson hybrid are not."""
+    """BPR is ported; its dense engine and Poisson hybrid are not. IFWMF and
+    TMF train on blocksgd; their dense-kernel instantiations, and the
+    Poisson-sampled and othersrc models, are not ported."""
     data, p = _data()
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
@@ -327,3 +342,97 @@ def test_epoch_log_has_the_jax_fields_and_tracks_train_rmse():
         assert np.isfinite(h.train_rmse) and h.lr == pytest.approx(0.05)
     assert rep2.history[-1].train_rmse == pytest.approx(
         ev.rmse(model.eval_view(rep2.state), "train"), rel=1e-12)
+
+
+# ----------------------------------------------------------------------
+# train_model on the one-hot cell engine
+# ----------------------------------------------------------------------
+
+def _jax_diag_draw(self):
+    """Stand-in for BlockSGDSolver.draw_schedule (diag): the schedule the
+    JAX solver generates on the device from the same numpy draw."""
+    ek = jax.random.PRNGKey(int(self._sched_rng.integers(2**31)))
+    return device_diag_schedule(ek, self.NU, self.NI, self.S // self.bs)
+
+
+def _block_data():
+    """1000 x 800 at 5% density: 3 x 3 blocks of 384, so the diag schedule
+    has 3 rounds of 3 lanes and each cell several 1024-rating steps."""
+    data, _, _ = synthetic_data(n_users=1000, n_items=800, k=3,
+                                density=0.05, seed=3, noise=0.05,
+                                nonneg=True)
+    p = Params(fac_dim=8, u_reg=0.01, i_reg=0.01, learn_rate=0.05,
+               max_iter=3, seed=1, disp_iter=1000)
+    return data, p
+
+
+@pytest.mark.parametrize("algo", ["mf", "tmf"])
+def test_train_model_blocksgd_matches_jax(algo, monkeypatch):
+    """Three epochs through each front door from one initial state, the
+    port drawing JAX's diag schedules: the same solver configuration
+    (diag, 384-blocks, 1024-rating steps), factors at rtol 1e-5 /
+    atol 1e-6 (JAX's zero-padded k=128 columns sum in another order) and
+    the same val RMSE per epoch and best."""
+    data, p = _block_data()
+    monkeypatch.setattr(BlockSGDSolver, "draw_schedule", _jax_diag_draw)
+    js = j_init_state(p, data.n_users, data.n_items)
+    rep_j, *_ = j_train_model(data, p, algo=algo, mf_method="blocksgd",
+                              init_state_override=js,
+                              log_fn=lambda s: None)
+    rep_t, model, ev, _ = train_model(
+        data, p, algo=algo, mf_method="blocksgd", device="cpu",
+        init_state_override=state_from_numpy(
+            *(np.asarray(a) for a in js), device="cpu"),
+        log_fn=lambda s: None)
+    sol = rep_t.solver
+    assert (sol.engine, sol.schedule, sol.bu, sol.bi, sol.bs, sol.NU,
+            sol.NI) == ("xla", "diag", 384, 384, 1024, 3, 3)
+    assert sol.use_mask == (algo == "tmf")
+    assert rep_t.stop_reason == rep_j.stop_reason
+    assert rep_t.best_iter == rep_j.best_iter
+    assert len(rep_t.history) == len(rep_j.history) == p.max_iter
+    np.testing.assert_allclose(rep_t.state.u_fac.numpy(),
+                               np.asarray(rep_j.state.u_fac), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(rep_t.state.i_fac.numpy(),
+                               np.asarray(rep_j.state.i_fac), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose([h.val_rmse for h in rep_t.history],
+                               [h.val_rmse for h in rep_j.history],
+                               rtol=1e-5)
+    np.testing.assert_allclose([h.objective for h in rep_t.history],
+                               [h.objective for h in rep_j.history],
+                               rtol=1e-5)
+    assert rep_t.best_metric == pytest.approx(rep_j.best_metric, rel=1e-5)
+
+
+def test_densesgd_falls_back_to_blocksgd(monkeypatch):
+    """A dense grid over its budget falls back to the one-hot engine as the
+    JAX front door does, and trains exactly as mf_method='blocksgd'."""
+    data, p = _block_data()
+    p = p.replace(max_iter=2)
+
+    def over_budget(self, *a, **kw):
+        raise ValueError("dense tiles need 9.0 GiB > dense_budget 8.0 GiB")
+
+    monkeypatch.setattr(BlockSGDSolver, "_stage_dense", over_budget)
+    logs = []
+    fb = train_model(data, p, mf_method="densesgd", device="cpu",
+                     log_fn=logs.append)[0]
+    assert any("falling back to blocksgd" in s for s in logs), logs
+    assert (fb.solver.engine, fb.solver.schedule) == ("xla", "diag")
+    direct = train_model(data, p, mf_method="blocksgd", device="cpu",
+                         log_fn=lambda s: None)[0]
+    assert torch.equal(fb.state.u_fac, direct.state.u_fac)
+    assert torch.equal(fb.state.i_fac, direct.state.i_fac)
+
+
+def test_blocksgd_refuses_reg_exponent_like_jax():
+    data, p = _data()
+    p = p.replace(reg_exponent=0.5)
+    msgs = []
+    for fn, kw in ((j_train_model, {}), (train_model, dict(device="cpu"))):
+        with pytest.raises(ValueError, match="reg_exponent") as e:
+            fn(data, p, mf_method="blocksgd", log_fn=lambda s: None, **kw)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
