@@ -4,13 +4,15 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   (a) environment: the card's name and power limit, torch and CUDA versions;
-  (b) build: nvcc compiles csrc/dense_rows.cu into build/ (timed);
+  (b) build: nvcc compiles every csrc/*.cu into build/, one process each,
+      all at once (timed);
   (c) kernel vs plain: one stripe epoch of the hand-written kernel against
       the plain PyTorch version on the same CUDA tensors, for every tile
-      type x mm_bf16 x collision_norm at k = 32, 64, 128, on a ragged shape;
-      then the same cases on one stripe whose bf16 rounding is exact, at a
-      tight tolerance, with controls (kernel in one matmul precision
-      against plain in the other) that must FAIL;
+      type (f32 / bf16 R with int8 validity or float weights of R's type,
+      int8 codes) x mm_bf16 x collision_norm at k = 32, 64, 128, on a
+      ragged shape; then the same cases on one stripe whose bf16 rounding
+      is exact, at a tight tolerance, with controls (kernel in one matmul
+      precision against plain in the other) that must FAIL;
   (d) main path, float tiles: train_model(algo="mf", mf_method="densesgd")
       at 100,000 x 20,000, density 0.005 (~9.9M continuous ratings), k=64;
   (e) main path, code tiles: the ML-20M shape (138,000 x 27,000, ~20M
@@ -44,8 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   (k) the row schedule at full shape: one epoch of
       BlockSGDSolver(engine="pallas", schedule="row", batch_size=1024) with
       the JAX default blocks of 1024 (98 x 20; the deltas take the global
-      scratch), one launch per user-block row.
-(d) and (e) check that every stripe went through the kernel (launch count),
+      scratch), one launch per user-block row;
+  (l) IFWMF on the stripe engine: train_model(algo="ifwmf",
+      mf_method="densesgd") on (d)'s data, 2 epochs: its popularity
+      weights stage as bf16 W beside bf16 R.
+(d), (e) and (l) check that every stripe went through the kernel (launch count),
 that val RMSE is finite and below its value at the initial state, replay
 the main path's first epoch on its staged tiles through the kernel and
 through the plain version and hold them together (rtol 1e-3 / atol 1e-5),
@@ -56,9 +61,14 @@ finite and fall, replay a first epoch on the staged streams through kernel
 and plain with one schedule and hold them to (h)'s bf16 class, and time
 both.
 
-The line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits
-non-zero and prints no result.
+The line before the last is a JSON record of the kernels: per kernel its
+launches on the main path, max abs error against the plain version, its
+time and the plain version's on the main path's inputs, the least time the
+card could take for the same work (bound_ms: bytes each read or written
+once at 3.35 TB/s, or operations at the peak of their type, whichever is
+larger; bound_by says which) and, where PyTorch has one, a library
+yardstick (library_ms). The last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -111,23 +121,37 @@ SCALE_F32, SCALE_BF16 = 0.3, 0.03
 # 40-140x this tolerance (plain vs plain on the CPU, these inputs).
 EXACT_RTOL, EXACT_ATOL = 1e-5, 1e-6
 
-# The main path's two configurations: synthetic data (bench_data), Params,
-# and whether the tile ladder should stage int8 rating codes.
+# The stripe engine's configurations: synthetic data (bench_data), Params,
+# and the tiles the ladder should stage ("codes": int8 rating codes; else
+# R's type + W's type).
 CELLS = {
     # bench.py's full shape, continuous ratings -> bf16 R + int8 W
     "d": (dict(n_users=100_000, n_items=20_000, density=0.005, noise=0.1,
                power_law=0.6, stars=False, val_pc=0.1),
           dict(fac_dim=64, u_reg=0.01, i_reg=0.01, learn_rate=0.05, seed=0,
                max_iter=5, obj_iter=1, disp_iter=1),
-          False),
+          "bf16+W"),
     # scripts/ml20m_flagship.py's shape, half stars -> int8 codes
     "e": (dict(n_users=138_000, n_items=27_000,
                density=20e6 / (138_000 * 27_000), noise=0.35,
                power_law=0.8, stars=True, val_pc=0.05),
           dict(fac_dim=64, u_reg=0.002, i_reg=0.002, learn_rate=0.05,
                seed=0, max_iter=3, obj_iter=1, disp_iter=1),
-          True),
+          "codes"),
 }
+# IFWMF on (d)'s data, 2 epochs, float W: at 41 x 2560 x 20096 slots f32 W
+# misses the 8 GiB dense budget, so bf16 W + bf16 R. At the default weight
+# scale rho_rms 1 the weights are 0.99998-0.99999 here and round to exactly
+# 1.0 in bf16; rho_rms 1e4 spreads them over 0.868-0.949 (22 bf16 values),
+# so the tiles carry real weights (the model's weights on this data, as
+# phase (l) logs them).
+CELLS["l"] = (CELLS["d"][0], dict(CELLS["d"][1], max_iter=2, rho_rms=1e4),
+              "bf16+bfW")
+CELL_ALGO = {"d": "mf", "e": "mf", "l": "ifwmf"}
+TILE_KINDS = ("f32+W", "bf16+W", "codes", "f32+fW", "bf16+bfW")
+# H100 SXM peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -163,16 +187,23 @@ def phase_build() -> float:
 
 def _tiles(kind: str, NU: int, bu: int, ni: int, gen: torch.Generator,
            dev):
-    """Random stripe tiles, ~5% valid: (R, W, r_scale)."""
+    """Random stripe tiles, ~5% valid: (R, W, r_scale). "+W": int8
+    validity; "+fW" / "+bfW": weights in [0.2, 1) of R's type (IFWMF)."""
     valid = torch.rand((NU, bu, ni), generator=gen) < 0.05
     if kind == "codes":
         codes = torch.randint(1, 11, (NU, bu, ni), generator=gen)
         R = torch.where(valid, codes, 0).to(torch.int8)
         return R.to(dev), None, 0.5
     ratings = 1.0 + 4.0 * torch.rand((NU, bu, ni), generator=gen)
-    R = torch.where(valid, ratings, 0.0)
-    R = R.to(torch.bfloat16 if kind == "bf16+W" else torch.float32)
-    return R.to(dev), valid.to(torch.int8).to(dev), None
+    rtype = torch.bfloat16 if kind.startswith("bf16") else torch.float32
+    R = torch.where(valid, ratings, 0.0).to(rtype)
+    if kind.endswith("+W"):
+        W = valid.to(torch.int8)
+    else:
+        W = torch.where(valid, 0.2 + 0.8 * torch.rand((NU, bu, ni),
+                                                      generator=gen),
+                        0.0).to(rtype)
+    return R.to(dev), W.to(dev), None
 
 
 def _epoch_pair(u3, i_tab, order, lr, R, W, r_scale, cn, mm):
@@ -201,7 +232,7 @@ def phase_kernel_vs_plain(dev="cuda") -> dict:
     gen = torch.Generator().manual_seed(0)
     worst = {}
     failures = []
-    for kind in ("f32+W", "bf16+W", "codes"):
+    for kind in TILE_KINDS:
         R, W, r_scale = _tiles(kind, NU, bu, ni, gen, dev)
         for k in (32, 64, 128):
             u3 = torch.randn((NU, bu, k), generator=gen).to(dev)
@@ -217,7 +248,7 @@ def phase_kernel_vs_plain(dev="cuda") -> dict:
                     a, r, ratio = _errors(got, want)
                     ok = ratio <= 1.0
                     worst[kind] = max(worst.get(kind, 0.0), a)
-                    log(f"(c) {kind:6s} k={k:3d} mm_bf16={mm!s:5s} "
+                    log(f"(c) {kind:8s} k={k:3d} mm_bf16={mm!s:5s} "
                         f"collision_norm={cn!s:5s} max_abs {a:.3e} "
                         f"max_rel {r:.3e} err/tol {ratio:.3e} "
                         f"{'ok' if ok else 'FAIL'}")
@@ -251,7 +282,7 @@ def phase_bf16_rounding(dev="cuda") -> dict:
     order = torch.zeros(1, dtype=torch.int64)
     worst = {}
     failures = []
-    for kind in ("f32+W", "bf16+W", "codes"):
+    for kind in TILE_KINDS:
         R, W, r_scale = _tiles(kind, 1, bu, ni, gen, dev)
         for k in (32, 64, 128):
             u3 = _dyadic((1, bu, k), gen).to(dev)
@@ -271,7 +302,7 @@ def phase_bf16_rounding(dev="cuda") -> dict:
                                   EXACT_RTOL, EXACT_ATOL)[2]
                     worst[kind] = max(worst.get(kind, 0.0), a)
                     ok = ratio <= 1.0 and ctl > 1.0
-                    log(f"(c) exact-bf16 {kind:6s} k={k:3d} "
+                    log(f"(c) exact-bf16 {kind:8s} k={k:3d} "
                         f"mm_bf16={mm!s:5s} collision_norm={cn!s:5s} "
                         f"max_abs {a:.3e} max_rel {r:.3e} err/tol "
                         f"{ratio:.3e}; control vs mm_bf16={not mm!s:5s} "
@@ -286,11 +317,14 @@ def phase_bf16_rounding(dev="cuda") -> dict:
     return worst
 
 
-def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2):
+def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
+                    mm_bf16=None):
     """One epoch from ``state`` on the solver's staged tiles, through the
     kernel and through the plain version, held together at RTOL / ATOL;
     then ms per epoch of each, alternating plain, kernel, kernel, plain,
-    CUDA-event timed. Returns (max abs error, kernel ms, plain ms)."""
+    CUDA-event timed; in the solver's matmul precision unless ``mm_bf16``
+    says otherwise. Returns (max abs error, kernel ms, plain ms)."""
+    mm = solver.mm_bf16 if mm_bf16 is None else mm_bf16
     u3, i_tab = solver.stage_factors(state)
     order = torch.randperm(solver.NU, generator=torch.Generator()
                            .manual_seed(1))
@@ -300,12 +334,13 @@ def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2):
     def kernel():
         return drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr,
                                     *args, solver.r_scale, p.u_reg, p.i_reg,
-                                    solver.collision_norm, solver.mm_bf16)
+                                    solver.collision_norm, mm,
+                                    counts=solver.counts)
 
     def plain():
         return dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, *args,
                                 p.u_reg, p.i_reg, solver.collision_norm,
-                                solver.mm_bf16, r_scale=solver.r_scale)
+                                mm, r_scale=solver.r_scale)
 
     a, r, ratio = _errors(kernel(), plain())
     log(f"({tag}) first epoch replayed on the staged tiles, kernel vs "
@@ -319,32 +354,83 @@ def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2):
     return (a, *_alternate(kernel, plain, reps))
 
 
-def phase_main_path(tag: str, data: Data, params: Params,
-                    expect_codes: bool, dev="cuda"):
+def _bound(nbytes: float, flops: float, peak: str):
+    """(least ms the card could take, "bytes" or "operations"): nbytes
+    each read or written once at HBM rate, flops at the peak of ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stripe_bound(solver):
+    """Bound of one stripe-engine epoch: every tile read once, U and I read
+    and written once; three products of 2k FLOP a slot on the bf16 tensor
+    cores (the f32 CUDA-core peak without mm_bf16)."""
+    k = solver.params.fac_dim
+    slots = solver.NU * solver.bu * solver.n_items_pad
+    nbytes = (solver.R_rows.nbytes
+              + (0 if solver.W_rows is None else solver.W_rows.nbytes)
+              + 2 * 4 * k * (solver.NU * solver.bu + solver.n_items_pad))
+    return _bound(nbytes, 6.0 * slots * k,
+                  "bf16" if solver.mm_bf16 else "f32")
+
+
+def stripe_library_ms(solver) -> float:
+    """The epoch's three stripe products as bf16 torch.matmul calls
+    (cuBLAS) on random operands of the stripe's shapes, summed over the
+    epoch's stripes: a yardstick only, the port never calls it. Min of 3
+    after a warm-up, CUDA events."""
+    bu, ni, k = solver.bu, solver.n_items_pad, solver.params.fac_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, device="cuda", generator=gen,
+                                     dtype=torch.bfloat16)
+    U, I, E = rnd(bu, k), rnd(ni, k), rnd(bu, ni)
+
+    def epoch():
+        for _ in range(solver.NU):
+            U @ I.T, E.T @ U, E @ I
+
+    epoch()
+    torch.cuda.synchronize()
+    return min(_cuda_ms(epoch) for _ in range(3))
+
+
+def phase_main_path(tag: str, data: Data, params: Params, tiles: str,
+                    dev="cuda", algo: str = "mf"):
     drk.dense_rows_epoch.launches = 0
     t0 = time.perf_counter()
-    rep, model, ev, _ = train_model(data, params, algo="mf",
+    rep, model, ev, _ = train_model(data, params, algo=algo,
                                     mf_method="densesgd", device=dev,
                                     log_fn=lambda s: log(f"({tag}) {s}"))
     wall = time.perf_counter() - t0
     launches = drk.dense_rows_epoch.launches
     solver = rep.solver
-    log(f"({tag}) staged NU={solver.NU} bu={solver.bu} ni_pad="
+    log(f"({tag}) {algo}: staged NU={solver.NU} bu={solver.bu} ni_pad="
         f"{solver.n_items_pad} R={solver.R_rows.dtype} W="
         f"{None if solver.W_rows is None else solver.W_rows.dtype} "
         f"r_scale={solver.r_scale} nnz={solver.nnz}; train_model wall "
         f"{wall:.1f} s; stop={rep.stop_reason}")
-    if expect_codes:
+    if tiles == "codes":
         assert solver.W_rows is None and solver.r_scale == 0.5, \
             "star ratings should stage int8 code tiles"
     else:
+        r, w = tiles.split("+")
+        rtype = {"f32": torch.float32, "bf16": torch.bfloat16}[r]
+        wtype = {"W": torch.int8, "fW": torch.float32,
+                 "bfW": torch.bfloat16}[w]
         assert solver.W_rows is not None and \
-            solver.R_rows.dtype == torch.bfloat16, \
-            "continuous ratings at this shape should stage bf16 R + int8 W"
+            (solver.R_rows.dtype, solver.W_rows.dtype) == (rtype, wtype), \
+            f"this shape should stage {tiles} tiles"
+    if algo == "ifwmf":
+        w = solver.W_rows[solver.W_rows > 0]
+        log(f"({tag}) ifwmf weights on the tiles: min {float(w.min())!r} "
+            f"max {float(w.max())!r}")
+        assert float(w.min()) < 1.0
     epochs = len(rep.history)
     assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
         (rep.stop_reason, epochs)
-    want = epochs * solver.NU * drk.KERNELS_PER_STRIPE
+    want = epochs * drk.epoch_launches(solver.NU, params.fac_dim,
+                                       solver.mm_bf16)
     assert launches == want, f"kernel launches {launches} != {want}"
     # the state train_model started from
     s0 = init_state(params, data.n_users, data.n_items, device=dev)
@@ -361,16 +447,28 @@ def phase_main_path(tag: str, data: Data, params: Params,
     steady = float(np.median(loop_ms[1:])) if epochs > 1 else loop_ms[0]
     err, kernel_ms, plain_ms = _check_and_time(tag, solver, s0,
                                                params.learn_rate)
+    bound = stripe_bound(solver)
+    lib_ms = stripe_library_ms(solver)
+    if tag == "d":
+        # the f32-product instantiation (CUDA cores), off the main path
+        f32 = _check_and_time("d, f32 products", solver, s0,
+                              params.learn_rate, mm_bf16=False)
+        log(f"(d) f32-product epoch (CUDA cores; CUDA events): kernel "
+            f"{f32[1]:.3f} ms, plain PyTorch {f32[2]:.3f} ms")
     log(f"({tag}) epoch in the loop (host clock, synchronized): "
         f"{loop_ms!r} ms; median after the first {steady:.3f} ms = "
         f"{solver.nnz / steady * 1e3:.4e} ratings/s")
     log(f"({tag}) stripe epoch alone (CUDA events): kernel "
         f"{kernel_ms:.3f} ms = {solver.nnz / kernel_ms * 1e3:.4e} "
         f"ratings/s; plain PyTorch {plain_ms:.3f} ms = "
-        f"{solver.nnz / plain_ms * 1e3:.4e} ratings/s")
+        f"{solver.nnz / plain_ms * 1e3:.4e} ratings/s; bound {bound[0]:.3f} "
+        f"ms ({bound[1]}), kernel at {bound[0] / kernel_ms:.3f} of it; "
+        f"the three products as bf16 cuBLAS calls {lib_ms:.3f} ms")
     del rep, solver, ev
     torch.cuda.empty_cache()
-    return launches, err, kernel_ms, plain_ms
+    return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=lib_ms)
 
 
 def bench_data(n_users, n_items, density, noise, power_law, stars, val_pc):
@@ -387,10 +485,11 @@ def bench_data(n_users, n_items, density, noise, power_law, stars, val_pc):
     return data
 
 
-def run_cell(tag: str):
-    data_kw, params_kw, expect_codes = CELLS[tag]
-    data = bench_data(**data_kw)
-    return phase_main_path(tag, data, Params(**params_kw), expect_codes)
+def run_cell(tag: str, data=None):
+    data_kw, params_kw, tiles = CELLS[tag]
+    data = bench_data(**data_kw) if data is None else data
+    return phase_main_path(tag, data, Params(**params_kw), tiles,
+                           algo=CELL_ALGO[tag])
 
 
 # ----------------------------------------------------------------------
@@ -640,10 +739,17 @@ def phase_ranking(dev="cuda"):
         f"{data.n_items} items (CUDA events): kernel {k_ms!r} ms, plain "
         f"{p_ms!r} ms; scorer.hit_rate (kernel, LOO credit included) "
         f"{hr_ms:.3f} ms")
+    # top-10 of every user: the scores' 2k FLOP a (user, item) pair on the
+    # f32 CUDA cores; the inputs read once, the ids and scores written once
+    flops = 2.0 * args["users"].numel() * data.n_items * params.fac_dim
+    nbytes = (sum(t.nbytes for t in args.values() if torch.is_tensor(t))
+              + got[0].nbytes + got[1].nbytes)
+    bound = _bound(nbytes, flops, "f32")
+    log(f"(g) top-10 pass bound {bound[0]:.3f} ms ({bound[1]})")
     del rep, solver, scorer, rec, got, want10
     torch.cuda.empty_cache()
     return (launches, max(err, err1k, err_r), float(np.mean(k_ms)),
-            float(np.mean(p_ms)))
+            float(np.mean(p_ms)), bound)
 
 
 # ----------------------------------------------------------------------
@@ -910,6 +1016,17 @@ def _replay(tag: str, solver, state, lr: float, sched):
     return a, k_ms, p_ms
 
 
+def block_bound(solver):
+    """Bound of one one-hot epoch: the staged streams read once (padding
+    slots included), both factor tables read and written once; 8k FLOP a
+    rating (prediction, two gradients, two updates) at the f32 CUDA-core
+    peak."""
+    k = solver.params.fac_dim
+    nbytes = (sum(t.nbytes for t in solver.streams if t is not None)
+              + 2 * 4 * k * (solver.n_users_pad + solver.n_items_pad))
+    return _bound(nbytes, 8.0 * k * solver.nnz, "f32")
+
+
 def _train_block(tag: str, data: Data, params: Params, algo: str,
                  dev="cuda"):
     """train_model(algo, mf_method="blocksgd") with the counts zeroed just
@@ -974,10 +1091,11 @@ def phase_blocksgd(data: Data, dev="cuda"):
     log(f"(i) diag epoch alone (CUDA events): kernel {k_ms:.3f} ms = "
         f"{solver.nnz / k_ms * 1e3:.4e} ratings/s; plain PyTorch "
         f"{p_ms:.3f} ms = {solver.nnz / p_ms * 1e3:.4e} ratings/s")
+    bound = block_bound(solver)
     cell = phase_cells(solver, s0, params, sched)
     del rep, solver
     torch.cuda.empty_cache()
-    return (launches, err, k_ms, p_ms), cell, ev, inval, s0
+    return (launches, err, k_ms, p_ms, bound), cell, ev, inval, s0
 
 
 def phase_cells(solver, s0, params: Params, sched):
@@ -1018,9 +1136,19 @@ def phase_cells(solver, s0, params: Params, sched):
                              f"plain version (atol {FUSED_ATOL})")
     k_ms, p_ms = _alternate(lambda: cells(sk.fused_cell_update),
                             lambda: cells(sk.fused_cell_plain))
+    k = params.fac_dim
+    nbytes, n = 0, 0
+    for ub, ib in lanes:
+        c = ub * NI + ib
+        nbytes += sum(x[c].nbytes for x in (solver.u_loc, solver.i_loc,
+                                            solver.vals, solver.wts))
+        nbytes += 2 * 4 * k * (bu + bi)
+        n += int((solver.wts[c] > 0).sum())
+    bound = _bound(nbytes, 8.0 * k * n, "f32")
     log(f"(i) one round of cells through fused_cell_update (CUDA events): "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-    return launches, err, k_ms, p_ms
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound {bound[0]:.4f} "
+        f"ms ({bound[1]})")
+    return launches, err, k_ms, p_ms, bound
 
 
 def phase_longtail(data: Data, dev="cuda") -> float:
@@ -1083,11 +1211,15 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
              np.stack([rng.permutation(solver.NI) for _ in range(solver.NU)]),
              rng.integers(0, solver.S // solver.bs, (solver.NU, solver.NI)))
     err, k_ms, p_ms = _replay("k", solver, s0, params.learn_rate, sched)
+    bound = block_bound(solver)
     log(f"(k) row epoch alone (CUDA events): kernel {k_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms")
+        f"{p_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
     del solver, state
     torch.cuda.empty_cache()
-    return launches, err, k_ms, p_ms
+    return launches, err, k_ms, p_ms, bound
+
+
+NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 
 def main() -> int:
@@ -1100,48 +1232,54 @@ def main() -> int:
     worst = phase_kernel_vs_plain()
     exact = phase_bf16_rounding()
     data_d = bench_data(**CELLS["d"][0])
-    n_d, err_d, k_d, p_d = phase_main_path("d", data_d,
-                                           Params(**CELLS["d"][1]),
-                                           CELLS["d"][2])
-    n_e, err_e, k_e, p_e = run_cell("e")
+    d = run_cell("d", data_d)
+    e = run_cell("e")
     err_f = phase_topk_vs_plain()
-    n_g, err_g, k_g, p_g = phase_ranking()
+    n_g, err_g, k_g, p_g, bound_g = phase_ranking()
     block = phase_block_vs_plain()
-    (n_i, err_i, k_i, p_i), cell, ev, inval, s0 = phase_blocksgd(data_d)
+    (n_i, err_i, k_i, p_i, bound_i), cell, ev, inval, s0 = \
+        phase_blocksgd(data_d)
     err_j = phase_longtail(data_d)
-    n_k, err_k, k_k, p_k = phase_rows(data_d, ev, inval, s0)
+    n_k, err_k, k_k, p_k, bound_k = phase_rows(data_d, ev, inval, s0)
+    del ev
+    l_ = run_cell("l", data_d)
 
-    float_err = max(worst["f32+W"], worst["bf16+W"], exact["f32+W"],
-                    exact["bf16+W"], err_d)
+    float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS
+                    if t != "codes")
+    stripe_lib = ("the stripe's three products as bf16 torch.matmul "
+                  "(cuBLAS) calls, summed over the epoch")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None, library=NO_LIBRARY):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms, "library": library}
+
     kernels = [
-        {"name": "dense_rows<f32|bf16 R, int8 W>", "route": "cuda",
-         "source": SOURCE,
-         "replaces": "matfac_tpu/ops/dense_row_kernel.py:108",
-         "launches": n_d, "max_abs_err": float_err, "ms": k_d,
-         "plain_ms": p_d},
-        {"name": "dense_rows<int8 codes>", "route": "cuda",
-         "source": SOURCE,
-         "replaces": "matfac_tpu/ops/dense_row_kernel.py:231",
-         "launches": n_e,
-         "max_abs_err": max(worst["codes"], exact["codes"], err_e),
-         "ms": k_e, "plain_ms": p_e},
-        {"name": "topk_catalog", "route": "cuda", "source": TOPK_SOURCE,
-         "replaces": "matfac_tpu/ops/topk_kernel.py:118",
-         "launches": n_g, "max_abs_err": max(err_f, err_g), "ms": k_g,
-         "plain_ms": p_g},
-        {"name": "block_sgd<diag>", "route": "cuda", "source": BLOCK_SOURCE,
-         "replaces": "matfac_tpu/ops/block_sgd_kernel.py:148",
-         "launches": n_i, "max_abs_err": max(block["diag"], err_i, err_j),
-         "ms": k_i, "plain_ms": p_i},
-        {"name": "block_sgd<row>", "route": "cuda", "source": BLOCK_SOURCE,
-         "replaces": "matfac_tpu/ops/block_sgd_kernel.py:148",
-         "launches": n_k, "max_abs_err": max(block["row"], err_k),
-         "ms": k_k, "plain_ms": p_k},
-        {"name": "fused_cell_update", "route": "cuda",
-         "source": BLOCK_SOURCE,
-         "replaces": "matfac_tpu/ops/sgd_kernel.py:73",
-         "launches": cell[0], "max_abs_err": max(block["cell"], cell[1]),
-         "ms": cell[2], "plain_ms": cell[3]},
+        entry("dense_rows<f32|bf16 R; int8|bf16|f32 W>", SOURCE,
+              "matfac_tpu/ops/dense_row_kernel.py:108", d["launches"],
+              max(float_err, d["max_abs_err"], l_["max_abs_err"]), d["ms"],
+              d["plain_ms"], (d["bound_ms"], d["bound_by"]),
+              d["library_ms"], stripe_lib),
+        entry("dense_rows<int8 codes>", SOURCE,
+              "matfac_tpu/ops/dense_row_kernel.py:231", e["launches"],
+              max(worst["codes"], exact["codes"], e["max_abs_err"]), e["ms"],
+              e["plain_ms"], (e["bound_ms"], e["bound_by"]),
+              e["library_ms"], stripe_lib),
+        entry("topk_catalog", TOPK_SOURCE,
+              "matfac_tpu/ops/topk_kernel.py:118", n_g, max(err_f, err_g),
+              k_g, p_g, bound_g),
+        entry("block_sgd<diag>", BLOCK_SOURCE,
+              "matfac_tpu/ops/block_sgd_kernel.py:148", n_i,
+              max(block["diag"], err_i, err_j), k_i, p_i, bound_i),
+        entry("block_sgd<row>", BLOCK_SOURCE,
+              "matfac_tpu/ops/block_sgd_kernel.py:148", n_k,
+              max(block["row"], err_k), k_k, p_k, bound_k),
+        entry("fused_cell_update", BLOCK_SOURCE,
+              "matfac_tpu/ops/sgd_kernel.py:73", cell[0],
+              max(block["cell"], cell[1]), cell[2], cell[3], cell[4]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

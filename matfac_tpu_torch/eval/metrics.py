@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from matfac_tpu.data.csr import RatingMatrix
+from matfac_tpu_torch.data.csr import RatingMatrix
 from matfac_tpu_torch.models.base import EvalView
 
 _EVAL_CHUNK = 1 << 21

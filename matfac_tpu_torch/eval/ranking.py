@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from matfac_tpu.data.csr import RatingMatrix
+from matfac_tpu_torch.data.csr import RatingMatrix
 from matfac_tpu_torch.models.base import EvalView
 from matfac_tpu_torch.ops.topk_kernel import NEG_INF, topk_catalog
 

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
+from matfac_tpu_torch.config import Params
 
 
 class MFState(NamedTuple):

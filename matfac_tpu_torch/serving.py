@@ -21,8 +21,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
-from matfac_tpu.utils import freq as ufreq
+from matfac_tpu_torch.config import Params
+from matfac_tpu_torch.utils import freq as ufreq
 from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import EvalView
 

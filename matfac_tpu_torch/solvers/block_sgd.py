@@ -41,13 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
+from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState, ModelMF
 from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
                                                    block_sgd_epoch,
                                                    diag_schedule)
 from matfac_tpu_torch.ops.dense_block_kernel import densify_rows
-from matfac_tpu_torch.ops.dense_row_kernel import dense_rows_epoch
+from matfac_tpu_torch.ops.dense_row_kernel import (dense_rows_epoch,
+                                                   stripe_counts)
 
 
 def _cdiv(a, b):
@@ -265,6 +266,8 @@ class BlockSGDSolver:
             self._stage_dense(r // bu, (r % bu).astype(np.int32),
                               c.astype(np.int32), v.astype(np.float32), w,
                               self.NU, dense_budget_bytes)
+            # the tiles' validity counts, which the stripe kernel reads
+            self.counts = stripe_counts(self.R_rows, self.W_rows)
             self._order_gen = torch.Generator().manual_seed(params.seed + 41)
             return
         self._stage_cells(r, c, v.astype(np.float32), w, lam, batch_size)
@@ -492,7 +495,8 @@ class BlockSGDSolver:
         dense_rows_epoch(u3, i_tab, self._stripe_order(), lr, self.R_rows,
                          self.W_rows, self.r_scale,
                          float(self.params.u_reg), float(self.params.i_reg),
-                         self.collision_norm, self.mm_bf16)
+                         self.collision_norm, self.mm_bf16,
+                         counts=self.counts)
         return self._views(state, u3, i_tab)
 
     def epoch_with(self, state: MFState, lr: float, schedule) -> MFState:

@@ -48,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
+from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
 
 _WORD = 1 << 32

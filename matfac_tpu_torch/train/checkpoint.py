@@ -19,8 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
-from matfac_tpu.data.io import read_factor_mat, write_factor_mat
+from matfac_tpu_torch.config import Params
+from matfac_tpu_torch.data.io import read_factor_mat, write_factor_mat
 from matfac_tpu_torch.models.base import MFState, state_to_numpy
 
 _FIELDS = MFState._fields

@@ -27,8 +27,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from matfac_tpu.config import Params
-from matfac_tpu.utils import freq as ufreq
+from matfac_tpu_torch.config import Params
+from matfac_tpu_torch.utils import freq as ufreq
 from matfac_tpu_torch.eval.metrics import Evaluator
 from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import MFState, ModelMF, init_state
@@ -360,8 +360,9 @@ def train_model(data, params: Params, algo: str = "mf",
     """Build model + solver and train; the JAX package's front door for
     the slices ported so far: ``algo`` "mf", "ifwmf" or "tmf" with
     ``mf_method="blocksgd"`` (the one-hot cell engine, diag schedule),
-    "mf" with ``mf_method="densesgd"`` (the row-dense engine, falling back
-    to blocksgd when its tiles miss the budget), and ``algo="bpr"`` (the
+    "mf" or "ifwmf" with ``mf_method="densesgd"`` (the row-dense engine,
+    IFWMF's popularity weights as float W tiles, falling back to blocksgd
+    when its tiles miss the budget), and ``algo="bpr"`` (the
     pairwise stream or posneg engine with model selection on val HR@10,
     or NDCG for hog / posneg). Everything else raises NotImplementedError
     naming its ROADMAP item. Returns (report, model, evaluator or scorer,
@@ -408,18 +409,18 @@ def train_model(data, params: Params, algo: str = "mf",
     if m == "auto":
         raise NotImplementedError(
             "mf_method='auto' resolves to ALS for plain MF (ROADMAP queue 1, "
-            "item 10) and to densesgd for IFWMF / TMF, whose float-W and "
-            "mask kernel instantiations are item 7 — pass "
-            "mf_method='blocksgd' or 'densesgd'")
+            "item 10) and to densesgd for IFWMF / TMF by the dense grid's "
+            "budget; TMF's Mu / Mi mask instantiation of the stripe kernel "
+            "is item 7 — pass mf_method='blocksgd' or 'densesgd'")
     if m not in ("densesgd", "blocksgd"):
         raise NotImplementedError(
             f"mf_method={mf_method!r}: only 'densesgd' and 'blocksgd' are "
             "ported (sgd is ROADMAP queue 1, item 9; ALS item 10; CCD/CCD++ "
             "item 12)")
-    if m == "densesgd" and a != "mf":
+    if m == "densesgd" and a == "tmf":
         raise NotImplementedError(
-            f"algo={algo!r} on densesgd needs the stripe kernel's float-W "
-            "and mask instantiations, ROADMAP queue 1, item 7 — pass "
+            "algo='tmf' on densesgd needs the stripe kernel's Mu / Mi rank "
+            "mask instantiation, ROADMAP queue 1, item 7 — pass "
             "mf_method='blocksgd'")
     if params.reg_exponent:
         raise ValueError(

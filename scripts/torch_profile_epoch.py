@@ -121,7 +121,8 @@ def profile_cell(tag: str, out_dir) -> None:
                ("plain epoch", plain),
                ("objective", objective),
                ("val RMSE", lambda: ev.rmse(model.eval_view(state), "val"))]
-    run_windows(tag, windows, (drk.dense_rows_epoch, ("stripe_",)), out_dir)
+    kernels = ("::panel_kernel<", "stripe_step_kernel", "u_bf16_kernel")
+    run_windows(tag, windows, (drk.dense_rows_epoch, kernels), out_dir)
     del rep, solver, state, current, ev, u3, i_tab
     torch.cuda.empty_cache()
 

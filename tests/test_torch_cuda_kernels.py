@@ -28,13 +28,38 @@ def _cuda():
     return torch.device("cuda")
 
 
+MODES = ["f32+W", "bf16+W", "codes", "f32+fW", "bf16+bfW"]
+
+
+def _tiles(mode, rng, shape, dev, density=0.1):
+    """(R, W, r_scale) on the card: f32 / bf16 ratings with int8 validity
+    ("+W") or float weights in [0.5, 2) of the rating's type ("+fW",
+    "+bfW": IFWMF's tiles), or int8 half-star codes."""
+    valid = rng.random(shape) < density
+    if mode == "codes":
+        codes = np.where(valid, rng.integers(1, 11, shape), 0)
+        return torch.from_numpy(codes.astype(np.int8)).to(dev), None, 0.5
+    R = torch.from_numpy(np.where(valid, rng.normal(3.0, 1.0, shape), 0.0)
+                         .astype(np.float32))
+    if mode.endswith("+W"):
+        W = torch.from_numpy(valid.astype(np.int8))
+    else:
+        W = torch.from_numpy(np.where(valid, rng.uniform(0.5, 2.0, shape),
+                                      0.0).astype(np.float32))
+    if mode.startswith("bf16"):
+        R = R.to(torch.bfloat16)
+        W = W.to(torch.bfloat16) if mode == "bf16+bfW" else W
+    return R.to(dev), W.to(dev), None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("collision_norm", [True, False])
 @pytest.mark.parametrize("mm_bf16", [False, True])
-@pytest.mark.parametrize("mode", ["f32+W", "bf16+W", "codes"])
+@pytest.mark.parametrize("mode", MODES)
 def test_kernel_matches_plain(mode, mm_bf16, collision_norm):
-    """One epoch at a ragged shape (catalog not a multiple of the 64-item
-    panel, stripe not a multiple of the 32-user chunk), rtol 1e-3 /
+    """One epoch at a ragged shape (catalog not a multiple of either
+    kernel's item panel, stripe not a multiple of its user chunk; the
+    int8 rows are not whole 16-byte pieces), rtol 1e-3 /
     atol 1e-5: summation order over bu and over panels. At mm_bf16 the
     factors are small enough that a bf16 flip of E, which one ulp of P
     decides, moves a factor by less than atol; without collision
@@ -42,17 +67,7 @@ def test_kernel_matches_plain(mode, mm_bf16, collision_norm):
     dev = _cuda()
     rng = np.random.default_rng(7)
     NU, bu, ni, k = 4, 100, 200, 64
-    valid = rng.random((NU, bu, ni)) < 0.1
-    if mode == "codes":
-        codes = np.where(valid, rng.integers(1, 11, valid.shape), 0)
-        R, W, r_scale = torch.from_numpy(codes.astype(np.int8)), None, 0.5
-    else:
-        R = torch.from_numpy(np.where(valid, rng.normal(3.0, 1.0,
-                                                        valid.shape), 0.0)
-                             .astype(np.float32))
-        R = R.to(torch.bfloat16) if mode == "bf16+W" else R
-        W, r_scale = torch.from_numpy(valid.astype(np.int8)).to(dev), None
-    R = R.to(dev)
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
     scale = 0.03 if mm_bf16 else 0.3
     u3 = torch.from_numpy(scale * rng.normal(size=(NU, bu, k))).float()
     i_tab = torch.from_numpy(scale * rng.normal(size=(ni, k))).float()
@@ -64,7 +79,7 @@ def test_kernel_matches_plain(mode, mm_bf16, collision_norm):
                                    W, r_scale, U_REG, I_REG, collision_norm,
                                    mm_bf16)
     assert tdrk.dense_rows_epoch.launches - before == \
-        NU * tdrk.KERNELS_PER_STRIPE
+        tdrk.epoch_launches(NU, k, mm_bf16)
     up, ip = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R,
                                    W, U_REG, I_REG, collision_norm, mm_bf16,
                                    r_scale=r_scale)
@@ -84,7 +99,7 @@ def _dyadic(rng, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("collision_norm", [True, False])
-@pytest.mark.parametrize("mode", ["f32+W", "bf16+W", "codes"])
+@pytest.mark.parametrize("mode", MODES)
 def test_kernel_bf16_rounding_exact(mode, collision_norm):
     """One stripe whose bf16 rounding is exact: no rounding of E can flip
     between summation orders, so the kernel matches the plain version in
@@ -94,17 +109,7 @@ def test_kernel_bf16_rounding_exact(mode, collision_norm):
     dev = _cuda()
     rng = np.random.default_rng(11)
     bu, ni, k = 100, 200, 64
-    valid = rng.random((1, bu, ni)) < 0.1
-    if mode == "codes":
-        codes = np.where(valid, rng.integers(1, 11, valid.shape), 0)
-        R, W, r_scale = torch.from_numpy(codes.astype(np.int8)), None, 0.5
-    else:
-        R = torch.from_numpy(np.where(valid, rng.normal(3.0, 1.0,
-                                                        valid.shape), 0.0)
-                             .astype(np.float32))
-        R = R.to(torch.bfloat16) if mode == "bf16+W" else R
-        W, r_scale = torch.from_numpy(valid.astype(np.int8)).to(dev), None
-    R = R.to(dev)
+    R, W, r_scale = _tiles(mode, rng, (1, bu, ni), dev)
     u3 = _dyadic(rng, (1, bu, k)).to(dev)
     i_tab = _dyadic(rng, (ni, k)).to(dev)
     order = torch.zeros(1, dtype=torch.int64)
@@ -126,14 +131,47 @@ def test_kernel_bf16_rounding_exact(mode, collision_norm):
 
 
 @pytest.mark.cuda
-def test_kernel_rejects_float_weights():
+@pytest.mark.parametrize("k", [10, 33, 128, 160])
+@pytest.mark.parametrize("ni", [200, 1024])
+@pytest.mark.parametrize("mode", ["codes", "bf16+W", "f32+fW"])
+def test_kernel_padding_and_edges(mode, ni, k):
+    """k padded to the tensor cores' 16-deep steps (10, 33; 128 fills
+    them; 160 takes the CUDA-core kernel), stripes of 130 users (two full
+    64-user chunks and a ragged third), catalogs of 200 items (a ragged
+    128-item panel; int8 rows not whole 16-byte pieces: element loads) and
+    1024 (whole panels, 16-byte copies); three stripes, rtol 1e-3 /
+    atol 1e-5 at mm_bf16's scale."""
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    NU, bu = 3, 130
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
+    u3 = torch.from_numpy(0.03 * rng.normal(size=(NU, bu, k))).float().to(dev)
+    i_tab = torch.from_numpy(0.03 * rng.normal(size=(ni, k))).float().to(dev)
+    order = torch.from_numpy(rng.permutation(NU))
+    assert tdrk.epoch_launches(NU, k, True) == \
+        NU * tdrk.KERNELS_PER_STRIPE + (k <= 128)   # + the bf16 copy of U
+    got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, LR, R, W,
+                                r_scale, U_REG, I_REG, True, True)
+    want = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, LR, R, W,
+                                 U_REG, I_REG, True, True, r_scale=r_scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["f64_weights", "codes_with_weights"])
+def test_kernel_rejects_what_it_cannot_take(bad):
     dev = _cuda()
     u3 = torch.zeros((2, 8, 4), device=dev)
     i_tab = torch.zeros((16, 4), device=dev)
     R = torch.zeros((2, 8, 16), device=dev)
-    with pytest.raises(ValueError, match="int8 W"):
-        tdrk.dense_rows_epoch(u3, i_tab, torch.arange(2), LR, R, R.clone(),
-                              None, U_REG, I_REG, True, False)
+    W = R.double()
+    if bad == "codes_with_weights":
+        R, W = R.to(torch.int8), R.clone()
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        tdrk.dense_rows_epoch(u3, i_tab, torch.arange(2), LR, R, W, 0.5,
+                              U_REG, I_REG, True, False)
 
 
 def _topk_inputs(rng, n_users, n_items, k, exact, dev):

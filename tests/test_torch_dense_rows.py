@@ -167,7 +167,8 @@ def test_cpu_route_is_the_plain_version_and_launches_nothing():
 
 
 @pytest.mark.parametrize("bad", ["shape", "contiguity", "codes_scale",
-                                 "order_range", "order_len", "f64_table"])
+                                 "order_range", "order_len", "order_repeat",
+                                 "f64_table"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=5)
     args = dict(u3=_t(u3), i_tab=_t(i_tab), row_order=_t(orders[0]),
@@ -184,6 +185,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         args["row_order"] = args["row_order"] + 1
     elif bad == "order_len":
         args["row_order"] = args["row_order"][:-1]
+    elif bad == "order_repeat":   # each stripe once an epoch
+        args["row_order"] = args["row_order"].clone()
+        args["row_order"][1] = args["row_order"][0]
     else:
         args["u3"] = args["u3"].double()
     with pytest.raises(ValueError):
@@ -218,3 +222,19 @@ def test_densify_rows_matches_jax_bit_for_bit(dtype):
         want = want.view(np.int16)
     assert got.shape == want.shape
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["float_w_int8", "float_w_f32", "codes"])
+def test_stripe_counts_are_the_validity_counts(mode):
+    """The counts the kernel reads are the plain version's cnt_u / cnt_i:
+    W > 0 (never the weights), or code != 0; negative weights count as
+    invalid, as in cell_dense_update."""
+    _, _, R, W, _, _ = _stripes(mode, seed=6)
+    if W is not None:
+        W = W.copy()
+        W[0, 0, :3] = -1
+    cnt_u, cnt_i = tdrk.stripe_counts(_t(R), _t(W))
+    valid = (W > 0) if W is not None else (R != 0)
+    np.testing.assert_array_equal(cnt_u.numpy(), valid.sum(2))
+    np.testing.assert_array_equal(cnt_i.numpy(), valid.sum(1))
+    assert cnt_u.dtype == cnt_i.dtype == torch.float32

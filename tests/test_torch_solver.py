@@ -17,6 +17,7 @@ from matfac_tpu.ops.block_sgd_kernel import device_diag_schedule
 from matfac_tpu.solvers import block_sgd as jbs
 from matfac_tpu.utils import freq
 from matfac_tpu_torch.models.base import ModelMF, state_from_numpy
+from matfac_tpu_torch.ops.dense_row_kernel import stripe_counts
 from matfac_tpu_torch.solvers import block_sgd as tbs
 
 
@@ -121,6 +122,9 @@ def test_ladder_picks_and_grids_match_jax(case):
             f"torch.{j.W_cells.dtype}"
         assert np.array_equal(t.W_rows.numpy(),
                               np.asarray(j.W_cells)[:j.NU])
+    # the validity counts the stripe kernel reads, staged with the tiles
+    for got, want in zip(t.counts, stripe_counts(t.R_rows, t.W_rows)):
+        assert torch.equal(got, want)
     got = t.R_rows
     want = np.asarray(j.R_cells)[:j.NU]
     if r_dtype == "bfloat16":   # compare bit patterns

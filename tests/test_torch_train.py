@@ -266,6 +266,41 @@ def test_train_model_matches_jax(tmp_path, monkeypatch):
     assert ckpt.load_invalid(prefix, data.n_users, data.n_items) is not None
 
 
+def test_train_model_ifwmf_densesgd_matches_jax(monkeypatch):
+    """IFWMF on the row-dense engine: its popularity weights stage as float
+    W tiles (f32 at this size), and ten epochs from one initial state with
+    JAX's stripe orders injected give JAX's val RMSE per epoch (rtol 1e-3:
+    mm_bf16 operand rounding compounds over the epochs) and factors."""
+    data, p = _data()
+    monkeypatch.setattr(BlockSGDSolver, "_stripe_order", _jax_orders)
+    js = j_init_state(p, data.n_users, data.n_items)
+    rep_j, *_ = j_train_model(data, p, algo="ifwmf", mf_method="densesgd",
+                              init_state_override=js,
+                              log_fn=lambda s: None)
+    rep_t, *_ = train_model(
+        data, p, algo="ifwmf", mf_method="densesgd", device="cpu",
+        init_state_override=state_from_numpy(
+            *(np.asarray(a) for a in js), device="cpu"),
+        log_fn=lambda s: None)
+    sol = rep_t.solver
+    assert (sol.engine, sol.R_rows.dtype, sol.W_rows.dtype) == (
+        "dense", torch.float32, torch.float32)
+    w = sol.W_rows[sol.W_rows > 0]
+    assert float(w.min()) < 1.0   # float weights, not validity
+    assert rep_t.stop_reason == rep_j.stop_reason
+    assert rep_t.best_iter == rep_j.best_iter
+    assert len(rep_t.history) == len(rep_j.history) == p.max_iter
+    np.testing.assert_allclose([h.val_rmse for h in rep_t.history],
+                               [h.val_rmse for h in rep_j.history],
+                               rtol=1e-3)
+    np.testing.assert_allclose(rep_t.state.u_fac.numpy(),
+                               np.asarray(rep_j.state.u_fac), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(rep_t.state.i_fac.numpy(),
+                               np.asarray(rep_j.state.i_fac), rtol=1e-3,
+                               atol=1e-4)
+
+
 def test_resume_is_bit_exact(tmp_path):
     """A run stopped at epoch 5 and resumed reaches the same state as an
     uninterrupted run: the loop state and the stripe-order generator are
@@ -299,7 +334,8 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf"), "item 7"), (dict(algo="ifwmf"), "item 7"),
+    (dict(algo="tmf"), "item 7"),
+    (dict(algo="ifwmf", mf_method="auto"), "item 7"),
     (dict(algo="tmf", mf_method="auto"), "item 7"),
     (dict(algo="tmfdropout", mf_method="blocksgd"), "item 7"),
     (dict(algo="mf_loc", mf_method="blocksgd"), "item 14"),
@@ -309,7 +345,8 @@ def test_resume_survives_missing_best_file(tmp_path):
     (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
     """BPR is ported; its dense engine and Poisson hybrid are not. IFWMF and
-    TMF train on blocksgd; their dense-kernel instantiations, and the
+    TMF train on blocksgd and IFWMF on densesgd; TMF's dense-kernel mask
+    instantiation (and with it 'auto' for the long-tail models), and the
     Poisson-sampled and othersrc models, are not ported."""
     data, p = _data()
     kw = dict(kw)
