@@ -33,20 +33,22 @@ Phases, in order; any failure raises and the script exits non-zero:
       schedule (with a dummy lane) and fused_cell_update's single cell;
       collision normalization, rank mask, 0/1 and float weights, ids
       repeating within every batch, batch offsets and several steps per
-      cell, deltas in shared memory and in the global scratch; f32 and
-      bf16 products; then one-step cases whose bf16 rounding is exact, each
+      cell, segment sums in a cluster's shared memory (small blocks and
+      the JAX default 1024-blocks) and in the global scratch; f32 and bf16
+      products; then one-step cases whose bf16 rounding is exact, each
       with a control in the other precision that must FAIL;
   (i) main path of the one-hot engine: train_model(algo="mf",
       mf_method="blocksgd") on (d)'s data, k=64, lr 0.005, 5 epochs: the
       DSGD diag schedule, 384-blocks (261 x 53), 1024-rating steps, one
-      kernel launch per round; then fused_cell_update over the cells of one
-      round of its staged streams, one call per cell;
+      kernel launch per epoch (a cluster per lane, a grid barrier per
+      round); then fused_cell_update over the cells of one round of its
+      staged streams, one call (one launch) per cell;
   (j) the long-tail models on the same engine: algo="tmf" (rank masks)
       and algo="ifwmf" (float weights), 2 epochs each;
   (k) the row schedule at full shape: one epoch of
       BlockSGDSolver(engine="pallas", schedule="row", batch_size=1024) with
-      the JAX default blocks of 1024 (98 x 20; the deltas take the global
-      scratch), one launch per user-block row;
+      the JAX default blocks of 1024 (98 x 20), one launch: one cluster of
+      16 CTAs (8 where the card cannot host 16) walks the 1,960 cells;
   (l) IFWMF on the stripe engine: train_model(algo="ifwmf",
       mf_method="densesgd") on (d)'s data, 2 epochs: its popularity
       weights stage as bf16 W beside bf16 R.
@@ -56,10 +58,10 @@ the main path's first epoch on its staged tiles through the kernel and
 through the plain version and hold them together (rtol 1e-3 / atol 1e-5),
 and time both on those tensors. (g) checks the top-N launch count, that
 HR@10 is finite every epoch and its best above the initial state's. (i),
-(j) and (k) check the launch count, that the objective and val RMSE are
-finite and fall, replay a first epoch on the staged streams through kernel
-and plain with one schedule and hold them to (h)'s bf16 class, and time
-both.
+(j) and (k) check the launch count and the kernel's device count of
+finished cells, that the objective and val RMSE are finite and fall,
+replay a first epoch on the staged streams through kernel and plain with
+one schedule and hold them to (h)'s bf16 class, and time both.
 
 The line before the last is a JSON record of the kernels: per kernel its
 launches on the main path, max abs error against the plain version, its
@@ -770,8 +772,15 @@ BF16_RTOL, BF16_ATOL = 1e-3, 1e-5
 # fused_cell_update: the tolerance of the JAX package's own test of it
 # against plain jnp (tests/test_pallas.py:66-101)
 FUSED_ATOL = 1e-5
-# (bu, bi, k): the deltas fit shared memory, or take the global scratch
-BLOCK_ROUTES = {"smem": (64, 48, 64), "scratch": (256, 256, 128)}
+# (bu, bi, k, bs): a step's segment sums in a cluster's shared memory
+# (small blocks; the JAX default 1024-blocks at k = 64), or in the global
+# scratch (2048-slot steps on 2048-blocks at k = 256: up to 4,608 sums of
+# 1 KiB, above 227 KiB a CTA even at C = 16)
+BLOCK_ROUTES = {"cluster": (64, 48, 64, 64),
+                "cluster1024": (1024, 1024, 64, 256),
+                "scratch": (2048, 2048, 256, 2048)}
+BLOCK_WRAPPERS = (bsk.block_sgd_epoch, bsk.block_sgd_diag_epoch,
+                  sk.fused_cell_update)
 # (i), (j), (k): bench.py's full shape (cell (d)'s data), k=64, and its
 # step: batch_size 65,536, which train_model cuts to 1024 per lane and
 # step. lr 0.005 as in bench.py: at 20,000 x 4,000, density 0.025 (the same
@@ -783,9 +792,36 @@ BLOCK_PARAMS = dict(fac_dim=64, u_reg=0.01, i_reg=0.01, learn_rate=0.005,
 
 
 def _zero_block_counts() -> None:
-    bsk.block_sgd_epoch.launches = 0
-    bsk.block_sgd_diag_epoch.launches = 0
-    sk.fused_cell_update.launches = 0
+    bsk.reset_counts(*BLOCK_WRAPPERS)
+
+
+def _block_counts():
+    """(launches, finished cells) of the row, diag and cell wrappers."""
+    return (tuple(fn.launches for fn in BLOCK_WRAPPERS),
+            tuple(bsk.cells_done(fn) for fn in BLOCK_WRAPPERS))
+
+
+def step_counts(solver):
+    """(steps, live steps) of one epoch of the solver's staged streams:
+    every cell's S / bs steps, and those whose slice holds a valid slot
+    (the kernel skips the others)."""
+    n_cells = solver.NU * solver.NI
+    n_steps = solver.S // solver.bs
+    wts = solver.wts.reshape(-1, solver.bs)[:n_cells * n_steps]
+    live = int((wts != 0).any(1).sum())
+    return n_cells * n_steps, live
+
+
+def _log_plan(tag: str, solver, n_par: int) -> dict:
+    pl = bsk.plan(n_par, solver.bs, solver.bu, solver.bi,
+                  solver.params.fac_dim)
+    steps, live = step_counts(solver)
+    log(f"({tag}) kernel plan: {pl['route']} route, clusters of "
+        f"{pl['cluster']} CTAs, {pl['clusters']} clusters ({pl['resident']} "
+        f"co-resident), {pl['smem']} B shared memory per CTA; steps per "
+        f"epoch {steps}, live {live}, skipped as padding "
+        f"{1 - live / steps:.4f}")
+    return dict(pl, steps=steps, live_steps=live)
 
 
 def _cell_streams(gen: torch.Generator, n_rows: int, S: int, bs: int,
@@ -793,13 +829,16 @@ def _cell_streams(gen: torch.Generator, n_rows: int, S: int, bs: int,
                   dev):
     """Streams [n_rows (+ an all-invalid dummy row), S] as the solver
     stages them: ~80% valid slots, padding slots w = 0, ids 0, lam 1; ids
-    from 16 rows, so they repeat within every batch; weights 0/1 or float
-    in [0.2, 1); host-staged collision counts per static batch slice."""
+    from max(16, bs / 8) rows, so they repeat within every batch (3-6
+    times) and some rows of a large batch span several of the kernel's
+    ranges; weights 0/1 or float in [0.2, 1); host-staged collision counts
+    per static batch slice."""
     valid = torch.rand((n_rows, S), generator=gen) < 0.8
     if dummy:
         valid = torch.cat([valid, torch.zeros((1, S), dtype=torch.bool)])
     shape = valid.shape
-    ids = lambda n: torch.where(valid, torch.randint(0, min(16, n), shape,
+    n_ids = max(16, bs // 8)
+    ids = lambda n: torch.where(valid, torch.randint(0, min(n_ids, n), shape,
                                                      generator=gen), 0)
     u, i = ids(bu).to(torch.int32), ids(bi).to(torch.int32)
     r = torch.where(valid, 3.0 + torch.randn(shape, generator=gen), 0.0)
@@ -827,12 +866,12 @@ def _block_case(schedule: str, route: str, gen: torch.Generator, dev,
     steps per cell; both from random batch offsets. exact: one step per
     block, factors from _dyadic (one row of one cell, or one round of 4
     lanes)."""
-    bu, bi, k = BLOCK_ROUTES[route]
+    bu, bi, k, bs = BLOCK_ROUTES[route]
     if exact:
         NU = NI = 1 if schedule == "row" else 4
         bs, n_steps = 128, 1
     else:
-        (NU, NI), bs = ((3, 2) if schedule == "row" else (5, 3)), 64
+        NU, NI = (3, 2) if schedule == "row" else (5, 3)
         n_steps = 3 if schedule == "row" else 2
     S = bs * n_steps
     if exact:
@@ -857,15 +896,18 @@ def _block_case(schedule: str, route: str, gen: torch.Generator, dev,
 
 def _block_pair(schedule, u_tab, i_tab, sched, lr, streams, kw):
     """(kernel result, plain result) from the same inputs; checks that the
-    wrapper launched once per row or round."""
+    wrapper launched once and the kernel finished every real cell."""
     fn, plain = ((bsk.block_sgd_epoch, bsk.block_sweep_rows)
                  if schedule == "row" else
                  (bsk.block_sgd_diag_epoch, bsk.block_sweep_diag))
-    before = fn.launches
+    bsk.reset_counts(fn)
     got = fn(u_tab.clone(), i_tab.clone(), *sched, lr, *streams, **kw)
-    # every round of these cases has a real lane
-    assert fn.launches - before == sched[0].shape[0], \
-        (fn.launches - before, sched[0].shape[0])
+    real = (sched[0].numel() if schedule == "row"
+            else int((sched[0] < u_tab.shape[0] // kw["bu"]).sum()))
+    if schedule == "row":
+        real *= kw["NI"]
+    assert (fn.launches, bsk.cells_done(fn)) == (1, real), \
+        (fn.launches, bsk.cells_done(fn), real)
     want = plain(u_tab.clone(), i_tab.clone(), *sched, lr, *streams, **kw)
     torch.cuda.synchronize()
     return got, want
@@ -877,10 +919,10 @@ def phase_block_vs_plain(dev="cuda") -> dict:
     gen = torch.Generator().manual_seed(6)
     worst = {"row": 0.0, "diag": 0.0, "cell": 0.0}
     failures = []
-    lib = bsk.library()
-    for route, (bu, bi, k) in BLOCK_ROUTES.items():
-        assert (lib.block_sgd_scratch_floats(1, bu, bi, k) > 0) == \
-            (route == "scratch"), route
+    for route, (bu, bi, k, bs) in BLOCK_ROUTES.items():
+        for n_par in (1, 3):
+            pl = bsk.plan(n_par, bs, bu, bi, k)
+            assert pl["route"] == route.replace("1024", ""), (route, pl)
     for schedule in ("row", "diag"):
         for route in BLOCK_ROUTES:
             for cn in (True, False):
@@ -889,7 +931,7 @@ def phase_block_vs_plain(dev="cuda") -> dict:
                         for mm in (False, True):
                             u_tab, i_tab, sched, (NU, NI, S, bs, k) = \
                                 _block_case(schedule, route, gen, dev)
-                            bu, bi, _ = BLOCK_ROUTES[route]
+                            bu, bi, _, _ = BLOCK_ROUTES[route]
                             rows = NU * NI
                             streams = _cell_streams(
                                 gen, rows, S, bs, bu, bi, k, float_w,
@@ -923,8 +965,8 @@ def phase_block_vs_plain(dev="cuda") -> dict:
         for cn in (True, False):
             for mask, float_w in ((False, False), (True, True)):
                 u_tab, i_tab, sched, (NU, NI, S, bs, k) = _block_case(
-                    schedule, "smem", gen, dev, exact=True)
-                bu, bi, _ = BLOCK_ROUTES["smem"]
+                    schedule, "cluster", gen, dev, exact=True)
+                bu, bi, _, _ = BLOCK_ROUTES["cluster"]
                 streams = _cell_streams(gen, NU * NI, S, bs, bu, bi, k,
                                         float_w, schedule == "diag", dev)
                 lr = LR if cn else LR / 4
@@ -957,9 +999,10 @@ def phase_block_vs_plain(dev="cuda") -> dict:
                 torch.randn((S,), generator=gen),
                 (torch.rand((S,), generator=gen) > 0.2).float())
         args = [x.to(dev) for x in args]
-        before = sk.fused_cell_update.launches
+        bsk.reset_counts(sk.fused_cell_update)
         got = sk.fused_cell_update(*args, LR, bs, REG, 2 * REG)
-        assert sk.fused_cell_update.launches - before == 1
+        assert (sk.fused_cell_update.launches,
+                bsk.cells_done(sk.fused_cell_update)) == (1, 1)
         want = sk.fused_cell_plain(*args, LR, bs, REG, 2 * REG)
         torch.cuda.synchronize()
         a, r, ratio = _errors(got, want, 0.0, FUSED_ATOL)
@@ -1000,7 +1043,8 @@ def _replay(tag: str, solver, state, lr: float, sched):
     plain_fn = bsk.block_sweep_diag if diag else bsk.block_sweep_rows
     args = (*sched, lr, *solver.streams)
     kw = solver.sweep_kwargs()
-    kernel = lambda: fn(u_tab.clone(), i_tab.clone(), *args, **kw)
+    kernel = lambda: fn(u_tab.clone(), i_tab.clone(), *args, **kw,
+                        slices=solver.slices)
     plain = lambda: plain_fn(u_tab.clone(), i_tab.clone(), *args, **kw)
     rtol, atol = ((BF16_RTOL, BF16_ATOL) if solver.mm_bf16
                   else (BLOCK_RTOL, BLOCK_ATOL))
@@ -1017,13 +1061,16 @@ def _replay(tag: str, solver, state, lr: float, sched):
 
 
 def block_bound(solver):
-    """Bound of one one-hot epoch: the staged streams read once (padding
-    slots included), both factor tables read and written once; 8k FLOP a
-    rating (prediction, two gradients, two updates) at the f32 CUDA-core
-    peak."""
+    """Bound of one one-hot epoch: each rating's stream values read once
+    (ids, r, w, and the collision counts and rank where the epoch reads
+    them; a padding slot holds nothing the epoch needs), both factor tables
+    read and written once; 8k FLOP a rating (prediction, two gradients, two
+    updates) at the f32 CUDA-core peak."""
     k = solver.params.fac_dim
-    nbytes = (sum(t.nbytes for t in solver.streams if t is not None)
-              + 2 * 4 * k * (solver.n_users_pad + solver.n_items_pad))
+    per_rating = sum(t.element_size() for t in solver.streams
+                     if t is not None)
+    nbytes = (solver.nnz * per_rating
+              + 2 * 4 * k * (solver.model.n_users + solver.model.n_items))
     return _bound(nbytes, 8.0 * k * solver.nnz, "f32")
 
 
@@ -1039,8 +1086,8 @@ def _train_block(tag: str, data: Data, params: Params, algo: str,
                                         mf_method="blocksgd", device=dev,
                                         log_fn=lambda s: log(f"({tag}) {s}"))
     wall = time.perf_counter() - t0
-    launches = (bsk.block_sgd_diag_epoch.launches,
-                bsk.block_sgd_epoch.launches, sk.fused_cell_update.launches)
+    (n_row, n_diag, n_cell), cells = _block_counts()
+    launches = (n_diag, n_row, n_cell)
     solver = rep.solver
     epochs = len(rep.history)
     R = -(-solver.NU // solver.NI) * solver.NI
@@ -1048,7 +1095,8 @@ def _train_block(tag: str, data: Data, params: Params, algo: str,
         f"bs={solver.bs} S={solver.S} use_mask={solver.use_mask} nnz="
         f"{solver.nnz} pad_frac {solver.pad_frac:.3f}; {R} rounds per epoch; "
         f"train_model wall {wall:.1f} s; stop={rep.stop_reason}; launches "
-        f"(diag, row, cell) {launches}")
+        f"(diag, row, cell) {launches}; finished cells (row, diag, cell) "
+        f"{cells}")
     # at the full shape: 261 x 53 blocks, 265 rounds
     assert (solver.engine, solver.schedule, solver.bu, solver.bi, solver.bs,
             solver.NU, solver.NI) == ("xla", "diag", 384, 384, 1024,
@@ -1057,7 +1105,9 @@ def _train_block(tag: str, data: Data, params: Params, algo: str,
     assert solver.use_mask == (algo == "tmf")
     assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
         (rep.stop_reason, epochs)
-    assert launches == (epochs * R, 0, 0), launches
+    # one launch an epoch; every real cell of every round, each epoch
+    assert launches == (epochs, 0, 0), launches
+    assert cells == (0, epochs * solver.NU * solver.NI, 0), cells
     s0 = init_state(params, data.n_users, data.n_items, device=dev)
     loop = TrainLoop(model, solver, ev, params, log_fn=lambda s: None)
     obj0 = loop._objective(s0)
@@ -1086,11 +1136,14 @@ def phase_blocksgd(data: Data, dev="cuda"):
     sched = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.NU,
                               solver.NI, solver.S // solver.bs)
     err, k_ms, p_ms = _replay("i", solver, s0, params.learn_rate, sched)
+    pl = _log_plan("i", solver, solver.NI)
+    R = sched[0].shape[0]
     log(f"(i) solver epoch in the loop with its views (host clock, "
         f"synchronized): {loop_ms!r} ms")
     log(f"(i) diag epoch alone (CUDA events): kernel {k_ms:.3f} ms = "
-        f"{solver.nnz / k_ms * 1e3:.4e} ratings/s; plain PyTorch "
-        f"{p_ms:.3f} ms = {solver.nnz / p_ms * 1e3:.4e} ratings/s")
+        f"{solver.nnz / k_ms * 1e3:.4e} ratings/s, {k_ms / R * 1e3:.2f} us "
+        f"a round over {R} rounds ({pl['live_steps']} live steps); plain "
+        f"PyTorch {p_ms:.3f} ms = {solver.nnz / p_ms * 1e3:.4e} ratings/s")
     bound = block_bound(solver)
     cell = phase_cells(solver, s0, params, sched)
     del rep, solver
@@ -1100,30 +1153,38 @@ def phase_blocksgd(data: Data, dev="cuda"):
 
 def phase_cells(solver, s0, params: Params, sched):
     """fused_cell_update over the cells of round 0 of (i)'s diag schedule,
-    one call per cell on its staged stream, in 256-rating minibatches
-    (counts zeroed just before); each cell held to its plain version at
-    FUSED_ATOL, then the round timed both ways. Returns (launches, max abs
-    error, kernel ms, plain ms)."""
+    one call per cell on its staged stream, in 256-rating minibatches, each
+    cell's stream staged for the kernel once (``stage_cell``) as a caller
+    of many calls would (counts zeroed just before the calls); each cell
+    held to its plain version at FUSED_ATOL, then the round timed both
+    ways. Returns (launches, max abs error, kernel ms, plain ms)."""
     u_tab, i_tab = solver.stage_factors(s0)
     bu, bi, NI, NU = solver.bu, solver.bi, solver.NI, solver.NU
+    k = params.fac_dim
     lanes = [(int(u), int(i)) for u, i in zip(sched[0][0], sched[1][0])
              if int(u) < NU]
     p = params
+    stream = lambda c: (solver.u_loc[c], solver.i_loc[c], solver.vals[c],
+                        solver.wts[c])
+    staged = {ub * NI + ib: sk.stage_cell(*stream(ub * NI + ib), 256, bu,
+                                          bi, k) for ub, ib in lanes}
 
-    def cells(fn):
+    def cells(fn, staged=None):
         out = []
         for ub, ib in lanes:
             c = ub * NI + ib
+            kw = {} if staged is None else {"slices": staged[c]}
             out.append(fn(u_tab[ub * bu:(ub + 1) * bu],
-                          i_tab[ib * bi:(ib + 1) * bi], solver.u_loc[c],
-                          solver.i_loc[c], solver.vals[c], solver.wts[c],
-                          p.learn_rate, 256, p.u_reg, p.i_reg))
+                          i_tab[ib * bi:(ib + 1) * bi], *stream(c),
+                          p.learn_rate, 256, p.u_reg, p.i_reg, **kw))
         return out
 
+    kernel = lambda: cells(sk.fused_cell_update, staged)
     _zero_block_counts()
-    got = cells(sk.fused_cell_update)
+    got = kernel()
     launches = sk.fused_cell_update.launches
-    assert launches == len(lanes), (launches, len(lanes))
+    done = bsk.cells_done(sk.fused_cell_update)
+    assert (launches, done) == (len(lanes), len(lanes)), (launches, done)
     want = cells(sk.fused_cell_plain)
     torch.cuda.synchronize()
     err = max(_errors(g, w, 0.0, FUSED_ATOL)[0] for g, w in zip(got, want))
@@ -1134,20 +1195,21 @@ def phase_cells(solver, s0, params: Params, sched):
     if ratio > 1.0:
         raise AssertionError("(i) fused_cell_update disagrees with its "
                              f"plain version (atol {FUSED_ATOL})")
-    k_ms, p_ms = _alternate(lambda: cells(sk.fused_cell_update),
-                            lambda: cells(sk.fused_cell_plain))
-    k = params.fac_dim
-    nbytes, n = 0, 0
-    for ub, ib in lanes:
-        c = ub * NI + ib
-        nbytes += sum(x[c].nbytes for x in (solver.u_loc, solver.i_loc,
-                                            solver.vals, solver.wts))
-        nbytes += 2 * 4 * k * (bu + bi)
-        n += int((solver.wts[c] > 0).sum())
+    k_ms, p_ms = _alternate(kernel, lambda: cells(sk.fused_cell_plain))
+    # each valid slot's u, i, r, w read once; both blocks read and the new
+    # blocks written once a call
+    n = sum(int((solver.wts[ub * NI + ib] > 0).sum()) for ub, ib in lanes)
+    nbytes = 16 * n + len(lanes) * 2 * 4 * k * (bu + bi)
     bound = _bound(nbytes, 8.0 * k * n, "f32")
+    pl = bsk.plan(1, 256, bu, bi, k)
+    # a caller that hands each call a fresh stream: checked and sorted each
+    # call (outside the main path's counts)
+    free_ms = _cuda_ms(lambda: cells(sk.fused_cell_update))
     log(f"(i) one round of cells through fused_cell_update (CUDA events): "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound {bound[0]:.4f} "
-        f"ms ({bound[1]})")
+        f"kernel {k_ms:.3f} ms ({k_ms / len(lanes) * 1e3:.1f} us a call, "
+        f"one cluster of {pl['cluster']} CTAs), plain {p_ms:.3f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); without staged slices {free_ms:.3f}"
+        f" ms ({free_ms / len(lanes) * 1e3:.1f} us a call)")
     return launches, err, k_ms, p_ms, bound
 
 
@@ -1184,27 +1246,28 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
     solver = BlockSGDSolver(model, params, data.train_mat, *inval,
                             batch_size=1024, engine="pallas", schedule="row",
                             device=dev)
-    scratch = bsk.library().block_sgd_scratch_floats(1, solver.bu, solver.bi,
-                                                     params.fac_dim)
     log(f"(k) staged NU={solver.NU} NI={solver.NI} bu={solver.bu} "
         f"bs={solver.bs} S={solver.S} ({solver.S // solver.bs} steps per "
-        f"cell); global scratch {scratch} floats per CTA")
-    # at the full shape: 98 x 20 blocks
+        f"cell)")
+    pl = _log_plan("k", solver, 1)
+    # at the full shape: 98 x 20 blocks; the chain spread over a cluster,
+    # its deltas in the cluster's shared memory
     assert (solver.NU, solver.NI, solver.bu, solver.bi) == (
         -(-data.n_users // 1024), -(-data.n_items // 1024), 1024, 1024)
-    assert scratch > 0, "1024-blocks should take the global-scratch route"
+    assert pl["route"] == "cluster" and pl["cluster"] >= 2, pl
     _zero_block_counts()
     t0 = time.perf_counter()
     state = solver.epoch(s0, params.learn_rate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bsk.block_sgd_epoch.launches
-    assert (launches, bsk.block_sgd_diag_epoch.launches,
-            sk.fused_cell_update.launches) == (solver.NU, 0, 0)
+    counts = _block_counts()
+    launches = counts[0][0]
+    assert counts == ((1, 0, 0), (solver.NU * solver.NI, 0, 0)), counts
     val0 = ev.rmse(model.eval_view(s0), "val")
     val1 = ev.rmse(model.eval_view(state), "val")
     log(f"(k) one epoch through BlockSGDSolver.epoch: {wall * 1e3:.1f} ms "
-        f"(host clock); {launches} launches; val RMSE {val0!r} -> {val1!r}")
+        f"(host clock); launches and finished cells {counts}; val RMSE "
+        f"{val0!r} -> {val1!r}")
     assert np.isfinite(val1) and val1 < val0, (val0, val1)
     rng = np.random.default_rng(3)
     sched = (rng.permutation(solver.NU),
@@ -1212,7 +1275,8 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
              rng.integers(0, solver.S // solver.bs, (solver.NU, solver.NI)))
     err, k_ms, p_ms = _replay("k", solver, s0, params.learn_rate, sched)
     bound = block_bound(solver)
-    log(f"(k) row epoch alone (CUDA events): kernel {k_ms:.3f} ms, plain "
+    log(f"(k) row epoch alone (CUDA events): kernel {k_ms:.3f} ms "
+        f"({k_ms / pl['live_steps'] * 1e3:.2f} us a live step), plain "
         f"{p_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
     del solver, state
     torch.cuda.empty_cache()

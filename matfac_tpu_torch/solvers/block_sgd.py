@@ -13,7 +13,8 @@ One-hot engines (``engine="xla"`` or ``"pallas"``): the ratings of each
 and host-staged collision counts. The row schedule sweeps user-block rows
 (ops/block_sgd_kernel.block_sgd_epoch); the diag schedule runs DSGD rounds
 of cells disjoint in both axes (block_sgd_diag_epoch). Both run the CUDA
-kernel ``csrc/block_sgd.cu`` on a CUDA device and the plain PyTorch
+kernel ``csrc/block_sgd.cu`` on a CUDA device, on the kernel's view of
+the streams staged once with them (``slices``), and the plain PyTorch
 version on the CPU. Poisson-sampled ranks, bias models and per-side gates
 are refused, as in JAX.
 
@@ -45,7 +46,8 @@ from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState, ModelMF
 from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
                                                    block_sgd_epoch,
-                                                   diag_schedule)
+                                                   diag_schedule, plan,
+                                                   stage_slices)
 from matfac_tpu_torch.ops.dense_block_kernel import densify_rows
 from matfac_tpu_torch.ops.dense_row_kernel import (dense_rows_epoch,
                                                    stripe_counts)
@@ -333,6 +335,17 @@ class BlockSGDSolver:
         self.vals, self.wts = dev(vals, 0), dev(wts, 0)
         self.lams = dev(lams, 1)
         self.cnu, self.cni = dev(cnu, 1.0), dev(cni, 1.0)
+        # the kernel's view of the streams, checked and sorted once (the
+        # CPU route runs the plain version on the streams themselves)
+        self.slices = None
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                n_par = NI if self.schedule == "diag" else 1
+                range_size = plan(n_par, self.bs, bu, bi,
+                                  self.model.k)["range"]
+            self.slices = stage_slices(self.streams, self.bs, bu, bi,
+                                       self.collision_norm, self.use_mask,
+                                       range_size)
 
     # ------------------------------------------------------------------
     def _stage_dense(self, cell, u_loc, i_loc, vals, wts, n_cells, budget):
@@ -509,5 +522,5 @@ class BlockSGDSolver:
         sweep = (block_sgd_diag_epoch if self.schedule == "diag"
                  else block_sgd_epoch)
         sweep(u_tab, i_tab, *schedule, lr, *self.streams,
-              **self.sweep_kwargs())
+              **self.sweep_kwargs(), slices=self.slices)
         return self._views(state, u_tab, i_tab)

@@ -22,7 +22,7 @@ i: the one-hot cell engine, train_model(algo="mf", mf_method="blocksgd")
 on cell d's data (diag schedule, 384-blocks, 1024-rating steps, lr 0.005),
 trained two epochs; windows:
 
-  * one solver epoch (the block kernel, one launch per diag round);
+  * one solver epoch (the block kernel, one launch an epoch);
   * one plain PyTorch diag epoch on the same staged streams and schedule;
   * one objective and one val RMSE.
 

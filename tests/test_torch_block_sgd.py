@@ -422,3 +422,260 @@ def test_constructor_defaults_are_the_jax_solvers():
                            device="cpu")
     assert (t.engine, t.schedule, t.bu, t.bi, t.bs) == ("xla", "row", 1024,
                                                         1024, 256)
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernel's host side: lane tables, staged slices, staged checks
+# ----------------------------------------------------------------------
+
+def _diag_lanes_per_round(ub, ib, bo, NU, NI):
+    """The per-round lanes of the one-launch-per-round wrapper the epoch
+    table replaced: each round's real lanes, in order."""
+    rounds = []
+    for t in range(ub.shape[0]):
+        v = ub[t] < NU
+        if len(set(ub[t][v].tolist())) < v.sum() or \
+                len(set(ib[t][v].tolist())) < v.sum():
+            raise ValueError(f"round {t} has lanes that share a block")
+        rounds.append([(int(u), int(i), int(u) * NI + int(i), int(b))
+                       for u, i, b in zip(ub[t][v], ib[t][v], bo[t][v])])
+    return rounds
+
+
+@pytest.mark.parametrize("NU,G,n_steps,seed", [(5, 3, 2, 0), (261, 53, 1, 1),
+                                               (7, 7, 3, 2), (4, 5, 2, 3)])
+def test_epoch_lanes_equal_the_rounds(NU, G, n_steps, seed):
+    """The diag schedule's epoch table holds each round's real lanes in
+    place (dummy lanes -1), the lanes the per-round launches ran."""
+    sched = [x.numpy() for x in tbsk.diag_schedule(
+        torch.Generator().manual_seed(seed), NU, G, n_steps)]
+    table = tbsk.epoch_lanes(*sched, NU, G, n_steps)
+    assert table.shape == (sched[0].shape[0], G, 4)
+    assert table.dtype == np.int32
+    want = _diag_lanes_per_round(*sched, NU, G)
+    for t, lanes in enumerate(want):
+        real = table[t][table[t, :, 0] >= 0]
+        assert [tuple(x) for x in real.tolist()] == lanes
+    assert ((table[:, :, 0] < 0) == (sched[0] >= NU)).all()
+
+
+def test_row_lanes_walk_the_rows_in_order():
+    """The row schedule's table: one round per cell, user rows in row_of
+    order, each sweeping its cells in ib_seq order (the lanes the
+    per-row launches walked)."""
+    rng = np.random.default_rng(4)
+    NU, NI, n_steps = 5, 3, 4
+    row_of = rng.permutation(NU)
+    ib_seq = np.stack([rng.permutation(NI) for _ in range(NU)])
+    boff = rng.integers(0, n_steps, (NU, NI))
+    table = tbsk.row_lanes(row_of, ib_seq, boff, NU, NI, n_steps)
+    want = [(ro, ib, ro * NI + ib, boff[t, j]) for t, ro in enumerate(row_of)
+            for j, ib in enumerate(ib_seq[t])]
+    assert table.shape == (NU * NI, 1, 4)
+    assert [tuple(x) for x in table[:, 0].tolist()] == want
+
+
+def test_lane_tables_refuse_what_the_kernel_cannot_take():
+    ub = np.array([[0, 1], [1, 1]])
+    ib = np.array([[0, 1], [0, 1]])
+    with pytest.raises(ValueError, match="round 1 has lanes that share"):
+        tbsk.epoch_lanes(ub, ib, np.zeros((2, 2)), 2, 2, 1)
+    # dummy lanes may repeat; real ones may not
+    tbsk.epoch_lanes(np.array([[2, 2]]), ib[:1], np.zeros((1, 2)), 2, 2, 1)
+    with pytest.raises(ValueError, match="ranges"):
+        tbsk.epoch_lanes(ub[:1], ib[:1], np.full((1, 2), 3), 2, 2, 2)
+    with pytest.raises(ValueError, match="permute"):
+        tbsk.row_lanes(np.array([0, 0]), np.zeros((2, 1)), np.zeros((2, 1)),
+                       2, 1, 1)
+    with pytest.raises(ValueError, match="boff"):
+        tbsk.row_lanes(np.array([1, 0]), np.zeros((2, 1)), np.ones((2, 1)),
+                       2, 1, 1)
+
+
+def _streams(rng, rows, S, bs, bu, bi, k, valid_first):
+    valid = rng.random((rows, S)) < 0.7
+    if valid_first:   # as the solver stages a cell: valid slots first
+        valid = np.sort(valid, axis=1)[:, ::-1]
+    u = np.where(valid, rng.integers(0, bu, (rows, S)), 0).astype(np.int32)
+    i = np.where(valid, rng.integers(0, bi, (rows, S)), 0).astype(np.int32)
+    r = np.where(valid, rng.normal(3, 1, (rows, S)), 0).astype(np.float32)
+    w = (valid * rng.uniform(0.2, 1, (rows, S))).astype(np.float32)
+    lam = np.where(valid, rng.integers(1, k + 1, (rows, S)), 1).astype(
+        np.int32)
+    cnu = tbs.stage_batch_collision_counts(w, u, bs, bu)
+    cni = tbs.stage_batch_collision_counts(w, i, bs, bi)
+    return tuple(torch.from_numpy(a) for a in (u, i, r, w, cnu, cni, lam))
+
+
+@pytest.mark.parametrize("range_size", [4, 8])
+@pytest.mark.parametrize("valid_first", [True, False])
+def test_slice_tables_hold_every_valid_slot_once(valid_first, range_size):
+    """Each batch slice's valid slots, sorted per side by row with a stable
+    order, cut into segments (runs of one row within a range of 4 or 8
+    sorted slots), one entry per touched row, and the per-slice valid
+    counts (the solver's cells keep valid slots first, so a slice past a
+    cell's count holds none: the kernel skips it)."""
+    rng = np.random.default_rng(5)
+    rows, S, bs, bu, bi, k = 4, 96, 32, 70, 5, 8
+    streams = _streams(rng, rows, S, bs, bu, bi, k, valid_first)
+    t = tbsk.slice_tables(streams, bs, bu, bi, True, True, range_size)
+    n_sl = rows * S // bs
+    for name, dt, shape in (("meta", torch.int32, (n_sl, bs, 4)),
+                            ("own", torch.int16, (n_sl, bs)),
+                            ("seg", torch.int16, (n_sl, bs)),
+                            ("ent", torch.int32, (n_sl, bs))):
+        for key in ("_u", "_i"):   # what the kernel reads, as it reads it
+            x = t[name + key]
+            assert (x.dtype, tuple(x.shape)) == (dt, shape), name + key
+            assert x.is_contiguous()
+    assert (t["cnt"].dtype, tuple(t["cnt"].shape)) == (torch.int32,
+                                                       (n_sl, 8))
+    u, i, r, w, cnu, cni, lam = (x.numpy().reshape(-1, bs) for x in streams)
+    for sl in range(rows * S // bs):
+        v = np.nonzero(w[sl] != 0)[0]
+        c = t["cnt"][sl].numpy()
+        assert c[2] == len(v)
+        for side, (own, oth, cn, key) in enumerate(((u, i, cnu, "u"),
+                                                    (i, u, cni, "i"))):
+            order = sorted(v, key=lambda j: own[sl, j])
+            n = len(order)
+            m = t["meta_" + key][sl, :n].numpy()
+            rows_s = own[sl, order]
+            assert np.array_equal(t["own_" + key][sl, :n].numpy(), rows_s)
+            assert np.array_equal(m[:, 0] & 0xffff, oth[sl, order])
+            assert np.array_equal(m[:, 0] >> 16, lam[sl, order])
+            for col, want in ((1, r), (2, w), (3, cn)):
+                assert np.array_equal(m[:, col].view(np.float32),
+                                      want[sl, order])
+            pos = np.arange(n)
+            new = np.r_[True, rows_s[1:] != rows_s[:-1]] if n else \
+                np.zeros(0, bool)
+            seg = np.cumsum(new | (pos % range_size == 0)) - 1
+            assert np.array_equal(t["seg_" + key][sl, :n].numpy(), seg)
+            n_rows = int(new.sum())
+            assert (c[side], c[3 + side]) == (n_rows, seg[-1] + 1 if n
+                                              else 0)
+            ent = t["ent_" + key][sl, :n_rows].numpy()
+            assert np.array_equal(ent & 0x7fff, rows_s[new])
+            assert np.array_equal(ent >> 16, seg[new])
+    if valid_first:
+        per_cell = (w != 0).reshape(rows, S).sum(1)
+        nv = t["cnt"][:, 2].numpy().reshape(rows, S // bs)
+        want = np.clip(per_cell[:, None] - bs * np.arange(S // bs), 0, bs)
+        assert np.array_equal(nv, want)
+
+
+def _kernel_step_model(U, I, t, sl, k, lr, u_reg, i_reg, cn, mask, mm):
+    """One step as the CUDA kernel computes it, read from the staged
+    slices alone: each sorted slot's prediction from its own row and the
+    partner row, its term summed into its segment, each row's segments
+    summed in order, and every touched row adding that sum once."""
+    bf = lambda x: x.to(torch.bfloat16).to(torch.float32) if mm else x
+    c = t["cnt"][sl]
+    new = []
+    for side, key in enumerate(("u", "i")):
+        own_t, oth_t = (U, I) if side == 0 else (I, U)
+        n = int(c[2])
+        m = t["meta_" + key][sl, :n]
+        own = t["own_" + key][sl, :n].long()
+        seg = t["seg_" + key][sl, :n].long()
+        oth = (m[:, 0] & 0xffff).long()
+        lam = (m[:, 0] >> 16) if mask else torch.full((n,), k)
+        r, w, cv = (m[:, col].view(torch.float32) for col in (1, 2, 3))
+        po, pp = bf(own_t[own]), bf(oth_t[oth])
+        keep = torch.arange(k) < lam[:, None]
+        pred = (po * pp * keep).sum(1)
+        coeff = w * (r - pred)
+        reg = 2.0 * (u_reg if side == 0 else i_reg)
+        g = -2.0 * coeff[:, None] * pp + reg * (w > 0).float()[:, None] * po
+        if mask:
+            g = g * keep
+        if cn:
+            g = g / cv[:, None]
+        n_seg = int(c[3 + side])
+        sums = torch.zeros((n_seg, k)).index_add_(0, seg, bf(-lr * g))
+        ent = t["ent_" + key][sl, :int(c[side])]
+        firsts = (ent >> 16).long().tolist() + [n_seg]
+        delta = torch.zeros_like(own_t)
+        for e, row in enumerate((ent & 0x7fff).long().tolist()):
+            delta[row] = sums[firsts[e]:firsts[e + 1]].sum(0)
+        new.append(own_t + delta)
+    return new
+
+
+@pytest.mark.parametrize("mm_bf16,range_size", [(False, 8), (True, 4)])
+@pytest.mark.parametrize("collision_norm,use_mask", [(False, False),
+                                                     (True, True)])
+def test_kernel_model_on_the_slices_matches_batch_update(
+        collision_norm, use_mask, mm_bf16, range_size):
+    """What the kernel reads from the staged slices is enough to compute
+    the plain version's step: the model above, fed only the tables, equals
+    batch_update on the streams at f32 rtol 1e-5 / atol 1e-6 (factors exact
+    in bf16, so both precisions hold at that class); the few rows make rows
+    span several ranges."""
+    rng = np.random.default_rng(6)
+    rows, S, bs, bu, bi, k = 3, 64, 32, 12, 5, 16
+    streams = _streams(rng, rows, S, bs, bu, bi, k, False)
+    t = tbsk.slice_tables(streams, bs, bu, bi, collision_norm, use_mask,
+                          range_size)
+    assert (t["cnt"][:, 4] > t["cnt"][:, 1]).any()   # split rows
+    U = torch.from_numpy(_dyadic(rng, (bu, k)))
+    I = torch.from_numpy(_dyadic(rng, (bi, k)))
+    lr, u_reg, i_reg = 0.05, 0.01, 0.02
+    for sl in range(rows * S // bs):
+        got = _kernel_step_model(U, I, t, sl, k, lr, u_reg, i_reg,
+                                 collision_norm, use_mask, mm_bf16)
+        cut = [x.reshape(-1, bs)[sl][None] for x in streams]
+        want = tbsk.batch_update(U[None], I[None], *cut, lr, u_reg, i_reg,
+                                 collision_norm, use_mask, mm_bf16)
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_[0], rtol=RTOL, atol=ATOL)
+
+
+def test_stream_checks_are_made_once_per_staged_tensor():
+    """The id-range check syncs once, where the streams are staged
+    (``stage_slices``, as the solver stages them on the card): an epoch
+    handed the staged slices checks nothing, one without them checks its
+    streams again. A stream with an id out of range is refused either way,
+    and slices staged from other streams or options are refused."""
+    _, t, params = _both(schedule="diag")
+    _, st = _states(params)
+    u_tab, i_tab = t.stage_factors(st)
+    sched = t.draw_schedule()
+    kw = t.sweep_kwargs()
+    stage = lambda streams: tbsk.stage_slices(
+        streams, t.bs, t.bu, t.bi, t.collision_norm, t.use_mask, 8)
+    calls = []
+    real = torch.aminmax
+    try:
+        torch.aminmax = lambda x: calls.append(1) or real(x)
+        slices = stage(t.streams)
+        assert len(calls) == 2           # u_loc and i_loc, once each
+        for _ in range(2):
+            tbsk.block_sgd_diag_epoch(u_tab.clone(), i_tab.clone(), *sched,
+                                      0.05, *t.streams, **kw, slices=slices)
+        assert len(calls) == 2
+        tbsk.block_sgd_diag_epoch(u_tab.clone(), i_tab.clone(), *sched, 0.05,
+                                  *t.streams, **kw)
+        assert len(calls) == 4
+    finally:
+        torch.aminmax = real
+    want = tbsk.slice_tables(t.streams, t.bs, t.bu, t.bi, t.collision_norm,
+                             t.use_mask, 8)
+    assert slices["range"] == 8
+    assert all(torch.equal(slices[x], want[x]) for x in tbsk._TABLES)
+    bad = t.streams[0].clone()
+    bad[0, 0] = t.bu
+    streams = (bad,) + t.streams[1:]
+    with pytest.raises(ValueError, match="outside"):
+        stage(streams)
+    with pytest.raises(ValueError, match="outside"):
+        tbsk.block_sgd_diag_epoch(u_tab, i_tab, *sched, 0.05, *streams, **kw)
+    with pytest.raises(ValueError, match="staged from other"):
+        tbsk.block_sgd_diag_epoch(u_tab, i_tab, *sched, 0.05, *streams, **kw,
+                                  slices=slices)
+    assert t.collision_norm
+    with pytest.raises(ValueError, match="staged from other"):
+        tbsk.block_sgd_diag_epoch(
+            u_tab, i_tab, *sched, 0.05, *t.streams, slices=slices,
+            **dict(kw, collision_norm=False))

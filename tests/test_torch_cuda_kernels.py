@@ -255,22 +255,30 @@ def test_topk_kernel_rejects_what_it_cannot_take():
 # the one-hot cell kernel (csrc/block_sgd.cu)
 # ----------------------------------------------------------------------
 
-# (bu, bi, k): the deltas fit shared memory, or go to the global scratch
-BLOCK_ROUTES = {"smem": (64, 48, 64), "scratch": (256, 256, 128)}
+# (bu, bi, k, bs): a step's segment sums in the cluster's shared memory
+# (small blocks; the JAX default 1024-blocks at k = 64), or in the global
+# scratch (2048-blocks at k = 256 and 2048-slot steps: up to 4,608 sums of
+# 1 KiB, above 227 KiB a CTA even at C = 16)
+BLOCK_ROUTES = {"cluster": (64, 48, 64, 64),
+                "cluster1024": (1024, 1024, 64, 256),
+                "scratch": (2048, 2048, 256, 2048)}
 
 
 def _cell_streams(rng, n_rows, S, bs, bu, bi, k, weights, dummy=False):
     """Streams [n_rows (+ 1 all-invalid dummy row), S] as the solver stages
-    them: ~80% valid slots, padding slots w = 0, ids 0, lam 1; ids from 8
-    rows, so they repeat within every batch; weights 0/1 or float in
-    [0.2, 1) on the valid slots (IFWMF-like); collision counts of each
-    static batch slice."""
+    them: ~80% valid slots, padding slots w = 0, ids 0, lam 1; ids from
+    max(8, bs / 8) rows, so they repeat within every batch (~6 times: the
+    steps stay stable) and some rows of a large batch span several of the
+    kernel's 8-slot ranges;
+    weights 0/1 or float in [0.2, 1) on the valid slots (IFWMF-like);
+    collision counts of each static batch slice."""
     valid = rng.random((n_rows, S)) < 0.8
     if dummy:
         valid = np.concatenate([valid, np.zeros((1, S), bool)])
     shape = valid.shape
-    u = np.where(valid, rng.integers(0, min(8, bu), shape), 0)
-    i = np.where(valid, rng.integers(0, min(8, bi), shape), 0)
+    n_ids = max(8, bs // 8)
+    u = np.where(valid, rng.integers(0, min(n_ids, bu), shape), 0)
+    i = np.where(valid, rng.integers(0, min(n_ids, bi), shape), 0)
     r = np.where(valid, rng.normal(3.0, 1.0, shape), 0.0)
     w = valid * (1.0 if weights == "01" else rng.uniform(0.2, 1.0, shape))
     lam = np.where(valid, rng.integers(1, k + 1, shape), 1)
@@ -288,24 +296,25 @@ def _block_kw(bs, bu, bi, NI, collision_norm, use_mask, mm_bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["smem", "scratch"])
+@pytest.mark.parametrize("route", list(BLOCK_ROUTES))
 @pytest.mark.parametrize("weights", ["01", "float"])
 @pytest.mark.parametrize("use_mask", [False, True])
 @pytest.mark.parametrize("collision_norm", [False, True])
 def test_block_row_kernel_matches_plain(collision_norm, use_mask, weights,
                                         route):
-    """The row schedule (one launch per user-block row, one CTA walking the
-    row's cells) at f32, 3 rows x 2 cells x 3 steps from random batch
-    offsets, ids repeating within every batch: rtol 1e-5 / atol 1e-6, the
-    class the JAX package pins between its two engines (summation order
-    only). Without collision normalization a row's step is the sum of ~8
-    repeats, so the step takes lr / 8."""
+    """The row schedule (one launch, one cluster walking the 6 cells in
+    order) at f32, 3 rows x 2 cells x 3 steps from random batch offsets,
+    ids repeating within every batch: rtol 1e-5 / atol 1e-6, the class the
+    JAX package pins between its two engines (summation order only).
+    Without collision normalization a row's step is the sum of ~8 repeats,
+    so the step takes lr / 8."""
     dev = _cuda()
-    bu, bi, k = BLOCK_ROUTES[route]
-    assert (tbsk.library().block_sgd_scratch_floats(1, bu, bi, k) > 0) == \
-        (route == "scratch")
+    bu, bi, k, bs = BLOCK_ROUTES[route]
+    pl = tbsk.plan(1, bs, bu, bi, k)
+    assert pl["route"] == route.replace("1024", "")
+    assert pl["cluster"] >= 2   # the chain spreads over several SMs
     rng = np.random.default_rng(21)
-    NU, NI, bs, n_steps = 3, 2, 64, 3
+    NU, NI, n_steps = 3, 2, 3
     S = bs * n_steps
     streams = [x.reshape(NU, NI * S).to(dev) for x in _cell_streams(
         rng, NU * NI, S, bs, bu, bi, k, weights)]
@@ -318,10 +327,11 @@ def test_block_row_kernel_matches_plain(collision_norm, use_mask, weights,
     assert sched[2].any()
     lr = LR if collision_norm else LR / 8
     kw = _block_kw(bs, bu, bi, NI, collision_norm, use_mask, False)
-    before = tbsk.block_sgd_epoch.launches
+    tbsk.reset_counts(tbsk.block_sgd_epoch)
     got = tbsk.block_sgd_epoch(u_tab.clone(), i_tab.clone(), *sched, lr,
                                *streams, **kw)
-    assert tbsk.block_sgd_epoch.launches - before == NU
+    assert tbsk.block_sgd_epoch.launches == 1
+    assert tbsk.cells_done(tbsk.block_sgd_epoch) == NU * NI
     want = tbsk.block_sweep_rows(u_tab.clone(), i_tab.clone(), *sched, lr,
                                  *streams, **kw)
     torch.cuda.synchronize()
@@ -329,21 +339,26 @@ def test_block_row_kernel_matches_plain(collision_norm, use_mask, weights,
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
+NI_DIAG = 3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["smem", "scratch"])
+@pytest.mark.parametrize("route", list(BLOCK_ROUTES))
 @pytest.mark.parametrize("weights", ["01", "float"])
 @pytest.mark.parametrize("use_mask", [False, True])
 @pytest.mark.parametrize("collision_norm", [False, True])
 def test_block_diag_kernel_matches_plain(collision_norm, use_mask, weights,
                                          route):
-    """The diag schedule (one launch per round, one CTA per real lane) at
-    f32: 5 user blocks x 3 item blocks in 6 rounds of 3 lanes, one of them
-    a dummy lane; 2 steps per cell from random batch offsets. Tolerance as
-    for the row schedule."""
+    """The diag schedule (one launch, one cluster per lane, a grid barrier
+    between rounds) at f32: 5 user blocks x 3 item blocks in 6 rounds of 3
+    lanes, one of them a dummy lane; 2 steps per cell from random batch
+    offsets. Tolerance as for the row schedule."""
     dev = _cuda()
-    bu, bi, k = BLOCK_ROUTES[route]
+    bu, bi, k, bs = BLOCK_ROUTES[route]
+    assert tbsk.plan(NI_DIAG, bs, bu, bi, k)["route"] == \
+        route.replace("1024", "")
     rng = np.random.default_rng(22)
-    NU, NI, bs, n_steps = 5, 3, 64, 2
+    NU, NI, n_steps = 5, NI_DIAG, 2
     S = bs * n_steps
     streams = [x.to(dev) for x in _cell_streams(
         rng, NU * NI, S, bs, bu, bi, k, weights, dummy=True)]
@@ -355,10 +370,11 @@ def test_block_diag_kernel_matches_plain(collision_norm, use_mask, weights,
     assert bool((sched[0] == NU).any()) and bool(sched[2].any())
     lr = LR if collision_norm else LR / 8
     kw = _block_kw(bs, bu, bi, NI, collision_norm, use_mask, False)
-    before = tbsk.block_sgd_diag_epoch.launches
+    tbsk.reset_counts(tbsk.block_sgd_diag_epoch)
     got = tbsk.block_sgd_diag_epoch(u_tab.clone(), i_tab.clone(), *sched,
                                     lr, *streams, **kw)
-    assert tbsk.block_sgd_diag_epoch.launches - before == sched[0].shape[0]
+    assert tbsk.block_sgd_diag_epoch.launches == 1
+    assert tbsk.cells_done(tbsk.block_sgd_diag_epoch) == NU * NI
     want = tbsk.block_sweep_diag(u_tab.clone(), i_tab.clone(), *sched, lr,
                                  *streams, **kw)
     torch.cuda.synchronize()
@@ -427,9 +443,10 @@ def test_fused_cell_update_kernel_matches_plain(case):
             f32(0.1 * rng.standard_normal((BI, k))),
             i32(rng.integers(0, BU, S)), i32(rng.integers(0, BI, S)),
             f32(rng.standard_normal(S)), f32(rng.random(S) > 0.2))
-    before = tsk.fused_cell_update.launches
+    tbsk.reset_counts(tsk.fused_cell_update)
     got = tsk.fused_cell_update(*args, 0.05, bs, 0.01, 0.02)
-    assert tsk.fused_cell_update.launches - before == 1
+    assert tsk.fused_cell_update.launches == 1
+    assert tbsk.cells_done(tsk.fused_cell_update) == 1
     want = tsk.fused_cell_plain(*args, 0.05, bs, 0.01, 0.02)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -458,3 +475,155 @@ def test_block_kernel_rejects_what_it_cannot_take():
         tbsk.block_sgd_diag_epoch(u_tab, i_tab, np.zeros((1, 2)),
                                   np.zeros((1, 2)), np.zeros((1, 2)), LR,
                                   *streams, **dict(kw, NI=2))
+
+
+def _diag_pair(dev, rng, NU, NI, sched, bu=64, bi=48, k=64, S=128, bs=64,
+               streams=None):
+    """(kernel, plain) diag epochs at f32 from the same inputs, and the
+    kernel's finished-cell count."""
+    if streams is None:
+        streams = _cell_streams(rng, NU * NI, S, bs, bu, bi, k, "float",
+                                dummy=True)
+    streams = [x.to(dev) for x in streams]
+    u_tab = torch.from_numpy(0.3 * rng.normal(size=(NU * bu, k))).float()
+    i_tab = torch.from_numpy(0.3 * rng.normal(size=(NI * bi, k))).float()
+    u_tab, i_tab = u_tab.to(dev), i_tab.to(dev)
+    kw = _block_kw(bs, bu, bi, NI, True, False, False)
+    tbsk.reset_counts(tbsk.block_sgd_diag_epoch)
+    got = tbsk.block_sgd_diag_epoch(u_tab.clone(), i_tab.clone(), *sched,
+                                    LR, *streams, **kw)
+    cells = tbsk.cells_done(tbsk.block_sgd_diag_epoch)
+    assert tbsk.block_sgd_diag_epoch.launches == 1
+    want = tbsk.block_sweep_diag(u_tab.clone(), i_tab.clone(), *sched, LR,
+                                 *streams, **kw)
+    torch.cuda.synchronize()
+    return got, want, cells
+
+
+@pytest.mark.cuda
+def test_block_diag_uneven_rounds_and_an_all_dummy_round():
+    """Rounds with 3, 1, 0 and 2 real lanes of G = 3 (the idle clusters
+    still meet every round barrier), then 12 rounds that move every user
+    block across lanes, hence across clusters, from round to round (a
+    factor row read past a stale L1 line would show): f32 at rtol 1e-5 /
+    atol 1e-6; the device counter holds the real lanes."""
+    dev = _cuda()
+    rng = np.random.default_rng(24)
+    NU, NI = 5, 3
+    ub = np.array([[0, 1, 2], [5, 3, 5], [5, 5, 5], [4, 5, 0]])
+    sched = (ub, np.tile(np.arange(NI), (4, 1)),
+             rng.integers(0, 2, (4, NI)))
+    got, want, cells = _diag_pair(dev, rng, NU, NI, sched)
+    assert cells == int((ub < NU).sum()) == 6
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    NU = 12
+    sched = tbsk.diag_schedule(torch.Generator().manual_seed(9), NU, NI, 2)
+    got, want, cells = _diag_pair(dev, rng, NU, NI, sched)
+    assert cells == NU * NI
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["row", "diag"])
+def test_block_kernel_skips_padding_steps_exactly(schedule):
+    """Cells staged as the solver stages them, valid slots first: live
+    lengths 0, 1, 64, 70 and 200 of S = 256 in steps of 64, so the later
+    steps of most cells are all padding and the kernel skips them; from
+    random batch offsets, held to the plain version (which runs every step)
+    at f32 rtol 1e-5 / atol 1e-6."""
+    dev = _cuda()
+    rng = np.random.default_rng(25)
+    bu, bi, k, S, bs = 64, 48, 64, 256, 64
+    NU, NI = (3, 2) if schedule == "row" else (5, 3)
+    n_cells = NU * NI
+    streams = _cell_streams(rng, n_cells, S, bs, bu, bi, k, "float",
+                            dummy=schedule == "diag")
+    live = np.resize([0, 1, 64, 70, 200], n_cells)
+    keep = np.arange(S)[None, :] < live[:, None]
+    keep = np.concatenate([keep, np.zeros((len(streams[0]) - n_cells, S),
+                                          bool)])
+    u, i, r, w, _, _, lam = (x.numpy() for x in streams)
+    w = np.where(keep, np.maximum(w, 0.2), 0.0).astype(np.float32)
+    u, i, r = (np.where(keep, a, 0).astype(a.dtype) for a in (u, i, r))
+    cnu = stage_batch_collision_counts(w, u, bs, bu)
+    cni = stage_batch_collision_counts(w, i, bs, bi)
+    streams = [torch.from_numpy(a) for a in (u, i, r, w, cnu, cni, lam)]
+    nv = tbsk.slice_tables([x.to(dev) for x in streams], bs, bu, bi, True,
+                           False, 8)["cnt"][:, 2].cpu().numpy()
+    per_slice = np.clip(live[:, None] - bs * np.arange(S // bs), 0, bs)
+    assert np.array_equal(nv[:n_cells * (S // bs)], per_slice.ravel())
+    if schedule == "diag":
+        sched = tbsk.diag_schedule(torch.Generator().manual_seed(3), NU, NI,
+                                   S // bs)
+        got, want, cells = _diag_pair(dev, rng, NU, NI, sched, S=S, bs=bs,
+                                      streams=streams)
+        assert cells == n_cells
+    else:
+        streams = [x.reshape(NU, NI * S).to(dev) for x in streams]
+        u_tab = torch.from_numpy(0.3 * rng.normal(size=(NU * bu, k))).float()
+        i_tab = torch.from_numpy(0.3 * rng.normal(size=(NI * bi, k))).float()
+        u_tab, i_tab = u_tab.to(dev), i_tab.to(dev)
+        sched = (rng.permutation(NU),
+                 np.stack([rng.permutation(NI) for _ in range(NU)]),
+                 rng.integers(0, S // bs, (NU, NI)))
+        kw = _block_kw(bs, bu, bi, NI, True, False, False)
+        got = tbsk.block_sgd_epoch(u_tab.clone(), i_tab.clone(), *sched, LR,
+                                   *streams, **kw)
+        want = tbsk.block_sweep_rows(u_tab.clone(), i_tab.clone(), *sched,
+                                     LR, *streams, **kw)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_block_plan_picks_the_route_by_shape():
+    """The plan: (i)'s 53 lanes of 384-blocks and 1024-slot steps take
+    clusters of 2 (106 of 132 SMs); one lane at the JAX default 1024-blocks
+    takes 16 CTAs (8 where the card cannot host 16); 2048-slot steps on
+    2048-blocks at k = 256 take the global scratch; every plan's clusters
+    are co-resident; the range length follows the lane groups."""
+    _cuda()
+    diag = tbsk.plan(53, 1024, 384, 384, 64)
+    assert (diag["route"], diag["cluster"], diag["clusters"]) == \
+        ("cluster", 2, 53)
+    row = tbsk.plan(1, 1024, 1024, 1024, 64)
+    assert (row["route"], row["clusters"]) == ("cluster", 1)
+    assert row["cluster"] in (8, 16)
+    assert tbsk.plan(1, 2048, 2048, 2048, 256)["route"] == "scratch"
+    # 2 x 128 ranges of 8 slots fill (i)'s 128 lane groups; (k)'s 512 or
+    # 1024 groups take ranges of 4
+    assert (diag["range"], row["range"]) == (8, 4)
+    for p in (diag, row):
+        assert p["clusters"] <= p["resident"]
+
+
+@pytest.mark.cuda
+def test_block_kernel_raises_where_the_grid_cannot_be_co_resident():
+    """A grid of more clusters than can be resident at once would deadlock
+    at the round barrier: the launch is refused before it is made, and the
+    tables are untouched."""
+    dev = _cuda()
+    rng = np.random.default_rng(26)
+    bu, bi, k, S, bs = 64, 48, 64, 128, 64
+    streams = [x.to(dev) for x in _cell_streams(rng, 1, S, bs, bu, bi, k,
+                                                "01")]
+    u_tab = torch.ones((bu, k), device=dev)
+    i_tab = torch.ones((bi, k), device=dev)
+    lanes = torch.zeros((2, 1, 4), dtype=torch.int32, device=dev)
+    pl = tbsk.plan(1, bs, bu, bi, k)
+    slices = tbsk.stage_slices(streams, bs, bu, bi, True, False, pl["range"])
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    cells = torch.zeros(1, dtype=torch.int64, device=dev)
+    err = tbsk.library().block_sgd_run(
+        0, 1, 0, u_tab.data_ptr(), i_tab.data_ptr(),
+        *(slices[x].data_ptr() for x in tbsk._TABLES), lanes.data_ptr(), 2,
+        1, S // bs, bs, bu, bi, k, -LR, 2 * U_REG, 2 * I_REG, pl["cluster"],
+        pl["resident"] + 1, pl["range"], None, bar.data_ptr(),
+        cells.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 720   # cudaErrorCooperativeLaunchTooLarge
+    torch.cuda.synchronize()
+    assert bool((u_tab == 1).all() and (i_tab == 1).all())
+    assert int(cells) == 0
