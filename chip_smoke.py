@@ -12,22 +12,31 @@ Phases, in order; any failure raises and the script exits non-zero:
       int8 codes) x mm_bf16 x collision_norm at k = 32, 64, 128, on a
       ragged shape; then the same cases on one stripe whose bf16 rounding
       is exact, at a tight tolerance, with controls (kernel in one matmul
-      precision against plain in the other) that must FAIL;
+      precision against plain in the other) that must FAIL; then half-star
+      int8 codes against f32 and bf16 tiles of the same ratings, which must
+      give bit-identical factors;
   (d) main path, float tiles: train_model(algo="mf", mf_method="densesgd")
       at 100,000 x 20,000, density 0.005 (~9.9M continuous ratings), k=64;
   (e) main path, code tiles: the ML-20M shape (138,000 x 27,000, ~20M
       half-star ratings), k=64;
   (f) top-N kernel vs plain: csrc/topk.cu against topk_plain on the same
-      CUDA tensors at k = 32, 64, 128 and n = 1, 10, 100, 1000, on a ragged
+      CUDA tensors at k = 32, 64, 128 and n = 1, 10, 100, 127, 128, 129,
+      1000 (the fused route up to FUSED_MAX_N = 128, here with catalog
+      slices and the merge; the radix route above), then 20,000 queried
+      rows at n = 10, 128 (the fused route in one launch), on a ragged
       catalog with invalid items, heavy and fully rated users, mu and
       biases (scores at rtol 1e-5 / atol 1e-6, ids where scores are
       further apart than that), and on exact-score cases with duplicated
-      item rows, where ids must match exactly, smallest id first;
+      item rows, where ids must match exactly, smallest id first; each
+      call's launches must match its plan;
   (g) the ranking path: train_model(algo="bpr", mf_method="train") at
       100,000 x 20,000 (bench.py's BPR and HR@10 shape), k=64, 8 epochs
-      with val HR@10 through the kernel after each; then kernel vs plain
-      on the best view (top-10 of every user, val HR@10, test ARHR at
-      n=1000) and Recommender.from_checkpoint answering 2,048 users.
+      with val HR@10 through the fused kernel after each, test ARHR at
+      n=1000 (the radix route) and Recommender.from_checkpoint answering
+      2,048 users (the fused route, catalog slices); then kernel vs plain
+      on the best view (top-10 of every user, val HR@10, top-1000, test
+      ARHR, the Recommender's answers), the fused pass's memory (no score
+      scratch), and the passes timed, the radix route beside the fused one.
   (h) one-hot cell kernel vs plain: csrc/block_sgd.cu against the plain
       PyTorch versions on the same CUDA tensors: the row schedule, the diag
       schedule (with a dummy lane) and fused_cell_update's single cell;
@@ -51,13 +60,17 @@ Phases, in order; any failure raises and the script exits non-zero:
       16 CTAs (8 where the card cannot host 16) walks the 1,960 cells;
   (l) IFWMF on the stripe engine: train_model(algo="ifwmf",
       mf_method="densesgd") on (d)'s data, 2 epochs: its popularity
-      weights stage as bf16 W beside bf16 R.
+      weights stage as bf16 W beside bf16 R;
+  (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
+      shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
 that val RMSE is finite and below its value at the initial state, replay
 the main path's first epoch on its staged tiles through the kernel and
 through the plain version and hold them together (rtol 1e-3 / atol 1e-5),
-and time both on those tensors. (g) checks the top-N launch count, that
-HR@10 is finite every epoch and its best above the initial state's. (i),
+check that the kernel's epoch run twice gives bit-identical factors, and
+time both on those tensors. (g) checks each step's top-N launches against
+the wrapper's plan, that HR@10 is finite every epoch and its best above
+the initial state's. (i),
 (j) and (k) check the launch count and the kernel's device count of
 finished cells, that the objective and val RMSE are finite and fall,
 replay a first epoch on the staged streams through kernel and plain with
@@ -88,6 +101,7 @@ from matfac_tpu_torch import (Data, Params, low_rank_ratings,
                               split_train_test_val)
 from matfac_tpu_torch.models.base import ModelMF, init_state
 from matfac_tpu_torch.ops import _build
+from matfac_tpu_torch.ops import bisect_probes as bp
 from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
 from matfac_tpu_torch.ops import sgd_kernel as sk
@@ -101,6 +115,7 @@ from matfac_tpu_torch.train.loop import TrainLoop, train_model
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
 TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
 BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
+PROBE_SOURCE = "matfac_tpu_torch/csrc/bisect_probes.cu"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 1e-3, 1e-5   # summation order over bu and over panels
@@ -177,13 +192,14 @@ def phase_env() -> str:
 def phase_build() -> float:
     """Every source at once (one nvcc each), then load each."""
     t0 = time.perf_counter()
-    paths = _build.build_all(["dense_rows", "topk", "block_sgd"])
-    drk.library()
-    tk.library()
-    bsk.library()
+    paths = _build.build_all(["dense_rows", "topk", "block_sgd",
+                              "bisect_probes"])
+    for mod in (drk, tk, bsk, bp):
+        mod.library()
     dt = time.perf_counter() - t0
-    log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE} and {BLOCK_SOURCE}: "
-        f"{dt:.2f} s ({', '.join(p.name for p in paths.values())})")
+    log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE} and "
+        f"{PROBE_SOURCE}: {dt:.2f} s "
+        f"({', '.join(p.name for p in paths.values())})")
     return dt
 
 
@@ -262,6 +278,45 @@ def phase_kernel_vs_plain(dev="cuda") -> dict:
     return worst
 
 
+def phase_codes_vs_float(dev="cuda") -> int:
+    """Half-star tiles: int8 codes (r_scale 0.5) and float tiles of code *
+    0.5 with int8 validity (f32 and bf16 R) must give bit-identical factors
+    through the kernel (fixed-point gradient sums on a grid fixed by k), at
+    k = 32, 64, 128, in both matmul precisions, with and without collision
+    normalization. Returns the number of cases."""
+    NU, bu, ni = 8, 376, 1000
+    gen = torch.Generator().manual_seed(4)
+    codes, _, _ = _tiles("codes", NU, bu, ni, gen, dev)
+    W = (codes != 0).to(torch.int8)
+    floats = {t: ((codes.float() * 0.5).to(t), W)
+              for t in (torch.float32, torch.bfloat16)}
+    failures, cases = [], 0
+    for k in (32, 64, 128):
+        u3 = torch.randn((NU, bu, k), generator=gen).to(dev)
+        i_tab = torch.randn((ni, k), generator=gen).to(dev)
+        order = torch.randperm(NU, generator=gen)
+        for mm in (True, False):
+            scale = SCALE_BF16 if mm else SCALE_F32
+            for cn in (True, False):
+                lr = LR if cn else LR / COUNT_PER_USER
+                run = lambda R, W_, r_scale: drk.dense_rows_epoch(
+                    scale * u3, scale * i_tab, order, lr, R, W_, r_scale,
+                    REG, REG, cn, mm)
+                want = run(codes, None, 0.5)
+                for rtype, (R, W_) in floats.items():
+                    got = run(R, W_, None)
+                    same = all(torch.equal(x, y) for x, y in zip(got, want))
+                    cases += 1
+                    log(f"(c) codes vs {str(rtype)[6:]} R + int8 W k={k:3d} "
+                        f"mm_bf16={mm!s:5s} collision_norm={cn!s:5s} "
+                        f"bit-identical {same} {'ok' if same else 'FAIL'}")
+                    if not same:
+                        failures.append((rtype, k, mm, cn))
+    if failures:
+        raise AssertionError(f"codes and float tiles differ: {failures}")
+    return cases
+
+
 def _dyadic(shape, gen: torch.Generator) -> torch.Tensor:
     """+-(m + d) / 256 with m in [65, 127] and |d| < 1/4: bf16 rounds each
     value to exactly +-m / 256 (its ulp in [1/4, 1/2) is 1/512). Products
@@ -322,8 +377,10 @@ def phase_bf16_rounding(dev="cuda") -> dict:
 def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
                     mm_bf16=None):
     """One epoch from ``state`` on the solver's staged tiles, through the
-    kernel and through the plain version, held together at RTOL / ATOL;
-    then ms per epoch of each, alternating plain, kernel, kernel, plain,
+    kernel and through the plain version, held together at RTOL / ATOL; the
+    kernel's epoch run twice must give bit-identical factors (fixed-point
+    gradient sums); then ms per epoch of each, alternating plain, kernel,
+    kernel, plain,
     CUDA-event timed; in the solver's matmul precision unless ``mm_bf16``
     says otherwise. Returns (max abs error, kernel ms, plain ms)."""
     mm = solver.mm_bf16 if mm_bf16 is None else mm_bf16
@@ -352,7 +409,11 @@ def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
         raise AssertionError(f"({tag}) kernel disagrees with the plain "
                              f"version on the main path's tiles (rtol "
                              f"{RTOL}, atol {ATOL})")
-
+    same = all(torch.equal(x, y) for x, y in zip(kernel(), kernel()))
+    log(f"({tag}) the same epoch through the kernel twice: bit-identical "
+        f"factors {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"({tag}) two runs of one epoch differ")
     return (a, *_alternate(kernel, plain, reps))
 
 
@@ -587,32 +648,47 @@ def topk_agree(got, want, exact: bool):
 
 
 def phase_topk_vs_plain(dev="cuda") -> float:
-    """Max abs score error over all (f) cases."""
+    """Max abs score error over all (f) cases: 637 queried rows of a 3,001
+    item catalog (the fused route splits the catalog, then merges) at n
+    from 1 to 1000, around the fused route's limit FUSED_MAX_N and past it
+    (the radix route); then 20,000 queried rows, whose user tiles fill the
+    card (the fused route in one launch)."""
     gen = torch.Generator().manual_seed(3)
-    n_users, n_items = 600, 3001   # ragged against every tile
+    N_F = tk.FUSED_MAX_N
+    groups = [(600, (32, 64, 128), (1, 10, 100, N_F - 1, N_F, N_F + 1,
+                                     1000)),
+              (20_000, (64,), (10, N_F))]
     worst, failures = 0.0, []
-    for exact in (False, True):
-        for k in (32, 64, 128):
-            case = topk_case(n_users, n_items, k, exact, gen, dev)
-            for n in (1, 10, 100, 1000):
-                got = tk.topk_catalog(**case, n=n)
-                want = tk.topk_plain(**case, n=n)
-                torch.cuda.synchronize()
-                ok, err, held = topk_agree(got, want, exact)
-                worst = max(worst, err)
-                pads = int((want[1] == -1).sum())
-                ties = int((want[0][:, 1:] == want[0][:, :-1]).logical_and(
-                    want[1][:, 1:] >= 0).sum())
-                log(f"(f) {'exact' if exact else 'random'} k={k:3d} "
-                    f"n={n:4d} max_abs {err:.3e} ids held at {held:.4f} of "
-                    f"slots; -1 slots {pads}, tied neighbours {ties} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append((exact, k, n))
+    for n_users, ks, ns in groups:
+        for exact in (False, True):
+            for k in ks:
+                case = topk_case(n_users, 3001, k, exact, gen, dev)
+                B = case["users"].numel()
+                for n in ns:
+                    pl = tk.fused_plan(B, 3001, n)
+                    before = tk.topk_catalog.launches
+                    got = tk.topk_catalog(**case, n=n)
+                    launched = tk.topk_catalog.launches - before
+                    want = tk.topk_plain(**case, n=n)
+                    torch.cuda.synchronize()
+                    ok, err, held = topk_agree(got, want, exact)
+                    ok = ok and launched == pl["launches"]
+                    worst = max(worst, err)
+                    pads = int((want[1] == -1).sum())
+                    ties = int((want[0][:, 1:] == want[0][:, :-1])
+                               .logical_and(want[1][:, 1:] >= 0).sum())
+                    log(f"(f) {'exact' if exact else 'random'} B={B} k={k:3d}"
+                        f" n={n:4d} {pl['route']} route, {pl['splits']} "
+                        f"slices, {launched} launches; max_abs {err:.3e} ids "
+                        f"held at {held:.4f} of slots; -1 slots {pads}, tied "
+                        f"neighbours {ties} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append((B, exact, k, n))
     if failures:
         raise AssertionError(f"top-N kernel disagrees with topk_plain "
                              f"(rtol {TOPK_RTOL}, atol {TOPK_ATOL}; exact "
-                             f"cases exactly): {failures}")
+                             f"cases exactly), or launched other than its "
+                             f"plan: {failures}")
     return worst
 
 
@@ -639,12 +715,45 @@ def _held_metric(tag, name, kern, plain, rows_differ, n_val):
         raise AssertionError(f"({tag}) {name} kernel vs plain")
 
 
+def _kernel_ms(fn, names) -> dict:
+    """{name: device ms} of the kernels whose names contain each of
+    ``names`` in one call of fn, by torch.profiler (one warm call first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    out[name] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def _pass_bound(args: dict, n: int) -> tuple:
+    """A full-catalog top-n pass: the scores' 2k FLOP a (user, item) pair
+    on the f32 CUDA cores; the inputs read once, the [B, n] f32 scores and
+    int32 ids written once."""
+    B, (n_items, k) = args["users"].numel(), args["i_fac"].shape
+    nbytes = (sum(t.nbytes for t in args.values() if torch.is_tensor(t))
+              + 8 * B * n)
+    return _bound(nbytes, 2.0 * B * n_items * k, "f32")
+
+
 def phase_ranking(dev="cuda"):
-    """(g): returns (launches, max abs error, kernel ms, plain ms) of the
-    HR@10 top-N pass over every user."""
+    """(g): the main path (train with val HR@10 after each epoch, test ARHR
+    at n=1000, Recommender answering 2,048 users) with the top-N counts
+    zeroed just before and read after each step; then each route against
+    the plain version on the best view, and timed. Returns {route:
+    (launches, max abs error, kernel ms, plain ms, bound)}."""
     data_kw, params_kw = BPR_CELL
     data = bench_data(**data_kw)
     params = Params(**params_kw)
+    n_users, n_items = data.n_users, data.n_items
     os.makedirs(RUN_DIR, exist_ok=True)
     prefix = os.path.join(RUN_DIR, "bpr")
     tk.topk_catalog.launches = 0
@@ -654,34 +763,58 @@ def phase_ranking(dev="cuda"):
                                         prefix=prefix,
                                         log_fn=lambda s: log(f"(g) {s}"))
     wall = time.perf_counter() - t0
-    launches = tk.topk_catalog.launches
+    n_train = tk.topk_catalog.launches
+    view = model.eval_view(rep.best_state)
+    arhr = scorer.arhr(view, data.test_mat, 1000)
+    n_arhr = tk.topk_catalog.launches - n_train
+    rec = Recommender.from_checkpoint(prefix, params, data, device=dev)
+    users = torch.randperm(n_users, generator=torch.Generator()
+                           .manual_seed(5))[:2048]
+    items, scores = rec.recommend(users.numpy(), n=10)
+    n_rec = tk.topk_catalog.launches - n_train - n_arhr
     epochs = len(rep.history)
     assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
         (rep.stop_reason, epochs)
-    per_pass = (-(-data.n_users // tk.chunk_users(data.n_items))
-                * tk.KERNELS_PER_CHUNK)
-    want = (1 + epochs) * per_pass   # the initial check and one per epoch
-    assert launches == want, f"top-N launches {launches} != {want}"
+    plans = {"HR@10": tk.fused_plan(n_users, n_items, 10),
+             "ARHR": tk.fused_plan(n_users, n_items, 1000),
+             "recommend": tk.fused_plan(2048, n_items, 10)}
+    log(f"(g) top-N plans: {plans}; launches: train_model {n_train} (the "
+        f"initial check and one per epoch), test ARHR {n_arhr}, recommend "
+        f"{n_rec}")
+    # the initial check and one per epoch
+    assert n_train == (1 + epochs) * plans["HR@10"]["launches"], n_train
+    assert n_arhr == plans["ARHR"]["launches"], n_arhr
+    assert n_rec == plans["recommend"]["launches"], n_rec
+    assert plans["HR@10"]["route"] == "fused" and \
+        plans["HR@10"]["launches"] == 1
+    assert plans["recommend"]["splits"] > 1
     solver = rep.solver
-    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    s0 = init_state(params, n_users, n_items, device=dev)
     hr0 = scorer.hit_rate(model.eval_view(s0), data.val_mat, 10)
     hrs = [h.val_rmse for h in rep.history]
     log(f"(g) {solver.n_pos} positives in {solver.n_batches} batches; "
         f"train_model wall {wall:.1f} s; val HR@10 at init {hr0!r}, per "
         f"epoch {hrs!r}, best {rep.best_metric!r} at epoch "
-        f"{rep.best_iter}; top-N launches {launches}")
+        f"{rep.best_iter}")
     assert all(np.isfinite(hrs)), hrs
     assert rep.best_metric > hr0, (rep.best_metric, hr0)
 
-    view = model.eval_view(rep.best_state)
     args = dict(u_fac=view.u_fac, i_fac=view.i_fac, i_bias=view.i_bias,
                 u_bias=view.u_bias, mu=view.mu,
                 invalid=scorer.invalid_items_dev, indptr=scorer.indptr,
                 indices=scorer.indices, users=scorer._all_users)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = tk.topk_catalog(**args, n=10)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    log(f"(g) the fused top-10 pass allocated {grew} B beyond its inputs "
+        f"(a [B, n_items] score scratch would be {4 * n_users * n_items} B)")
+    assert grew < 4 * n_users * n_items / 100, grew
     want10 = tk.topk_plain(**args, n=10)
     ok, err, held = topk_agree(got, want10, False)
-    log(f"(g) top-10 of all {data.n_users} users on the best view, kernel "
+    log(f"(g) top-10 of all {n_users} users on the best view, kernel "
         f"vs plain: max_abs {err:.3e}, ids held at {held:.4f} of slots "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -698,16 +831,11 @@ def phase_ranking(dev="cuda"):
     if not ok1k:
         raise AssertionError("(g) top-1000 kernel vs plain")
     n_test = scorer._loo_staged(data.test_mat)[2]
-    _held_metric("g", "test ARHR (n=1000)",
-                 scorer.arhr(view, data.test_mat, 1000),
+    _held_metric("g", "test ARHR (n=1000)", arhr,
                  scorer.loo_credit(want1k[1], data.test_mat, True),
                  int((got1k[1] != want1k[1]).any(1).sum()), n_test)
     del got1k, want1k
 
-    rec = Recommender.from_checkpoint(prefix, params, data, device=dev)
-    users = torch.randperm(data.n_users, generator=torch.Generator()
-                           .manual_seed(5))[:2048]
-    items, scores = rec.recommend(users.numpy(), n=10)
     rv = rec.view
     want_r = tk.topk_plain(rv.u_fac, rv.i_fac, rv.i_bias, rv.u_bias, rv.mu,
                            scorer.invalid_items_dev, scorer.indptr,
@@ -721,37 +849,66 @@ def phase_ranking(dev="cuda"):
     if not ok_r:
         raise AssertionError("(g) Recommender kernel vs plain")
 
-    # timings: the loop's epochs (host clock, synced), and the HR@10 top-N
-    # pass over every user, CUDA events after the bench's 2 warm-ups, in
-    # turns plain, kernel, kernel, plain
+    # timings: the loop's epochs (host clock, synced); each pass over every
+    # user, CUDA events after the bench's 2 warm-ups, in turns plain,
+    # kernel, kernel, plain; the fused pass beside the radix route on the
+    # same call (the radix route's top-(FUSED_MAX_N + 1), whose first 10
+    # slots are the top-10: its time hardly depends on n)
     epoch_ms = [1e3 * h.seconds for h in rep.history]
     steady = float(np.median(epoch_ms[1:])) if epochs > 1 else epoch_ms[0]
-    kern = lambda: tk.topk_catalog(**args, n=10)
-    plain = lambda: tk.topk_plain(**args, n=10)
-    for _ in range(2):
-        kern(), plain()
-    p_ms = [_cuda_ms(plain)]
-    k_ms = [_cuda_ms(kern), _cuda_ms(kern)]
-    p_ms.append(_cuda_ms(plain))
+
+    def turns(kernel, plain, reps=1):
+        for _ in range(2):
+            kernel(), plain()
+        p_ms = [_cuda_ms(plain, reps)]
+        k_ms = [_cuda_ms(kernel, reps), _cuda_ms(kernel, reps)]
+        p_ms.append(_cuda_ms(plain, reps))
+        return k_ms, p_ms
+
+    k10, p10 = turns(lambda: tk.topk_catalog(**args, n=10),
+                     lambda: tk.topk_plain(**args, n=10))
+    radix = tk.FUSED_MAX_N + 1
+    r10 = [_cuda_ms(lambda: tk.topk_catalog(**args, n=radix))
+           for _ in range(2)]
+    k1k, p1k = turns(lambda: tk.topk_catalog(**args, n=1000),
+                     lambda: tk.topk_plain(**args, n=1000))
     hr_ms = _cuda_ms(lambda: scorer.hit_rate(view, data.val_mat, 10), 2)
+    rec_users = users.to(dev)
+    rec_args = dict(args, users=rec_users)
+    rec_f = [_cuda_ms(lambda: tk.topk_catalog(**rec_args, n=10), 3)
+             for _ in range(2)]
+    rec_r = [_cuda_ms(lambda: tk.topk_catalog(**rec_args, n=radix), 3)
+             for _ in range(2)]
+    split10 = _kernel_ms(lambda: tk.topk_catalog(**args, n=radix),
+                         ("score_kernel", "select_kernel"))
+    split1k = _kernel_ms(lambda: tk.topk_catalog(**args, n=1000),
+                         ("score_kernel", "select_kernel"))
+    fused10 = _kernel_ms(lambda: tk.topk_catalog(**args, n=10),
+                         ("topk_fused_kernel",))
     log(f"(g) BPR epoch in the loop (host clock, synchronized): "
         f"{epoch_ms!r} ms; median after the first {steady:.3f} ms = "
         f"{solver.n_pos / steady * 1e3:.4e} pairs/s")
-    log(f"(g) HR@10 top-N pass over {data.n_users} users x "
-        f"{data.n_items} items (CUDA events): kernel {k_ms!r} ms, plain "
-        f"{p_ms!r} ms; scorer.hit_rate (kernel, LOO credit included) "
-        f"{hr_ms:.3f} ms")
-    # top-10 of every user: the scores' 2k FLOP a (user, item) pair on the
-    # f32 CUDA cores; the inputs read once, the ids and scores written once
-    flops = 2.0 * args["users"].numel() * data.n_items * params.fac_dim
-    nbytes = (sum(t.nbytes for t in args.values() if torch.is_tensor(t))
-              + got[0].nbytes + got[1].nbytes)
-    bound = _bound(nbytes, flops, "f32")
-    log(f"(g) top-10 pass bound {bound[0]:.3f} ms ({bound[1]})")
+    log(f"(g) top-10 pass over {n_users} users x {n_items} items (CUDA "
+        f"events): fused kernel {k10!r} ms, plain {p10!r} ms, the radix "
+        f"route on the same call {r10!r} ms; scorer.hit_rate (fused "
+        f"kernel, LOO credit included) {hr_ms:.3f} ms")
+    log(f"(g) device ms by kernel (torch.profiler, one pass): fused top-10 "
+        f"{fused10}; radix top-{radix} {split10}; radix top-1000 {split1k}")
+    log(f"(g) top-1000 pass (radix route): kernel {k1k!r} ms, plain "
+        f"{p1k!r} ms")
+    log(f"(g) recommend's top-10 of 2,048 users (CUDA events, mean of 3): "
+        f"fused ({plans['recommend']['splits']} slices + merge) {rec_f!r} "
+        f"ms, radix route {rec_r!r} ms")
+    bound10, bound1k = _pass_bound(args, 10), _pass_bound(args, 1000)
+    log(f"(g) pass bound {bound10[0]:.3f} ms ({bound10[1]}) at n=10, "
+        f"{bound1k[0]:.3f} ms ({bound1k[1]}) at n=1000")
     del rep, solver, scorer, rec, got, want10
     torch.cuda.empty_cache()
-    return (launches, max(err, err1k, err_r), float(np.mean(k_ms)),
-            float(np.mean(p_ms)), bound)
+    err_all = max(err, err1k, err_r)
+    return {"fused": (n_train + n_rec, err_all, float(np.mean(k10)),
+                      float(np.mean(p10)), bound10),
+            "radix": (n_arhr, err_all, float(np.mean(k1k)),
+                      float(np.mean(p1k)), bound1k)}
 
 
 # ----------------------------------------------------------------------
@@ -1283,6 +1440,51 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
     return launches, err, k_ms, p_ms, bound
 
 
+# ----------------------------------------------------------------------
+# (m): the toolchain probes
+# ----------------------------------------------------------------------
+
+# the pl.pallas_call line of each probe in scripts/tpu_pallas_bisect.py
+PROBE_LINES = {"1 elementwise": 49, "2 grid matmul": 59, "3 batch update": 80,
+               "4 scalar prefetch": 96, "5 slice loop": 115}
+
+
+def phase_probes(dev="cuda") -> dict:
+    """(m): the five probes of csrc/bisect_probes.cu at the JAX probes'
+    shapes, their counts zeroed just before the probe run and read after
+    it; each held to its plain version exactly (its inputs make every
+    result exact in f32), then timed beside it (CUDA events, mean of 200
+    calls). Returns {stage: (launches, max abs error, ms, plain ms,
+    bound)}."""
+    stages = bp.stage_inputs(torch.Generator().manual_seed(0), dev)
+    for fn in bp.PROBES:
+        fn.launches = 0
+    got = {name: fn(*args) for name, (fn, _, args) in stages.items()}
+    out, failures = {}, []
+    for name, (fn, plain, args) in stages.items():
+        launches = fn.launches
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = float((got[name] - want).abs().max())
+        ok = launches == 1 and err == 0.0
+        k_ms, p_ms = _alternate(lambda: fn(*args), lambda: plain(*args), 200)
+        x = [a for a in args if torch.is_tensor(a)]
+        nbytes = sum(a.nbytes for a in x) + got[name].nbytes
+        ops = (2.0 * x[0].shape[0] * x[0].shape[1] * x[1].shape[1]
+               if name.startswith("2") else float(got[name].numel()))
+        bound = _bound(nbytes, ops, "f32")
+        log(f"(m) probe {name}: {launches} launch, max_abs {err:.3e} "
+            f"(exact); kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+            f"bound {bound[0] * 1e3:.3f} us ({bound[1]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        out[name] = (launches, err, k_ms, p_ms, bound)
+    if failures:
+        raise AssertionError(f"probes failed: {failures}")
+    return out
+
+
 NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 
@@ -1295,11 +1497,12 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     exact = phase_bf16_rounding()
+    phase_codes_vs_float()
     data_d = bench_data(**CELLS["d"][0])
     d = run_cell("d", data_d)
     e = run_cell("e")
     err_f = phase_topk_vs_plain()
-    n_g, err_g, k_g, p_g, bound_g = phase_ranking()
+    g = phase_ranking()
     block = phase_block_vs_plain()
     (n_i, err_i, k_i, p_i, bound_i), cell, ev, inval, s0 = \
         phase_blocksgd(data_d)
@@ -1307,6 +1510,7 @@ def main() -> int:
     n_k, err_k, k_k, p_k, bound_k = phase_rows(data_d, ev, inval, s0)
     del ev
     l_ = run_cell("l", data_d)
+    probes = phase_probes()
 
     float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS
                     if t != "codes")
@@ -1332,9 +1536,12 @@ def main() -> int:
               max(worst["codes"], exact["codes"], e["max_abs_err"]), e["ms"],
               e["plain_ms"], (e["bound_ms"], e["bound_by"]),
               e["library_ms"], stripe_lib),
-        entry("topk_catalog", TOPK_SOURCE,
-              "matfac_tpu/ops/topk_kernel.py:118", n_g, max(err_f, err_g),
-              k_g, p_g, bound_g),
+        entry("topk_catalog<fused>", TOPK_SOURCE,
+              "matfac_tpu/ops/topk_kernel.py:118", g["fused"][0],
+              max(err_f, g["fused"][1]), *g["fused"][2:]),
+        entry("topk_catalog<radix>", TOPK_SOURCE,
+              "matfac_tpu/ops/topk_kernel.py:118", g["radix"][0],
+              max(err_f, g["radix"][1]), *g["radix"][2:]),
         entry("block_sgd<diag>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148", n_i,
               max(block["diag"], err_i, err_j), k_i, p_i, bound_i),
@@ -1344,7 +1551,9 @@ def main() -> int:
         entry("fused_cell_update", BLOCK_SOURCE,
               "matfac_tpu/ops/sgd_kernel.py:73", cell[0],
               max(block["cell"], cell[1]), cell[2], cell[3], cell[4]),
-    ]
+    ] + [entry(f"probe<{name}>", PROBE_SOURCE,
+               f"scripts/tpu_pallas_bisect.py:{PROBE_LINES[name]}", *res)
+         for name, res in probes.items()]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

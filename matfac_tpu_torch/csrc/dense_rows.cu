@@ -21,18 +21,18 @@
 // launch: a stripe's U rows change only in its own user step, after its
 // panel kernel has read them). Then, for each stripe of the order array:
 //   A. the panel kernel. The stripe is cut into units of (128-item panel,
-//      64-user chunk); a persistent grid of as many CTAs as the card holds
-//      at once gives each CTA an equal run of units, panel-major, so every
-//      SM carries the same work whatever the panel count. A CTA keeps its
+//      64-user chunk); a persistent grid of a fixed number of CTAs an SM
+//      (ctas_per_sm) gives each CTA an equal run of units, panel-major, so
+//      every SM carries the same work whatever the panel count. A CTA keeps its
 //      current panel's OLD item rows in shared memory as bf16. Per unit, on
 //      bf16 tensor cores with f32 accumulation (mma.sync.m16n8k16 fed by
 //      ldmatrix):
 //        P  = U_c I_p^T    (64 x 128, K = k padded to KP, a multiple of 16)
 //        Gi += E_c^T U_c   (128 x KP, in registers while the CTA stays on
 //                           the panel, then added to the stripe's
-//                           [ni_pad, k] item gradient with float2 atomics)
+//                           [ni_pad, k] item gradient)
 //        Gu  = E_c I_p     (64 x KP, added to the stripe's [bu, k] user
-//                           gradient with float2 atomics)
+//                           gradient)
 //      P's accumulators never leave registers: the epilogue reads R and W
 //      for each pair of elements from shared memory, forms E and stores it
 //      once as bf16 to shared memory.
@@ -43,8 +43,23 @@
 // The validity counts (W > 0 / code != 0) depend on the tiles alone; the
 // caller computes them once per tile set ([NU, bu] per user, [NU, ni_pad]
 // per item) and the kernels read them.
-// Both gradients are summed with atomics in no fixed order, so the factors
-// vary from run to run at f32 rounding level.
+//
+// Determinism. Each CTA's partial of Gu and Gi is an f32 sum in a fixed
+// order inside the CTA. It is rounded once to 64-bit fixed point (units of
+// 2^-kFixBits, one scale for every epoch) and added with 64-bit integer
+// atomics: integer addition is associative, so the order in which CTAs
+// arrive no longer matters, and the step kernel turns each exact sum into
+// f32 once. The units a CTA sums depend on the grid alone, which is fixed
+// by k and the card (not by the tile type), so the same inputs give
+// bit-identical factors from run to run, and int8 codes give the same
+// factors as float tiles holding code * r_scale. The host bounds each
+// partial so that no sum leaves +-2^60: a partial beyond that bound, or not
+// finite, sets its element to kFixPoison instead, from which no sum of
+// in-range partials comes back within +-2^61, and the step kernel turns it into NaN, so a diverging
+// run goes non-finite as the f32 sum of the plain version does.
+// Rejected: a fixed-order scratch of per-panel partials reduced in index
+// order, [NP, bu, k] f32 for Gu (4.1 GB written and read an epoch at
+// 100k x 20k), which an earlier version of this kernel paid for.
 //
 // Tiles and bf16 U chunks arrive in a two-stage shared-memory ring by
 // cp.async 16-byte copies (zero-filled past the ragged stripe and catalog
@@ -64,7 +79,7 @@
 // mm_bf16=False (f32 products: TF32 would drop bits) and k > 128 run the
 // CUDA-core panel kernel (namespace cc): one CTA per 64-item panel walking
 // all the stripe's users, scalar f32 FMAs out of shared memory, the same
-// atomic user gradient, and the same step kernel.
+// fixed-point user gradient, and the same step kernel.
 //
 // The ablation entry (dense_rows_ablate) runs the tensor-core kernel on
 // int8 codes truncated after a stage: tile loads only, + P, + E, + item
@@ -78,6 +93,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <cmath>
 
 namespace {
 
@@ -87,6 +103,39 @@ enum Stage { kStream = 0, kPmm = 1, kElem = 2, kItem = 3, kFull = 4 };
 
 constexpr size_t kMaxSmem = 232448;  // per-block opt-in limit on H100
 constexpr int kThreads = 256;
+
+// Gradient sums in 64-bit fixed point: units of 2^-kFixBits (finer than an
+// f32 ulp above 0.5). The host bounds each partial so that the sum of all
+// of an element's partials stays within +-2^60 (fix_limit); a sum beyond
+// +-kFixMax is a poisoned one.
+constexpr int kFixBits = 24;
+constexpr float kFixScale = static_cast<float>(1 << kFixBits);
+constexpr float kFixUnit = 1.f / kFixScale;
+constexpr long long kFixMax = 1LL << 61;
+constexpr long long kFixPoison = -0x7fffffffffffffffLL - 1;  // INT64_MIN
+
+// Add an f32 partial to a fixed-point sum: |x| <= lim (the host's bound for
+// this many partials) keeps the sum within +-2^60; anything else
+// (beyond it, or not finite) poisons the element. Every sum of in-range
+// partials added after a poison stays beyond +-kFixMax.
+__device__ __forceinline__ void add_fixed(long long* p, float x, float lim) {
+  unsigned long long* q = reinterpret_cast<unsigned long long*>(p);
+  if (fabsf(x) <= lim)
+    atomicAdd(q, static_cast<unsigned long long>(__float2ll_rn(x * kFixScale)));
+  else
+    atomicExch(q, static_cast<unsigned long long>(kFixPoison));
+}
+
+// The same for the only partial of an element: a plain store.
+__device__ __forceinline__ void store_fixed(long long* p, float x, float lim) {
+  *p = fabsf(x) <= lim ? __float2ll_rn(x * kFixScale) : kFixPoison;
+}
+
+// A fixed-point sum as f32 (one rounding); a poisoned sum is NaN.
+__device__ __forceinline__ float from_fixed(long long s) {
+  if (s > kFixMax || s < -kFixMax) return __int_as_float(0x7fffffff);
+  return __ll2float_rn(s) * kFixUnit;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -152,9 +201,9 @@ __device__ __forceinline__ float4 sgd_step(float4 x, float4 acc, float c,
 // the next stripe. Threads take four values of a row each when k % 4 == 0,
 // else one (the other three lanes of the float4 are padding).
 __global__ void __launch_bounds__(kThreads)
-stripe_step_kernel(float* __restrict__ I, float* __restrict__ gi,
+stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
                    const float* __restrict__ cnt_i, int ni_pad,
-                   float* __restrict__ U, float* __restrict__ gu,
+                   float* __restrict__ U, long long* __restrict__ gu,
                    const float* __restrict__ cnt_u, int bu, int k, float lr,
                    float i_reg, float u_reg, int collision_norm) {
   const int per = (k & 3) == 0 ? 4 : 1;
@@ -165,17 +214,21 @@ stripe_step_kernel(float* __restrict__ I, float* __restrict__ gi,
   const bool item = q < n_i;
   if (!item) q -= n_i;
   float* x = (item ? I : U) + q * per;
-  float* acc = (item ? gi : gu) + q * per;
+  long long* acc = (item ? gi : gu) + q * per;
   const float c = (item ? cnt_i : cnt_u)[q * per / k];
   const float reg = item ? i_reg : u_reg;
   if (per == 4) {
-    const float4 a = *reinterpret_cast<float4*>(acc);
-    *reinterpret_cast<float4*>(acc) = make_float4(0.f, 0.f, 0.f, 0.f);
+    longlong2* a2 = reinterpret_cast<longlong2*>(acc);
+    const longlong2 s0 = a2[0], s1 = a2[1];
+    a2[0] = make_longlong2(0, 0);
+    a2[1] = make_longlong2(0, 0);
+    const float4 a = make_float4(from_fixed(s0.x), from_fixed(s0.y),
+                                 from_fixed(s1.x), from_fixed(s1.y));
     *reinterpret_cast<float4*>(x) = sgd_step(
         *reinterpret_cast<float4*>(x), a, c, lr, reg, collision_norm);
   } else {
-    const float a = *acc;
-    *acc = 0.f;
+    const float a = from_fixed(*acc);
+    *acc = 0;
     *x = sgd_step(make_float4(*x, 0.f, 0.f, 0.f), make_float4(a, 0.f, 0.f, 0.f),
                   c, lr, reg, collision_norm).x;
   }
@@ -266,15 +319,12 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Add (a, b) to p[0], p[1] of a row of k floats; d is p's column.
-__device__ __forceinline__ void red2(float* p, int d, int k, float a,
-                                     float b) {
-  if (d + 1 < k && (k & 1) == 0) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-  } else {
-    if (d < k) atomicAdd(p, a);
-    if (d + 1 < k) atomicAdd(p + 1, b);
-  }
+// Add partials (a, b) to p[0], p[1] of a row of k fixed-point sums; d is
+// p's column.
+__device__ __forceinline__ void add2(long long* p, int d, int k, float a,
+                                     float b, float lim) {
+  if (d < k) add_fixed(p, a, lim);
+  if (d + 1 < k) add_fixed(p + 1, b, lim);
 }
 
 // One chunk's [kChunk][kPanel] tile of T into the ring: 16-byte cp.async
@@ -328,20 +378,28 @@ u_bf16_kernel(const float* __restrict__ U, __nv_bfloat16* __restrict__ Ub,
       __floats2bfloat162_rn(a, b);
 }
 
+// CTAs of the persistent grid per SM: fixed by KP alone, so the partition
+// of a stripe into CTAs, and with it every f32 partial, is the same for
+// every tile type (codes and float tiles sum the same partials). A tile
+// type whose shared memory fits fewer CTAs per SM runs the grid in waves.
+__host__ __device__ constexpr int ctas_per_sm(int kp) {
+  return kp <= 64 ? 2 : 1;
+}
+
 // Each CTA of a persistent grid takes an equal run of the stripe's
 // (panel, 64-user chunk) units, panel-major, so every SM carries the same
 // work whatever the panel count. On leaving a panel it adds its share of
 // that panel's item gradient to gi.
 template <typename RT, typename WT, bool CODES, int KP, int STAGE>
-__global__ void __launch_bounds__(kThreads, KP <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, ctas_per_sm(KP))
 panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
              const __nv_bfloat16* __restrict__ Ubg,  // [bu_pad, KP]
              const float* __restrict__ I,            // [ni_pad, k], old
              const RT* __restrict__ R,               // [bu, ni_pad]
              const WT* __restrict__ W,               // [bu, ni_pad] / null
-             float* __restrict__ gu,                 // [bu, k], atomics
-             float* __restrict__ gi,                 // [ni_pad, k], atomics
-             int bu, int ni_pad, int k, int vec, float r_scale) {
+             long long* __restrict__ gu,             // [bu, k], fixed point
+             long long* __restrict__ gi,             // [ni_pad, k], same
+             int bu, int ni_pad, int k, int vec, float r_scale, float lim) {
   static_assert(KP % 16 == 0 && KP <= 128, "KP: k padded to 16..128");
   constexpr int SR = sizeof(RT);
   constexpr int SW = CODES ? 0 : sizeof(WT);
@@ -406,8 +464,8 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
       for (int h = 0; h < 2; ++h) {
         const int p = p0 + 16 * warp + g + 8 * h, d = 8 * j + 2 * t;
         if (p < ni_pad && d < k)
-          red2(gi + static_cast<size_t>(p) * k + d, d, k, gi_acc[j][2 * h],
-               gi_acc[j][2 * h + 1]);
+          add2(gi + static_cast<size_t>(p) * k + d, d, k, gi_acc[j][2 * h],
+               gi_acc[j][2 * h + 1], lim);
       }
   };
 
@@ -544,8 +602,8 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
         for (int h = 0; h < 2; ++h) {
           const int u = u0 + 16 * mt + g + 8 * h;
           if (u < bu && d < k)
-            red2(gu + static_cast<size_t>(u) * k + d, d, k, acc[j][2 * h],
-                 acc[j][2 * h + 1]);
+            add2(gu + static_cast<size_t>(u) * k + d, d, k, acc[j][2 * h],
+                 acc[j][2 * h + 1], lim);
         }
       }
     }
@@ -588,9 +646,9 @@ __global__ void __launch_bounds__(kThreads)
 panel_kernel(const float* __restrict__ U,
              const __nv_bfloat16* __restrict__ Ubg,  // unused
              const float* __restrict__ I, const RT* __restrict__ R,
-             const WT* __restrict__ W, float* __restrict__ gu,
-             float* __restrict__ gi, int bu, int ni_pad, int k, int vec,
-             float r_scale) {
+             const WT* __restrict__ W, long long* __restrict__ gu,
+             long long* __restrict__ gi, int bu, int ni_pad, int k, int vec,
+             float r_scale, float lim) {
   extern __shared__ float smem[];
   const int ks = k + 1;  // padded stride: item rows hit distinct banks
   float* Im = smem;                                   // [kPanel][ks]
@@ -672,14 +730,14 @@ panel_kernel(const float* __restrict__ U,
       float acc = 0.f;
       for (int p = 0; p < kPanel; ++p)
         acc += Es[u * (kPanel + 1) + p] * Im[p * ks + d];
-      atomicAdd(gu + static_cast<size_t>(u0 + u) * k + d, acc);
+      add_fixed(gu + static_cast<size_t>(u0 + u) * k + d, acc, lim);
     }
     __syncthreads();
   }
 
   // the panel's item gradient (the only block on these rows)
   for (int idx = tid; idx < np_here * k; idx += kThreads)
-    gi[static_cast<size_t>(p0) * k + idx] = Gi[idx];
+    store_fixed(gi + static_cast<size_t>(p0) * k + idx, Gi[idx], lim);
 }
 
 }  // namespace cc
@@ -703,14 +761,23 @@ int tc_kp(int k, int mm_bf16) {
 
 size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
 
-// Byte offsets in the scratch: the user gradient [bu, k] f32, the item
-// gradient [ni_pad, k] f32, then (tensor cores) the bf16 U [NU, bu_pad, KP].
+// Byte offsets in the scratch: the user gradient [bu, k] and the item
+// gradient [ni_pad, k], both 64-bit fixed point, then (tensor cores) the
+// bf16 U [NU, bu_pad, KP].
 size_t scratch_gi(int bu, int k) {
-  return align256(static_cast<size_t>(bu) * k * sizeof(float));
+  return align256(static_cast<size_t>(bu) * k * sizeof(long long));
 }
 size_t scratch_ub(int bu, int ni_pad, int k) {
   return scratch_gi(bu, k) +
-         align256(static_cast<size_t>(ni_pad) * k * sizeof(float));
+         align256(static_cast<size_t>(ni_pad) * k * sizeof(long long));
+}
+
+// The largest |partial| that keeps the sum of `parts` partials within
+// +-2^60 units (below kFixMax, so no in-range sum reads as poisoned).
+float fix_limit(long long parts) {
+  return static_cast<float>(std::ldexp(1.0, 60 - kFixBits) /
+                            static_cast<double>(std::max(parts, 1LL)) *
+                            (1.0 - 1e-6));
 }
 
 struct Epoch {
@@ -720,8 +787,8 @@ struct Epoch {
   const void* W;
   const float* cnt_u;   // [NU, bu]
   const float* cnt_i;   // [NU, ni_pad]
-  float* gu;            // [bu, k]
-  float* gi;            // [ni_pad, k]
+  long long* gu;        // [bu, k]
+  long long* gi;        // [ni_pad, k]
   __nv_bfloat16* ub;    // [NU, bu_pad, KP] (tensor cores)
   const long long* order;
   int n_order, n_stripes, bu, ni_pad, k, vec, collision_norm;
@@ -743,8 +810,8 @@ Epoch make_epoch(void* u3, void* i_tab, const void* R, const void* W,
   return Epoch{static_cast<float*>(u3), static_cast<float*>(i_tab), R, W,
                static_cast<const float*>(cnt_u),
                static_cast<const float*>(cnt_i),
-               reinterpret_cast<float*>(base),
-               reinterpret_cast<float*>(base + scratch_gi(bu, k)),
+               reinterpret_cast<long long*>(base),
+               reinterpret_cast<long long*>(base + scratch_gi(bu, k)),
                reinterpret_cast<__nv_bfloat16*>(base +
                                                 scratch_ub(bu, ni_pad, k)),
                order, n_order, n_stripes, bu, ni_pad, k, 0, collision_norm,
@@ -762,10 +829,10 @@ unsigned blocks_for(size_t n) {
 
 // The epoch's stripes in order: the panel kernel on `grid` CTAs, then
 // (step) the step kernel. ``kernel`` is an instantiation of either panel
-// kernel; they share their signature.
+// kernel; they share their signature. `lim` bounds each gradient partial.
 template <typename RT, typename WT, typename Kernel>
 cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
-                 int kp, bool step) {
+                 int kp, bool step, float lim) {
   const size_t bp = static_cast<size_t>(tc::bu_pad(e.bu));
   for (int i = 0; i < e.n_order; ++i) {
     const long long s = e.order[i];
@@ -775,7 +842,7 @@ cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
     const WT* W = e.W ? static_cast<const WT*>(e.W) + tile : nullptr;
     kernel<<<grid, kThreads, smem, e.stream>>>(
         U, e.ub + static_cast<size_t>(s) * bp * kp, e.I, R, W, e.gu, e.gi,
-        e.bu, e.ni_pad, e.k, e.vec, e.r_scale);
+        e.bu, e.ni_pad, e.k, e.vec, e.r_scale, lim);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++*e.launched;
     if (err == cudaSuccess && step) {
@@ -810,7 +877,7 @@ cudaError_t run_tc(const Epoch& e) {
       tc::smem_layout(sizeof(RT), CODES ? 0 : sizeof(WT), KP);
   auto kernel = tc::panel_kernel<RT, WT, CODES, KP, STAGE>;
   cudaError_t err = set_smem(kernel, L.total);
-  // the persistent grid: as many CTAs as the card holds at once
+  // the persistent grid: ctas_per_sm(KP) CTAs an SM, whatever the tile type
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -820,11 +887,12 @@ cudaError_t run_tc(const Epoch& e) {
                                                         kThreads, L.total);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units =
-      static_cast<long long>((e.ni_pad + tc::kPanel - 1) / tc::kPanel) *
-      ((e.bu + tc::kChunk - 1) / tc::kChunk);
-  const unsigned grid =
-      static_cast<unsigned>(std::min<long long>(units, 1LL * sms * per_sm));
+  const long long panels = (e.ni_pad + tc::kPanel - 1) / tc::kPanel;
+  const long long chunks = (e.bu + tc::kChunk - 1) / tc::kChunk;
+  const unsigned grid = static_cast<unsigned>(
+      std::min<long long>(panels * chunks, 1LL * sms * tc::ctas_per_sm(KP)));
+  // Gu: one partial a panel; Gi: one a CTA on the panel, at most a chunk's
+  const float lim = fix_limit(std::max(panels, chunks));
   const size_t n =
       static_cast<size_t>(e.n_stripes) * tc::bu_pad(e.bu) * KP / 2;
   tc::u_bf16_kernel<<<blocks_for(n), kThreads, 0, e.stream>>>(
@@ -832,7 +900,7 @@ cudaError_t run_tc(const Epoch& e) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*e.launched;
-  return walk<RT, WT>(e, kernel, grid, L.total, KP, STAGE == kFull);
+  return walk<RT, WT>(e, kernel, grid, L.total, KP, STAGE == kFull, lim);
 }
 
 template <typename RT, typename WT, bool CODES, bool MMBF16>
@@ -843,7 +911,8 @@ cudaError_t run_cc(const Epoch& e) {
   if (err != cudaSuccess) return err;
   const unsigned grid =
       static_cast<unsigned>((e.ni_pad + cc::kPanel - 1) / cc::kPanel);
-  return walk<RT, WT>(e, kernel, grid, smem, 0, true);
+  // Gu: one partial a panel; Gi: one, stored
+  return walk<RT, WT>(e, kernel, grid, smem, 0, true, fix_limit(grid));
 }
 
 template <typename RT, typename WT, bool CODES>
@@ -874,8 +943,8 @@ cudaError_t run_w(const Epoch& e, int wtype, int mm_bf16) {
 extern "C" {
 
 // Bytes of the scratch an epoch needs, zeroed by the caller: the stripe's
-// user gradient [bu, k] and item gradient [ni_pad, k] f32 (the kernels
-// leave them zeroed) and, with the tensor cores, the epoch's bf16 copy of U
+// user gradient [bu, k] and item gradient [ni_pad, k] in 64-bit fixed point
+// (the kernels leave them zeroed) and, with the tensor cores, the epoch's bf16 copy of U
 // [NU, bu_pad, KP].
 size_t dense_rows_scratch_bytes(int n_stripes, int bu, int ni_pad, int k,
                                 int mm_bf16) {

@@ -353,7 +353,7 @@ class TrainLoopHR:
 # ----------------------------------------------------------------------
 
 def train_model(data, params: Params, algo: str = "mf",
-                mf_method: str = "densesgd", log_fn=print,
+                mf_method: str = "sgd", log_fn=print,
                 init_state_override: Optional[MFState] = None,
                 prefix: Optional[str] = None, mesh=None,
                 resume: bool = False, device="cuda"):
@@ -365,7 +365,10 @@ def train_model(data, params: Params, algo: str = "mf",
     when its tiles miss the budget), and ``algo="bpr"`` (the
     pairwise stream or posneg engine with model selection on val HR@10,
     or NDCG for hog / posneg). Everything else raises NotImplementedError
-    naming its ROADMAP item. Returns (report, model, evaluator or scorer,
+    naming its ROADMAP item; so does the default ``mf_method="sgd"``
+    (JAX's default, the scatter engine: ROADMAP queue 1, item 9), so the
+    JAX-style call ``train_model(data, params)`` never trains another
+    engine. Returns (report, model, evaluator or scorer,
     (invalid_users, invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
@@ -473,12 +476,15 @@ def _train_ranking(data, params: Params, mf_method: str, log_fn,
     'hogposneg' and 'posneg' select on val NDCG@10 (trainHog /
     trainHogPosNeg, modelMFBPR.cpp:245-402, :633), the rest on val
     HR@10."""
-    if getattr(params, "bpr_engine", "stream") == "dense":
-        raise NotImplementedError(
-            "bpr_engine='dense' (solvers/bpr_dense.py, stripe score "
-            "panels) is ROADMAP queue 1, item 11")
-    model = ModelMFBPR(params, data.n_users, data.n_items)
     mode = "posneg" if mf_method in ("hogposneg", "posneg") else "stream"
+    # JAX builds the dense BPR solver in stream mode only; posneg trains on
+    # BPRSolver whatever the engine
+    if getattr(params, "bpr_engine", "stream") == "dense" and \
+            mode == "stream":
+        raise NotImplementedError(
+            "bpr_engine='dense' in stream mode (solvers/bpr_dense.py, "
+            "stripe score panels) is ROADMAP queue 1, item 11")
+    model = ModelMFBPR(params, data.n_users, data.n_items)
     solver = BPRSolver(model, params, data.train_mat, inval_u, inval_i,
                        n_tries=params.n_negatives, mode=mode,
                        sampler=params.bpr_sampler, device=device)

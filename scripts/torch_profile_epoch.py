@@ -15,8 +15,10 @@ g: the ranking path, plain BPR at 100,000 x 20,000, k=64, trained two
 epochs through ``train_model(algo="bpr", device="cuda")``; windows:
 
   * one BPR epoch (sampler, gathers, scatters);
-  * one val HR@10 through the scorer (the top-N kernel, LOO credit);
-  * the same top-10 pass through the plain version.
+  * one val HR@10 through the scorer (the fused top-N kernel, LOO credit);
+  * a top-129 pass through the radix route (score and select kernels:
+    their split; its first 10 slots are the top-10, and its time hardly
+    depends on n) and the top-10 pass through the plain version.
 
 i: the one-hot cell engine, train_model(algo="mf", mf_method="blocksgd")
 on cell d's data (diag schedule, 384-blocks, 1024-rating steps, lr 0.005),
@@ -182,11 +184,14 @@ def profile_ranking(tag: str, out_dir) -> None:
                 indices=scorer.indices, users=scorer._all_users)
     windows = [
         ("BPR epoch", lambda: solver.epoch(state, lr)),
-        ("val HR@10 (top-N kernel)",
+        ("val HR@10 (fused top-N kernel)",
          lambda: scorer.hit_rate(view, data.val_mat, 10)),
+        (f"top-{tk.FUSED_MAX_N + 1} pass, radix route",
+         lambda: tk.topk_catalog(**args, n=tk.FUSED_MAX_N + 1)),
         ("top-10 pass, plain version", lambda: tk.topk_plain(**args, n=10))]
     run_windows(tag, windows,
-                (tk.topk_catalog, ("score_kernel", "select_kernel")), out_dir)
+                (tk.topk_catalog, ("topk_fused_kernel", "topk_merge_kernel",
+                                   "score_kernel", "select_kernel")), out_dir)
     print(f"({tag}) {solver.n_pos} positives per epoch", flush=True)
     del rep, solver, state, scorer, view, args
     torch.cuda.empty_cache()

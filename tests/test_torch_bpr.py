@@ -173,18 +173,21 @@ def _bpr_params(**kw):
     return Params(**base)
 
 
-@pytest.mark.parametrize("mf_method", ["train", "hog"])
+@pytest.mark.parametrize("mf_method", ["train", "hog", "posneg"])
 def test_train_model_bpr_matches_jax(lo_data, tmp_path, monkeypatch,
                                      mf_method):
-    """'train' selects on val HR@10, 'hog' on val NDCG@10 (val rows of
-    >= 2 entries, so a rating matrix here)."""
-    if mf_method == "hog":
+    """'train' selects on val HR@10, 'hog' and 'posneg' on val NDCG@10 (val
+    rows of >= 2 entries, so a rating matrix here). 'posneg' runs with
+    bpr_engine="dense": both front doors train posneg mode on BPRSolver
+    whatever the engine."""
+    if mf_method in ("hog", "posneg"):
         data, _, _ = synthetic_data(n_users=70, n_items=60, k=3,
                                     density=0.3, seed=3, noise=0.1,
                                     nonneg=True)
     else:
         data = lo_data
-    p = _bpr_params()
+    p = _bpr_params(**({"bpr_engine": "dense"} if mf_method == "posneg"
+                       else {}))
     monkeypatch.setattr(tbpr.BPRSolver, "draw", _jax_loop_draw)
     leaves = _start_state(data, p.fac_dim, 5, scale=0.01)
     rep_j, *_ = j_train_model(
@@ -196,6 +199,9 @@ def test_train_model_bpr_matches_jax(lo_data, tmp_path, monkeypatch,
         prefix=prefix, log_fn=lambda s: None,
         init_state_override=state_from_numpy(*leaves, device="cpu"))
     assert isinstance(model, ModelMFBPR)
+    assert isinstance(rep_t.solver, tbpr.BPRSolver)
+    assert rep_t.solver.mode == ("posneg" if mf_method == "posneg"
+                                 else "stream")
     assert rep_t.stop_reason == rep_j.stop_reason
     assert rep_t.best_iter == rep_j.best_iter
     assert len(rep_t.history) == len(rep_j.history) == p.max_iter

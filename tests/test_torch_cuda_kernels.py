@@ -174,6 +174,106 @@ def test_kernel_rejects_what_it_cannot_take(bad):
                               U_REG, I_REG, True, False)
 
 
+def _stripe_epoch(args, mm_bf16, lr=LR, collision_norm=True):
+    u3, i_tab, order, R, W, r_scale = args
+    return tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
+                                 r_scale, U_REG, I_REG, collision_norm,
+                                 mm_bf16)
+
+
+def _stripe_args(mode, rng, dev, NU=4, bu=300, ni=1000, k=64, scale=0.1):
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
+    u3 = torch.from_numpy(scale * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(scale * rng.normal(size=(ni, k))).float()
+    return (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
+            R, W, r_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_stripe_epoch_is_deterministic(mode, mm_bf16):
+    """The gradient partials are summed in fixed point: one epoch run twice
+    gives bit-identical factors, for every tile kind and both routes."""
+    dev = _cuda()
+    args = _stripe_args(mode, np.random.default_rng(31), dev)
+    a = _stripe_epoch(args, mm_bf16)
+    b = _stripe_epoch(args, mm_bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("rtype", [torch.float32, torch.bfloat16])
+def test_stripe_codes_equal_float_tiles_bitwise(rtype, mm_bf16):
+    """Half-star ratings: int8 codes with r_scale 0.5 and float tiles of
+    code * 0.5 with int8 validity give bit-identical factors (the JAX
+    package pins the same, tests/test_dense_block.py:355), on both routes
+    and at k = 64 (2 CTAs an SM) and 128 (1)."""
+    dev = _cuda()
+    rng = np.random.default_rng(32)
+    for k in (64, 128):
+        codes, _, _ = _tiles("codes", rng, (3, 260, 1200), dev)
+        u3 = torch.from_numpy(0.1 * rng.normal(size=(3, 260, k))).float()
+        i_tab = torch.from_numpy(0.1 * rng.normal(size=(1200, k))).float()
+        order = torch.from_numpy(rng.permutation(3))
+        base = (u3.to(dev), i_tab.to(dev), order)
+        R = (codes.float() * 0.5).to(rtype)
+        W = (codes != 0).to(torch.int8)
+        got = _stripe_epoch((*base, codes, None, 0.5), mm_bf16)
+        want = _stripe_epoch((*base, R, W, None), mm_bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_densesgd_resume_is_bit_exact_on_the_card(tmp_path):
+    """densesgd stopped after 3 epochs and resumed to 5 equals the
+    uninterrupted 5-epoch run, bit for bit."""
+    from matfac_tpu_torch import (Data, Params, low_rank_ratings,
+                                  split_train_test_val)
+    from matfac_tpu_torch.train.loop import train_model
+    _cuda()
+    mat, _, _ = low_rank_ratings(600, 500, k=4, density=0.1, seed=2,
+                                 noise=0.1, nonneg=True)
+    tr, te, va = split_train_test_val(mat, 0.1, 0.1, seed=1)
+    data = Data(train_mat=tr, test_mat=te, val_mat=va)
+    p = Params(fac_dim=16, u_reg=0.01, i_reg=0.01, learn_rate=0.05,
+               max_iter=5, seed=1, disp_iter=1000, save_iter=1)
+    run = lambda prefix, params, resume: train_model(
+        data, params, mf_method="densesgd", device="cuda",
+        prefix=str(tmp_path / prefix), resume=resume,
+        log_fn=lambda s: None)[0]
+    full = run("full", p, False)
+    run("part", p.replace(max_iter=3), False)
+    res = run("part", p, True)
+    assert torch.equal(full.state.u_fac, res.state.u_fac)
+    assert torch.equal(full.state.i_fac, res.state.i_fac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+def test_stripe_range_guard_goes_non_finite(mm_bf16):
+    """A diverging learn rate: a gradient partial outside the fixed-point
+    range poisons its sum and the factors go non-finite, as the plain
+    version's f32 sums overflow; no sum wraps into a finite value."""
+    dev = _cuda()
+    args = _stripe_args("f32+W", np.random.default_rng(33), dev, scale=1.0)
+    u3, i_tab, order, R, W, _ = args
+    k_state, p_state = (u3, i_tab), (u3, i_tab)
+    for _ in range(6):
+        k_state = tdrk.dense_rows_epoch(k_state[0].clone(), k_state[1].clone(),
+                                        order, 10.0, R, W, None, U_REG, I_REG,
+                                        False, mm_bf16)
+        p_state = tdbk.dense_sweep_rows(p_state[0].clone(), p_state[1].clone(),
+                                        order, 10.0, R, W, U_REG, I_REG, False,
+                                        mm_bf16)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(p_state[1]).all())
+    assert not bool(torch.isfinite(k_state[1]).all())
+
+
 def _topk_inputs(rng, n_users, n_items, k, exact, dev):
     """topk_catalog's inputs: ~10% invalid items, ~5% rated, user 0 rates
     all but 5 items, user 1 every item; exact=True: scores exact in f32
@@ -219,7 +319,8 @@ def test_topk_kernel_matches_plain(k, n, exact):
                         dev)
     before = ttk.topk_catalog.launches
     gs, gi = ttk.topk_catalog(**args, n=n)
-    assert ttk.topk_catalog.launches - before == ttk.KERNELS_PER_CHUNK
+    assert ttk.topk_catalog.launches - before == ttk.pass_launches(200, 1201,
+                                                                   n)
     ws, wi = ttk.topk_plain(**args, n=n)
     torch.cuda.synchronize()
     gs, gi, ws, wi = gs.cpu(), gi.cpu(), ws.cpu(), wi.cpu()
@@ -249,6 +350,113 @@ def test_topk_kernel_rejects_what_it_cannot_take():
         ttk.topk_catalog(**args, n=5000)
     with pytest.raises(ValueError, match="float32"):
         ttk.topk_catalog(**dict(args, u_fac=args["u_fac"].double()), n=3)
+
+
+def _topk_check(got, want, exact):
+    """Scores at rtol 1e-5 / atol 1e-6 and ids where no neighbour is that
+    close (exact cases: both equal)."""
+    gs, gi, ws, wi = (t.cpu() for t in (*got, *want))
+    if exact:
+        assert torch.equal(gs, ws) and torch.equal(gi, wi)
+        return
+    torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-6)
+    tol = 2 * (1e-6 + 1e-5 * ws.abs())
+    inf = torch.full((ws.shape[0], 1), float("inf"))
+    gap = ws[:, :-1] - ws[:, 1:]
+    held = ((torch.cat([inf, gap], 1) > tol) & (torch.cat([gap, inf], 1)
+                                                > tol)) | (wi == -1)
+    assert torch.equal(gi[held], wi[held])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["large", "small"])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("k", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 10, 64, ttk.FUSED_MAX_N])
+def test_topk_fused_route_matches_plain(n, k, exact, size):
+    """The fused route on ragged shapes: "large" B fills the card with user
+    tiles (one slice, one launch), "small" B splits the catalog (slices and
+    the merge, two launches); exact cases (ties from duplicated items)
+    equal, the smaller id first."""
+    dev = _cuda()
+    n_users, n_items = (20_000, 1_100) if size == "large" else (150, 2_900)
+    args = _topk_inputs(np.random.default_rng(k + n), n_users, n_items, k,
+                        exact, dev)
+    pl = ttk.fused_plan(n_users, n_items, n)
+    assert pl["route"] == "fused"
+    assert (pl["splits"] == 1) == (size == "large"), pl
+    before = ttk.topk_catalog.launches
+    got = ttk.topk_catalog(**args, n=n)
+    assert ttk.topk_catalog.launches - before == 1 + (size == "small")
+    _topk_check(got, ttk.topk_plain(**args, n=n), exact)
+    if exact and n > 1:
+        gs, gi = (t.cpu() for t in got)
+        tie = (gs[:, 1:] == gs[:, :-1]) & (gi[:, 1:] >= 0)
+        assert bool(tie.any())
+        assert bool((gi[:, :-1][tie] < gi[:, 1:][tie]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 1000])
+def test_topk_user_alone_scores_as_in_a_full_pass(n):
+    """A user's scores do not depend on the other users, the slice or the
+    tile it is scored in: one user alone (split catalog) gives bitwise the
+    row it gets in a full pass (one slice), on both routes."""
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(5), 20_000, 1_100, 64, False,
+                        dev)
+    full_s, full_i = ttk.topk_catalog(**args, n=n)
+    for row in (0, 7, 19_999):
+        user = args["users"][row:row + 1]
+        s, i = ttk.topk_catalog(**dict(args, users=user), n=n)
+        assert torch.equal(s[0], full_s[row]) and torch.equal(i[0],
+                                                              full_i[row])
+
+
+@pytest.mark.cuda
+def test_topk_launches_per_pass_and_no_score_scratch():
+    """Launches a pass: 1 (fused, the card filled), 2 (fused, split), one
+    pair a user chunk (radix, n > FUSED_MAX_N); the fused route allocates
+    no [B, n_items] score scratch (peak memory grows by less than a tenth
+    of one)."""
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(6), 20_000, 3_000, 64, False,
+                        dev)
+    for B, n, want in ((20_000, 10, 1), (300, 10, 2),
+                       (20_000, 1000, -(-20_000 // ttk.chunk_users(3_000))
+                        * ttk.KERNELS_PER_CHUNK)):
+        a = dict(args, users=args["users"][:B].contiguous())
+        assert ttk.pass_launches(B, 3_000, n) == want
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = ttk.topk_catalog.launches
+        ttk.topk_catalog(**a, n=n)
+        torch.cuda.synchronize()
+        assert ttk.topk_catalog.launches - before == want
+        if n <= ttk.FUSED_MAX_N:
+            grew = torch.cuda.max_memory_allocated() - base
+            assert grew < B * 3_000 * 4 / 10, grew
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["1 elementwise", "2 grid matmul",
+                                   "3 batch update", "4 scalar prefetch",
+                                   "5 slice loop"])
+def test_bisect_probe_matches_plain(stage):
+    """Each toolchain probe (csrc/bisect_probes.cu) launches once and
+    equals its plain version exactly (its inputs make every result exact
+    in f32)."""
+    from matfac_tpu_torch.ops import bisect_probes as tbp
+    dev = _cuda()
+    fn, plain, args = tbp.stage_inputs(torch.Generator().manual_seed(0),
+                                       dev)[stage]
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # ----------------------------------------------------------------------

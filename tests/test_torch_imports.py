@@ -44,7 +44,9 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.solvers.bpr",
             "matfac_tpu_torch.ops.block_sgd_kernel",
             "matfac_tpu_torch.ops.sgd_kernel",
-            "matfac_tpu_torch.models.longtail"} <= set(MODULES)
+            "matfac_tpu_torch.models.longtail",
+            "matfac_tpu_torch.ops.bisect_probes"} <= set(MODULES)
+    assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
     proc = _import_all_then(
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib'))\n"

@@ -242,8 +242,184 @@ def test_plain_version_chunks_users(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# LOO metrics
+# the fused route's algorithm (csrc/topk.cu, topk_fused_kernel), modelled
 # ----------------------------------------------------------------------
+
+def _keys(scores: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """The kernel's 64-bit keys: order-preserving score bits << 32 | ~id
+    (-0 as +0)."""
+    s = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    b = s.view(np.uint32).astype(np.uint64)
+    ordk = np.where(b & 0x80000000, ~b & 0xffffffff, b | 0x80000000)
+    return (ordk << np.uint64(32)) | (np.uint64(0xffffffff)
+                                      - ids.astype(np.uint64))
+
+
+def _key_scores(keys: np.ndarray) -> np.ndarray:
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    b = np.where(hi & 0x80000000, hi & 0x7fffffff, ~hi & 0xffffffff)
+    return b.astype(np.uint32).view(np.float32)
+
+
+THR0 = int(_keys(np.asarray([tk.NEG_INF], np.float32),
+                 np.asarray([0]))[0]) | 0xffffffff
+
+
+def _fused_model(u, i, ib, ub, mu, invalid, indptr, indices, users, n,
+                 splits):
+    """The fused route's selection, step for step, on numpy f32: per
+    catalog slice and user, item tiles of FUSED_TILE_ITEMS (item it0 + lane
+    + 32 j in lane ``lane``); a cursor into the user's sorted train row
+    marks each tile's excluded columns; the scores not below the threshold
+    score pass; when they fit in the buffer of fused_capacity(n) keys, the
+    tile's passing keys are appended at once, else the tile goes in rounds
+    of 32 items (one a lane): a round's keys above the threshold key are
+    appended, the buffer cut back to the best n first (raising the
+    threshold to the n-th key) when they might not fit; the slice's best n
+    keys after a last cut-back; with several slices, the merge of their
+    keys. Scores sum over d in order."""
+    TI, cap = tk.FUSED_TILE_ITEMS, tk.fused_capacity(n)
+    n_items = i.shape[0]
+    n_tiles = -(-n_items // TI)
+    out_s = np.full((len(users), n), tk.NEG_INF, np.float32)
+    out_i = np.full((len(users), n), -1, np.int32)
+    stats = dict(cuts=0, appends=0, rounds=0)
+    for row, user in enumerate(users):
+        acc = np.zeros(n_items, np.float32)
+        for d in range(u.shape[1]):
+            acc = acc + u[user, d] * i[:, d]
+        score = ((acc + mu) + ub[user]) + ib
+        merged = []
+        for sp in range(splits):
+            t0, t1 = n_tiles * sp // splits, n_tiles * (sp + 1) // splits
+            row_cols = indices[indptr[user]:indptr[user + 1]]
+            cur = int(np.searchsorted(row_cols, t0 * TI))   # binary search
+            thr, buf = THR0, []
+
+            def cut():
+                nonlocal thr, buf
+                stats["cuts"] += 1
+                buf = sorted(buf, reverse=True)[:n]
+                if len(buf) == n:
+                    thr = buf[-1]
+
+            for t in range(t0, t1):
+                ids = np.arange(t * TI, (t + 1) * TI)
+                ok = ids < n_items
+                ids_ok = np.minimum(ids, n_items - 1)
+                excl = np.zeros(TI, bool)
+                while cur < len(row_cols) and row_cols[cur] < (t + 1) * TI:
+                    excl[row_cols[cur] - t * TI] = True
+                    cur += 1
+                s = score[ids_ok]
+                thr_s = _key_scores(np.asarray([thr], np.uint64))[0]
+                ok &= ~invalid[ids_ok] & ~excl & ~(s < thr_s)
+                keys = _keys(s, ids)
+                if len(buf) + int(ok.sum()) <= cap:
+                    stats["appends"] += 1
+                    buf += [int(k_) for k_ in keys[ok]]
+                    continue
+                for j in range(TI // 32):
+                    stats["rounds"] += 1
+                    sl = slice(32 * j, 32 * j + 32)
+                    rnd = [int(k_) for k_ in keys[sl][ok[sl]]]
+                    new = [k_ for k_ in rnd if k_ > thr]
+                    if new and len(buf) + len(new) > cap:
+                        cut()
+                        new = [k_ for k_ in rnd if k_ > thr]
+                    buf += new
+            cut()
+            merged += buf + [0] * (n - len(buf))
+        best = sorted(merged, reverse=True)[:n]
+        for slot, key in enumerate(best):
+            if key > THR0:
+                out_s[row, slot] = _key_scores(np.asarray([key],
+                                                          np.uint64))[0]
+                out_i[row, slot] = 0xffffffff - (key & 0xffffffff)
+    return out_s, out_i, stats
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("n", [1, 10, 40])
+def test_fused_route_model_matches_plain_and_jax(n, splits):
+    """The model of the fused route against topk_plain and the JAX XLA
+    scorer on a ragged 3-tile catalog: exact ties from duplicated item rows
+    (the smaller id first), a user who rated every item (all -1), users with
+    fewer scorable items than n (padding), repeated users; each path of
+    the selection is taken."""
+    n_items = 700
+    dups = [(600, 3), (650, 3), (10, 512), (300, 299), (699, 100)]
+    data, iu, ii, leaves = _setup(n_users=24, n_items=n_items, per_user=30,
+                                  k=8, seed=9, dup_items=dups)
+    ib = leaves[3].copy()   # the tied items lead most users' lists
+    for g, src in enumerate(sorted({src for _, src in dups})):
+        ib[src] = 4.0 - 0.25 * g
+    for dst, src in dups:
+        ib[dst] = ib[src]
+    leaves = leaves[:3] + (ib,) + leaves[4:]
+    ii[[3, 600, 650, 10, 512]] = False
+    train = data.train_mat
+    r, c, v = train.to_coo()
+    full = np.arange(n_items)
+    keep = (r != 5) & (r != 6)
+    few = np.setdiff1d(full, np.arange(0, n_items, 23))   # 31 unrated
+    r = np.concatenate([r[keep], np.full(n_items, 5), np.full(len(few), 6)])
+    c = np.concatenate([c[keep], full, few])
+    train = RatingMatrix.from_coo(r, c, np.ones(len(r), np.float32),
+                                  data.n_users, n_items)
+    u, i, ub, ib, mu = leaves
+    sc = tr.CatalogScorer(train, iu, ii, data.n_users, n_items, device="cpu")
+    users = np.concatenate([np.arange(data.n_users), [5, 6, 0]])
+    indptr, indices = sc.indptr.numpy(), sc.indices.numpy()
+    got_s, got_i, stats = _fused_model(u, i, ib, ub, np.float32(mu), ii,
+                                       indptr, indices, users, n, splits)
+    # thresholds seeded from the lanes' best (n <= 32) or rounds with
+    # cut-backs in the first tiles (n = 40); the later tiles append
+    # the first tiles go in rounds with cut-backs, the later ones append
+    assert stats["cuts"] > len(users) * splits
+    assert stats["rounds"] and stats["appends"]
+    _, tv = _views(leaves)
+    ws, wi = tk.topk_plain(tv.u_fac, tv.i_fac, tv.i_bias, tv.u_bias, tv.mu,
+                           sc.invalid_items_dev, sc.indptr, sc.indices,
+                           torch.from_numpy(users), n)
+    np.testing.assert_allclose(got_s, ws.numpy(), rtol=RTOL, atol=ATOL)
+    exact = _exact_scores(leaves, train, ii)[users]
+    np.testing.assert_array_equal(got_i, np.where(
+        np.isfinite(np.take_along_axis(exact, np.argsort(
+            -exact, axis=1, kind="stable")[:, :n], 1)),
+        np.argsort(-exact, axis=1, kind="stable")[:, :n], -1))
+    assert (got_i[-3] == -1).all()     # user 5 rated every item
+    assert np.isfinite(exact[-2]).sum() < 40   # user 6: padded at n = 40
+    js, ji = jr.CatalogScorer(train, iu, ii, data.n_users, n_items,
+                              user_block=8, item_block=128).topk(
+        _views(leaves)[0], n)
+    np.testing.assert_array_equal(got_i[:data.n_users], ji)
+    np.testing.assert_allclose(got_s[:data.n_users], js, rtol=RTOL,
+                               atol=ATOL)
+    if n > 1:   # the ties are there and the smaller id leads
+        tie = (got_s[:, 1:] == got_s[:, :-1]) & (got_i[:, 1:] >= 0)
+        assert tie.any() and (got_i[:, :-1][tie] < got_i[:, 1:][tie]).all()
+
+
+def test_fused_plan_counts_launches_and_splits():
+    """The fused route's host plan: a power-of-2 buffer with room for n and
+    one more round, slices only where the user tiles underfill the card
+    and no more than fit in one wave beside them, never more than one a
+    256-item tile."""
+    assert [tk.fused_capacity(n) for n in (1, 10, 32, 33, 96, 97, 128)] == \
+        [64, 64, 64, 128, 128, 256, 256]
+    # (g): 100,000 users fill 264 resident CTAs with 1,563 user tiles
+    assert tk.fused_splits(100_000, 20_000, 10, 264) == 1
+    assert tk.fused_splits(16_900, 20_000, 10, 264) == 1
+    # recommend on 2,048 users: 32 tiles -> 8 slices (256 CTAs, one wave)
+    assert tk.fused_splits(2048, 20_000, 10, 264) == 8
+    assert tk.fused_splits(2048, 20_000, 10, 132) == 4
+    # 637 rows of (f): 10 tiles, capped by the catalog's 12 tiles
+    assert tk.fused_splits(637, 3001, 10, 264) == 12
+    assert tk.fused_splits(637, 3001, 128, 264) == 12
+    assert tk.fused_splits(1, 200_000, 128, 264) == 32
+    assert tk.fused_splits(1, 200_000, 1, 10_000) == 32
+
 
 def _loo_case():
     data = leave_one_out_data(n_users=60, n_items=45, per_user=10, seed=4,

@@ -307,13 +307,15 @@ def test_resume_is_bit_exact(tmp_path):
     in the checkpoint."""
     data, p = _data()
     run = lambda prefix, params, resume: train_model(
-        data, params, device="cpu", prefix=str(tmp_path / prefix),
-        resume=resume, log_fn=lambda s: None)[0]
+        data, params, mf_method="densesgd", device="cpu",
+        prefix=str(tmp_path / prefix), resume=resume,
+        log_fn=lambda s: None)[0]
     full = run("full", p, False)
     run("part", p.replace(max_iter=5), False)
     logs = []
-    res = train_model(data, p, device="cpu", prefix=str(tmp_path / "part"),
-                      resume=True, log_fn=logs.append)[0]
+    res = train_model(data, p, mf_method="densesgd", device="cpu",
+                      prefix=str(tmp_path / "part"), resume=True,
+                      log_fn=logs.append)[0]
     assert any("resumed from" in s for s in logs)
     assert torch.equal(full.state.u_fac, res.state.u_fac)
     assert torch.equal(full.state.i_fac, res.state.i_fac)
@@ -324,17 +326,18 @@ def test_resume_survives_missing_best_file(tmp_path):
     data, p = _data()
     p = p.replace(max_iter=3)
     prefix = str(tmp_path / "r")
-    train_model(data, p, device="cpu", prefix=prefix, log_fn=lambda s: None)
+    train_model(data, p, mf_method="densesgd", device="cpu", prefix=prefix,
+                log_fn=lambda s: None)
     os.remove(prefix + "_loop_best.npz")
     logs = []
-    rep, *_ = train_model(data, p, device="cpu", prefix=prefix, resume=True,
-                          log_fn=logs.append)
+    rep, *_ = train_model(data, p, mf_method="densesgd", device="cpu",
+                          prefix=prefix, resume=True, log_fn=logs.append)
     assert any("starting fresh" in s for s in logs), logs
     assert np.isfinite(rep.best_metric)
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf"), "item 7"),
+    (dict(algo="tmf", mf_method="densesgd"), "item 7"),
     (dict(algo="ifwmf", mf_method="auto"), "item 7"),
     (dict(algo="tmf", mf_method="auto"), "item 7"),
     (dict(algo="tmfdropout", mf_method="blocksgd"), "item 7"),
@@ -342,12 +345,16 @@ def test_resume_survives_missing_best_file(tmp_path):
     (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11"),
     (dict(mf_method="als"), "item 10"), (dict(mf_method="sgd"), "item 9"),
     (dict(mf_method="ccd++"), "item 12"), (dict(mf_method="auto"), "item 10"),
-    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7")])
+    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7"),
+    (dict(), "item 9")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    """BPR is ported; its dense engine and Poisson hybrid are not. IFWMF and
-    TMF train on blocksgd and IFWMF on densesgd; TMF's dense-kernel mask
-    instantiation (and with it 'auto' for the long-tail models), and the
-    Poisson-sampled and othersrc models, are not ported."""
+    """BPR is ported; its dense engine (stream mode) and Poisson hybrid are
+    not. IFWMF and TMF train on blocksgd and IFWMF on densesgd; TMF's
+    dense-kernel mask instantiation (and with it 'auto' for the long-tail
+    models), and the Poisson-sampled and othersrc models, are not ported.
+    The default method is JAX's, ``"sgd"`` (item 9): the JAX-style call
+    ``train_model(data, params)`` raises rather than train another
+    engine."""
     data, p = _data()
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
@@ -369,8 +376,8 @@ def test_epoch_log_has_the_jax_fields_and_tracks_train_rmse():
 
     data, p = _data()
     p = p.replace(max_iter=2)
-    rep, model, ev, _ = train_model(data, p, device="cpu",
-                                    log_fn=lambda s: None)
+    rep, model, ev, _ = train_model(data, p, mf_method="densesgd",
+                                    device="cpu", log_fn=lambda s: None)
     assert all(np.isnan(h.train_rmse) for h in rep.history)
     loop = TrainLoop(model, rep.solver, ev, p, log_fn=lambda s: None,
                      track_train_rmse=True)
