@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       is exact, at a tight tolerance, with controls (kernel in one matmul
       precision against plain in the other) that must FAIL; then half-star
       int8 codes against f32 and bf16 tiles of the same ratings, which must
-      give bit-identical factors;
+      give bit-identical factors; then the same three kinds of case for the
+      rank-mask instantiation (TMF's static ranks and TMF+Dropout's Poisson
+      rank rows per visit, on the 0/1 tile kinds, k up to 160), and
+      full-rank masks against the unmasked kernel, bit for bit;
   (d) main path, float tiles: train_model(algo="mf", mf_method="densesgd")
       at 100,000 x 20,000, density 0.005 (~9.9M continuous ratings), k=64;
   (e) main path, code tiles: the ML-20M shape (138,000 x 27,000, ~20M
@@ -61,6 +64,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   (l) IFWMF on the stripe engine: train_model(algo="ifwmf",
       mf_method="densesgd") on (d)'s data, 2 epochs: its popularity
       weights stage as bf16 W beside bf16 R;
+  (n) the long-tail models on the stripe engine: train_model(algo="tmf"
+      and "tmfdropout", mf_method="densesgd") on (d)'s data, 2 epochs
+      each, through the masked kernel; ranks not trivial, launches counted,
+      one epoch replayed with the drawn order and round uniforms;
+  (o) the scatter engine, train_model's default method, for algo "mf"
+      and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
+      epoch's time, batches and CUDA kernels, and whether two runs of an
+      epoch are bit-identical, logged;
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -100,16 +111,20 @@ import torch
 from matfac_tpu_torch import (Data, Params, low_rank_ratings,
                               split_train_test_val)
 from matfac_tpu_torch.models.base import ModelMF, init_state
+from matfac_tpu_torch.models.longtail import poisson_cdf_table
 from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops import bisect_probes as bp
 from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
 from matfac_tpu_torch.ops import sgd_kernel as sk
 from matfac_tpu_torch.ops import topk_kernel as tk
-from matfac_tpu_torch.ops.dense_block_kernel import dense_sweep_rows
+from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_rows,
+                                                    identity_quantiles,
+                                                    visit_quantiles)
 from matfac_tpu_torch.serving import Recommender
 from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
                                                 stage_batch_collision_counts)
+from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train.loop import TrainLoop, train_model
 
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
@@ -374,32 +389,186 @@ def phase_bf16_rounding(dev="cuda") -> dict:
     return worst
 
 
+# the tile kinds the rank masks are instantiated for (0/1 weights)
+MASK_KINDS = ("f32+W", "bf16+W", "codes")
+
+
+def _ranks(NU: int, bu: int, ni: int, k: int, kind: str,
+           gen: torch.Generator, dev, full: bool = False):
+    """(Lu [NU, bu], Li [ni], Q [NU, k]) int32: random lambdas in [1, k]
+    (all k when ``full``) with TMF's identity rank rows ("static") or one
+    Poisson CRN quantile row a visit ("poisson")."""
+    lo = k if full else 1
+    Lu = torch.randint(lo, k + 1, (NU, bu), generator=gen, dtype=torch.int32)
+    Li = torch.randint(lo, k + 1, (ni,), generator=gen, dtype=torch.int32)
+    if kind == "static":
+        Q = identity_quantiles(NU, k)
+    else:
+        Q = visit_quantiles(torch.from_numpy(poisson_cdf_table(k)),
+                            torch.rand(NU, generator=gen))
+    return Lu.to(dev), Li.to(dev), Q.to(dev)
+
+
+def _masked_pair(u3, i_tab, order, lr, R, W, r_scale, cn, mm, ranks):
+    """(kernel result, plain result) of one masked epoch."""
+    got = drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
+                               r_scale, REG, REG, cn, mm, ranks=ranks)
+    Lu, Li, Q = ranks
+    want = dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R, W, REG,
+                            REG, cn, mm, r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
+    return got, want
+
+
+def phase_masked_vs_plain(dev="cuda") -> dict:
+    """(c), masked: the rank-mask instantiation of the stripe kernel
+    against the plain version on the same CUDA tensors. (1) 8-stripe cases
+    (376 x 1000, ragged) for each 0/1 tile kind x k 32 / 64 / 128 (and 160,
+    the CUDA-core kernel) x matmul precision x collision norm x static
+    (TMF) or Poisson (TMF+Dropout) rank rows, at RTOL / ATOL; (2) one
+    stripe whose bf16 rounding is exact, at EXACT_RTOL / EXACT_ATOL, with
+    its control in the other precision, which must FAIL; (3) masked
+    half-star codes against masked f32 / bf16 tiles with int8 validity,
+    bit for bit; (4) full-rank masks (every lambda at k with identity
+    rows, or random lambdas with rows of k) against the unmasked kernel,
+    bit for bit. Returns {"max_abs": worst error of (1)-(2), "cases": n}."""
+    NU, bu, ni = 8, 376, 1000
+    gen = torch.Generator().manual_seed(5)
+    worst, cases, failures = 0.0, 0, []
+    for kind in MASK_KINDS:
+        R, W, r_scale = _tiles(kind, NU, bu, ni, gen, dev)
+        for k in (32, 64, 128, 160):
+            u3 = torch.randn((NU, bu, k), generator=gen).to(dev)
+            i_tab = torch.randn((ni, k), generator=gen).to(dev)
+            order = torch.randperm(NU, generator=gen)
+            for rk in ("static", "poisson"):
+                ranks = _ranks(NU, bu, ni, k, rk, gen, dev)
+                for mm in ((True,) if k > 128 else (True, False)):
+                    scale = SCALE_BF16 if mm else SCALE_F32
+                    for cn in (True, False):
+                        lr = LR if cn else LR / COUNT_PER_USER
+                        got, want = _masked_pair(scale * u3, scale * i_tab,
+                                                 order, lr, R, W, r_scale,
+                                                 cn, mm, ranks)
+                        a, r, ratio = _errors(got, want)
+                        worst, cases = max(worst, a), cases + 1
+                        ok = ratio <= 1.0
+                        log(f"(c) masked {rk:7s} {kind:6s} k={k:3d} "
+                            f"mm_bf16={mm!s:5s} collision_norm={cn!s:5s} "
+                            f"max_abs {a:.3e} max_rel {r:.3e} err/tol "
+                            f"{ratio:.3e} {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            failures.append(("multi", kind, k, rk, mm, cn))
+    order1 = torch.zeros(1, dtype=torch.int64)
+    for kind in MASK_KINDS:
+        R, W, r_scale = _tiles(kind, 1, bu, ni, gen, dev)
+        for k in (32, 64, 128):
+            u3 = _dyadic((1, bu, k), gen).to(dev)
+            i_tab = _dyadic((ni, k), gen).to(dev)
+            ranks = _ranks(1, bu, ni, k, "poisson", gen, dev)
+            for cn in (True, False):
+                lr = LR if cn else LR / COUNT_PER_USER
+                pairs = {mm: _masked_pair(u3, i_tab, order1, lr, R, W,
+                                          r_scale, cn, mm, ranks)
+                         for mm in (True, False)}
+                for mm in (True, False):
+                    a, r, ratio = _errors(*pairs[mm], EXACT_RTOL, EXACT_ATOL)
+                    ctl = _errors(pairs[mm][0], pairs[not mm][1],
+                                  EXACT_RTOL, EXACT_ATOL)[2]
+                    worst, cases = max(worst, a), cases + 1
+                    ok = ratio <= 1.0 and ctl > 1.0
+                    log(f"(c) masked exact-bf16 {kind:6s} k={k:3d} "
+                        f"mm_bf16={mm!s:5s} collision_norm={cn!s:5s} "
+                        f"max_abs {a:.3e} err/tol {ratio:.3e}; control "
+                        f"err/tol {ctl:.3e} (must be > 1) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(("exact", kind, k, mm, cn))
+    codes, _, _ = _tiles("codes", NU, bu, ni, gen, dev)
+    W8 = (codes != 0).to(torch.int8)
+    for k in (32, 64, 128):
+        u3 = torch.randn((NU, bu, k), generator=gen).to(dev)
+        i_tab = torch.randn((ni, k), generator=gen).to(dev)
+        order = torch.randperm(NU, generator=gen)
+        ranks = _ranks(NU, bu, ni, k, "poisson", gen, dev)
+        for mm in (True, False):
+            scale = SCALE_BF16 if mm else SCALE_F32
+            for cn in (True, False):
+                lr = LR if cn else LR / COUNT_PER_USER
+                run = lambda R, W_, r_scale: drk.dense_rows_epoch(
+                    scale * u3, scale * i_tab, order, lr, R, W_, r_scale,
+                    REG, REG, cn, mm, ranks=ranks)
+                want = run(codes, None, 0.5)
+                for rtype in (torch.float32, torch.bfloat16):
+                    got = run((codes.float() * 0.5).to(rtype), W8, None)
+                    same = all(torch.equal(x, y) for x, y in zip(got, want))
+                    cases += 1
+                    log(f"(c) masked codes vs {str(rtype)[6:]} R + int8 W "
+                        f"k={k:3d} mm_bf16={mm!s:5s} collision_norm="
+                        f"{cn!s:5s} bit-identical {same} "
+                        f"{'ok' if same else 'FAIL'}")
+                    if not same:
+                        failures.append(("codes", rtype, k, mm, cn))
+    for kind in MASK_KINDS:
+        R, W, r_scale = _tiles(kind, NU, bu, ni, gen, dev)
+        for k in (32, 64, 128, 160):
+            u3 = SCALE_BF16 * torch.randn((NU, bu, k), generator=gen).to(dev)
+            i_tab = SCALE_BF16 * torch.randn((ni, k), generator=gen).to(dev)
+            order = torch.randperm(NU, generator=gen)
+            for full in (True, False):
+                ranks = _ranks(NU, bu, ni, k, "static", gen, dev, full=full)
+                if not full:
+                    ranks = (*ranks[:2], torch.full_like(ranks[2], k))
+                for mm in (True, False):
+                    run = lambda rk: drk.dense_rows_epoch(
+                        u3.clone(), i_tab.clone(), order, LR, R, W, r_scale,
+                        REG, REG, True, mm, ranks=rk)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(run(ranks), run(None)))
+                    cases += 1
+                    log(f"(c) full-rank masks vs unmasked {kind:6s} "
+                        f"k={k:3d} mm_bf16={mm!s:5s} "
+                        f"{'every lambda k' if full else 'rows of k':14s} "
+                        f"bit-identical {same} {'ok' if same else 'FAIL'}")
+                    if not same:
+                        failures.append(("full", kind, k, full, mm))
+    if failures:
+        raise AssertionError(f"masked stripe kernel cases failed: "
+                             f"{failures}")
+    return {"max_abs": worst, "cases": cases}
+
+
 def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
-                    mm_bf16=None):
+                    mm_bf16=None, order=None, ranks=None):
     """One epoch from ``state`` on the solver's staged tiles, through the
     kernel and through the plain version, held together at RTOL / ATOL; the
     kernel's epoch run twice must give bit-identical factors (fixed-point
     gradient sums); then ms per epoch of each, alternating plain, kernel,
     kernel, plain,
     CUDA-event timed; in the solver's matmul precision unless ``mm_bf16``
-    says otherwise. Returns (max abs error, kernel ms, plain ms)."""
+    says otherwise; in ``order`` (default: a fixed random one) and with the
+    rank masks ``ranks`` (Lu, Li, Q) where given. Returns (max abs error,
+    kernel ms, plain ms)."""
     mm = solver.mm_bf16 if mm_bf16 is None else mm_bf16
     u3, i_tab = solver.stage_factors(state)
-    order = torch.randperm(solver.NU, generator=torch.Generator()
-                           .manual_seed(1))
+    if order is None:
+        order = torch.randperm(solver.NU, generator=torch.Generator()
+                               .manual_seed(1))
     args = (solver.R_rows, solver.W_rows)
     p = solver.params
+    Lu, Li, Q = ranks if ranks is not None else (None, None, None)
 
     def kernel():
         return drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr,
                                     *args, solver.r_scale, p.u_reg, p.i_reg,
                                     solver.collision_norm, mm,
-                                    counts=solver.counts)
+                                    counts=solver.counts, ranks=ranks,
+                                    hists=solver.hists if ranks else None)
 
     def plain():
         return dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, *args,
                                 p.u_reg, p.i_reg, solver.collision_norm,
-                                mm, r_scale=solver.r_scale)
+                                mm, r_scale=solver.r_scale, Lu3=Lu, Li=Li,
+                                Q=Q)
 
     a, r, ratio = _errors(kernel(), plain())
     log(f"({tag}) first epoch replayed on the staged tiles, kernel vs "
@@ -425,15 +594,17 @@ def _bound(nbytes: float, flops: float, peak: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stripe_bound(solver):
+def stripe_bound(solver, ranks=None):
     """Bound of one stripe-engine epoch: every tile read once, U and I read
-    and written once; three products of 2k FLOP a slot on the bf16 tensor
-    cores (the f32 CUDA-core peak without mm_bf16)."""
+    and written once (and the rank tables Lu, Li, Q read once where
+    given); three products of 2k FLOP a slot on the bf16 tensor cores (the
+    f32 CUDA-core peak without mm_bf16)."""
     k = solver.params.fac_dim
     slots = solver.NU * solver.bu * solver.n_items_pad
     nbytes = (solver.R_rows.nbytes
               + (0 if solver.W_rows is None else solver.W_rows.nbytes)
-              + 2 * 4 * k * (solver.NU * solver.bu + solver.n_items_pad))
+              + 2 * 4 * k * (solver.NU * solver.bu + solver.n_items_pad)
+              + (0 if ranks is None else sum(t.nbytes for t in ranks)))
     return _bound(nbytes, 6.0 * slots * k,
                   "bf16" if solver.mm_bf16 else "f32")
 
@@ -1441,6 +1612,161 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
 
 
 # ----------------------------------------------------------------------
+# (n), (o): the long-tail models on densesgd; the scatter engine
+# ----------------------------------------------------------------------
+
+def phase_longtail_dense(data: Data, dev="cuda") -> dict:
+    """(n): train_model(algo="tmf" and "tmfdropout", mf_method="densesgd")
+    on (d)'s data, 2 epochs each, counts zeroed just before each run: the
+    masked stripe kernel on bf16 R + int8 W. Checks the launches, that the
+    ranks are not trivial and val RMSE falls; replays one epoch with the
+    solver's drawn order (and TMF+Dropout's round uniforms) through kernel
+    and plain, times both. Returns the kernels-line numbers (launches of
+    both runs; error, times and bound of TMF+Dropout's replay)."""
+    out = {"launches": 0, "max_abs_err": 0.0}
+    for algo in ("tmf", "tmfdropout"):
+        params = Params(**dict(CELLS["d"][1], max_iter=2))
+        k = params.fac_dim
+        drk.dense_rows_epoch.launches = 0
+        t0 = time.perf_counter()
+        rep, model, ev, _ = train_model(data, params, algo=algo,
+                                        mf_method="densesgd", device=dev,
+                                        log_fn=lambda s: log(f"(n) {s}"))
+        wall = time.perf_counter() - t0
+        launches = drk.dense_rows_epoch.launches
+        solver = rep.solver
+        assert isinstance(solver, BlockSGDSolver) and \
+            solver.engine == "dense", "densesgd should not fall back here"
+        assert (solver.R_rows.dtype, solver.W_rows.dtype) == (
+            torch.bfloat16, torch.int8), "(d)'s data stages bf16 R + int8 W"
+        Lu, Li = solver.rank_tabs
+        order, round_u = solver.draw_schedule()
+        ranks = solver.epoch_ranks(round_u)
+        q = ranks[2]
+        log(f"(n) {algo}: staged NU={solver.NU} bu={solver.bu} ni_pad="
+            f"{solver.n_items_pad}; {'lambdas' if round_u is not None else 'ranks'}"
+            f" of users min {int(Lu.min())} median "
+            f"{float(Lu.float().median())}, of items min {int(Li.min())} "
+            f"median {float(Li.float().median())} (k={k}); rank of lambda "
+            f"1 / {k // 2} / {k} over the replay's visits: "
+            f"{q[:, 0].min().item()}-{q[:, 0].max().item()} / "
+            f"{q[:, k // 2 - 1].min().item()}-{q[:, k // 2 - 1].max().item()}"
+            f" / {q[:, -1].min().item()}-{q[:, -1].max().item()}; "
+            f"hists {sum(h.nbytes for h in solver.hists or ()) / 1e6:.1f} MB; "
+            f"train_model wall {wall:.1f} s")
+        assert min(int(Lu.min()), int(Li.min())) < k, "trivial ranks"
+        epochs = len(rep.history)
+        assert rep.stop_reason == "max_iter" and epochs == params.max_iter
+        want = epochs * drk.epoch_launches(solver.NU, k, solver.mm_bf16)
+        assert launches == want, f"kernel launches {launches} != {want}"
+        s0 = init_state(params, data.n_users, data.n_items, device=dev)
+        val0 = ev.rmse(model.eval_view(s0), "val")
+        vals = [h.val_rmse for h in rep.history]
+        log(f"(n) {algo}: val RMSE at init {val0!r}, per epoch {vals!r}; "
+            f"epoch in the loop {[1e3 * h.seconds for h in rep.history]!r} "
+            f"ms")
+        assert all(np.isfinite(vals)) and rep.best_metric < val0, \
+            (vals, val0)
+        err, k_ms, p_ms = _check_and_time(f"n, {algo}", solver, s0,
+                                          params.learn_rate, order=order,
+                                          ranks=ranks)
+        u3, i_tab = solver.stage_factors(s0)
+        run = lambda rk: drk.dense_rows_epoch(
+            u3.clone(), i_tab.clone(), order, params.learn_rate,
+            solver.R_rows, solver.W_rows, solver.r_scale, params.u_reg,
+            params.i_reg, solver.collision_norm, solver.mm_bf16,
+            counts=solver.counts, ranks=rk,
+            hists=solver.hists if rk else None)
+        unmasked = _alternate(lambda: run(None), lambda: None)[0]
+        names = ("u_bf16_kernel", "panel_kernel", "stripe_step_kernel")
+        split = {tag: _kernel_ms(lambda: run(rk), names)
+                 for tag, rk in (("masked", ranks), ("unmasked", None))}
+        log(f"(n) {algo} device ms an epoch by kernel (torch.profiler): "
+            + "; ".join(f"{tag} " + ", ".join(f"{nm} {ms:.3f}"
+                                               for nm, ms in d.items())
+                        for tag, d in split.items()))
+        bound = stripe_bound(solver, ranks)
+        lib_ms = stripe_library_ms(solver)
+        log(f"(n) {algo} masked stripe epoch alone (CUDA events): kernel "
+            f"{k_ms:.3f} ms = {solver.nnz / k_ms * 1e3:.4e} ratings/s "
+            f"(the unmasked kernel on the same tiles {unmasked:.3f} ms); "
+            f"plain PyTorch {p_ms:.3f} ms; bound {bound[0]:.3f} ms "
+            f"({bound[1]}); the three products as bf16 cuBLAS calls "
+            f"{lib_ms:.3f} ms")
+        out["launches"] += launches
+        out.update(max_abs_err=max(out["max_abs_err"], err), ms=k_ms,
+                   plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=lib_ms)
+        del rep, solver, ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def _device_kernels(fn):
+    """(CUDA kernels launched, their summed device ms) in one call of fn,
+    by torch.profiler, after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def phase_scatter(data: Data, dev="cuda"):
+    """(o): train_model(data, params) -- the default mf_method, the scatter
+    engine -- for algo "mf" and "tmfdropout" on (d)'s data, 2 epochs each:
+    val RMSE falls; then one epoch alone from the initial state (CUDA
+    events), its batches and the CUDA kernels it launches (torch.profiler;
+    idle share = 1 - their device time / the epoch's), and whether two
+    runs of one epoch with the same batch order and masks are
+    bit-identical (logged, not required: index_add_ sums colliding rows
+    with atomics)."""
+    for algo in ("mf", "tmfdropout"):
+        params = Params(**dict(CELLS["d"][1], max_iter=2))
+        t0 = time.perf_counter()
+        rep, model, ev, _ = train_model(data, params, algo=algo, device=dev,
+                                        log_fn=lambda s: log(f"(o) {s}"))
+        wall = time.perf_counter() - t0
+        solver = rep.solver
+        assert isinstance(solver, SGDSolver)
+        s0 = init_state(params, data.n_users, data.n_items, device=dev)
+        val0 = ev.rmse(model.eval_view(s0), "val")
+        vals = [h.val_rmse for h in rep.history]
+        log(f"(o) {algo}: {solver.n_batches} batches of "
+            f"{solver.batch_size} an epoch ({solver.nnz} ratings); val RMSE "
+            f"at init {val0!r}, per epoch {vals!r}; epoch in the loop "
+            f"{[1e3 * h.seconds for h in rep.history]!r} ms; train_model "
+            f"wall {wall:.1f} s")
+        assert all(np.isfinite(vals)) and rep.best_metric < val0, \
+            (vals, val0)
+        border = solver.batch_order()
+        gen0 = solver._mask_gen.get_state()
+
+        def epoch():
+            solver._mask_gen.set_state(gen0)
+            return solver.epoch_with(s0, params.learn_rate, border)
+
+        epoch()
+        torch.cuda.synchronize()
+        ms = [_cuda_ms(epoch) for _ in range(2)]
+        n_kern, dev_ms = _device_kernels(epoch)
+        same = all(torch.equal(x, y) for x, y in zip(epoch(), epoch()))
+        log(f"(o) {algo} scatter epoch alone (CUDA events): {ms!r} ms = "
+            f"{solver.nnz / np.mean(ms) * 1e3:.4e} ratings/s; "
+            f"{n_kern} CUDA kernels an epoch "
+            f"({n_kern / solver.n_batches:.1f} a batch), device busy "
+            f"{dev_ms:.3f} ms, idle share {1 - dev_ms / np.mean(ms):.3f}; "
+            f"two runs of one epoch (same order and masks) bit-identical: "
+            f"{same}")
+        del rep, solver, ev
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
 # (m): the toolchain probes
 # ----------------------------------------------------------------------
 
@@ -1498,6 +1824,7 @@ def main() -> int:
     worst = phase_kernel_vs_plain()
     exact = phase_bf16_rounding()
     phase_codes_vs_float()
+    masked = phase_masked_vs_plain()
     data_d = bench_data(**CELLS["d"][0])
     d = run_cell("d", data_d)
     e = run_cell("e")
@@ -1510,6 +1837,8 @@ def main() -> int:
     n_k, err_k, k_k, p_k, bound_k = phase_rows(data_d, ev, inval, s0)
     del ev
     l_ = run_cell("l", data_d)
+    n = phase_longtail_dense(data_d)
+    phase_scatter(data_d)
     probes = phase_probes()
 
     float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS
@@ -1536,6 +1865,11 @@ def main() -> int:
               max(worst["codes"], exact["codes"], e["max_abs_err"]), e["ms"],
               e["plain_ms"], (e["bound_ms"], e["bound_by"]),
               e["library_ms"], stripe_lib),
+        entry("dense_rows<masked>", SOURCE,
+              "matfac_tpu/ops/dense_block_kernel.py:52 (XLA, masked)",
+              n["launches"], max(masked["max_abs"], n["max_abs_err"]),
+              n["ms"], n["plain_ms"], (n["bound_ms"], n["bound_by"]),
+              n["library_ms"], stripe_lib),
         entry("topk_catalog<fused>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118", g["fused"][0],
               max(err_f, g["fused"][1]), *g["fused"][2:]),

@@ -6,11 +6,14 @@ The port imports ``torch`` and never ``jax``, and nothing of
 ``matfac_tpu``: it keeps its own copies of the numpy-only modules it needs
 (``config``, ``data``, ``utils.freq``).
 
-Slices covered so far: plain MF and IFWMF trained by the row-dense stripe
-SGD engine (``train.loop.train_model(algo="mf" or "ifwmf",
+Slices covered so far: plain MF, IFWMF, TMF and TMF+Dropout trained by
+the row-dense stripe SGD engine (``train.loop.train_model(...,
 mf_method="densesgd")``), whose stripe update runs as a hand-written CUDA
-kernel on the tensor cores (``csrc/dense_rows.cu``); the one-hot cell
-engine (``mf_method="blocksgd"`` for MF, IFWMF and TMF,
+kernel on the tensor cores (``csrc/dense_rows.cu``, with a rank-mask
+instantiation for the truncated models); the scatter SGD engine, JAX's
+default ``mf_method="sgd"`` (``solvers/sgd.py``, plain PyTorch: MF, MF
+with biases and the long-tail models), and ``mf_method="auto"``; the
+one-hot cell engine (``mf_method="blocksgd"`` for MF, IFWMF and TMF,
 ``csrc/block_sgd.cu``); and the ranking path, BPR trained with model
 selection on val HR@10 (``train_model(algo="bpr")``), ranking eval
 (``eval.ranking``) and serving (``serving.Recommender``), whose

@@ -81,6 +81,32 @@
 // all the stripe's users, scalar f32 FMAs out of shared memory, the same
 // fixed-point user gradient, and the same step kernel.
 //
+// Rank masks (TMF, TMF+Dropout), instantiated for int8 codes and int8 W,
+// the tiles of those models' 0/1 weights. Ranks are prefixes, Mu[u, d] =
+// [d < r_u], and the masked step of cell_dense_update is
+//   P  = (U o Mu)(I o Mi)^T,            E as above,
+//   gu = Mu o (-2 E (I o Mi))   + 2 u_reg cntm_u o U,  cntm_u = (vm Mi) o Mu
+//   gi = Mi o (-2 E^T (U o Mu)) + 2 i_reg cntm_i o I,  cntm_i = (vm^T Mu) o Mi
+// normalized by the UNMASKED counts. The operands the kernel stages carry
+// the masks: the bf16 U copy and the item panel are zeroed at and past each
+// entity's rank (exact zeros in bf16; the CUDA-core kernel zeroes its f32
+// operands), so the three products run unchanged. Entity e's rank is
+// qs[s][L_e - 1]: its lambda (TMF: its rank) L_e looked up in the rank row
+// of stripe s's visit (TMF: 1..k; TMF+Dropout: that visit's Poisson
+// quantiles, staged by the caller from the stripe order). The masked counts
+// are read, not multiplied: a rank row is nondecreasing in lambda, so the
+// valid partners of rank > d are those of lambda > j, j = first_above(row,
+// d), which a suffix histogram of the partners' lambdas counts, staged once
+// with the tiles (hist_u [NU, bu, k] int32, hist_i [NU, ni_pad, k] int16)
+// and gathered by the step kernel. Chosen over two more tensor-core products
+// (vm Mi and vm^T Mu, exact with 0/1 operands) because the gather adds no
+// product and no accumulator to panel kernels that sit at the 128-register
+// cap for KP <= 64. What the masks cost: hist_i, 2k bytes an item a stripe
+// (2.6 MB a stripe at (d), ~1.7% of its bf16 R + int8 W tile), hist_u, and
+// no FLOP saved (masked dims are multiplied as zeros); the tile read still
+// bounds the masked epoch. At full rank the masked instantiation gives the
+// unmasked factors bit for bit (sgd_value).
+//
 // The ablation entry (dense_rows_ablate) runs the tensor-core kernel on
 // int8 codes truncated after a stage: tile loads only, + P, + E, + item
 // step, full (scripts/torch_stripe_ablate.py).
@@ -180,32 +206,51 @@ __device__ __forceinline__ float2 load_pair(const int8_t* p) {
   return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
 }
 
-// One SGD step x -= lr * norm(-2 acc + 2 reg c x) on four neighbouring
-// values of a row whose count is c.
-__device__ __forceinline__ float4 sgd_step(float4 x, float4 acc, float c,
-                                           float lr, float reg, int cn) {
-  const float xs[4] = {x.x, x.y, x.z, x.w};
-  const float as[4] = {acc.x, acc.y, acc.z, acc.w};
-  float out[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float g = -2.f * as[i] + (2.f * reg) * c * xs[i];
-    if (cn) g = g / fmaxf(c, 1.f);
-    out[i] = xs[i] - lr * g;
+// One SGD step of one value, x - lr * norm(m (-2 acc) + 2 reg cr x): m the
+// value's rank mask (1 at full rank), cr the count that scales its
+// regularization (the masked count), c the unmasked count that normalizes.
+// Each operation rounds once, in the plain version's order, and none is
+// contracted into an FMA, so the masked instantiation at full rank (m = 1,
+// cr = c) gives the unmasked one's factors bit for bit.
+__device__ __forceinline__ float sgd_value(float x, float acc, float m,
+                                           float cr, float c, float lr,
+                                           float reg, int cn) {
+  float g = __fadd_rn(__fmul_rn(m, -2.f * acc),
+                      __fmul_rn(__fmul_rn(2.f * reg, cr), x));
+  if (cn) g = __fdiv_rn(g, fmaxf(c, 1.f));
+  return __fsub_rn(x, __fmul_rn(lr, g));
+}
+
+// The first index j of a nondecreasing rank row q[0..k) with q[j] > d, or k:
+// an entity of lambda L has rank q[L - 1] > d iff L - 1 >= j.
+__device__ __forceinline__ int first_above(const int* q, int k, int d) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (q[mid] > d) hi = mid; else lo = mid + 1;
   }
-  return make_float4(out[0], out[1], out[2], out[3]);
+  return lo;
 }
 
 // B. Step the item rows and the stripe's user rows from their summed
 // gradients, the counts and the old rows, and leave both sums zeroed for
 // the next stripe. Threads take four values of a row each when k % 4 == 0,
-// else one (the other three lanes of the float4 are padding).
+// else one (the other lanes are padding). MASK: entity e of lambda L[e]
+// has rank r = qrow[L[e] - 1] at this visit; a value at d >= r is left as
+// it is (m = 0), and below it the regularization counts the valid partners
+// of rank > d, hist[e][first_above(qrow, d)] (the stripe's suffix
+// histogram of partner lambdas, exact integers).
+template <bool MASK>
 __global__ void __launch_bounds__(kThreads)
 stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
                    const float* __restrict__ cnt_i, int ni_pad,
                    float* __restrict__ U, long long* __restrict__ gu,
                    const float* __restrict__ cnt_u, int bu, int k, float lr,
-                   float i_reg, float u_reg, int collision_norm) {
+                   float i_reg, float u_reg, int collision_norm,
+                   const int* __restrict__ li, const int* __restrict__ lu,
+                   const int* __restrict__ qrow,
+                   const int16_t* __restrict__ hist_i,
+                   const int* __restrict__ hist_u) {
   const int per = (k & 3) == 0 ? 4 : 1;
   const size_t n_i = static_cast<size_t>(ni_pad) * k / per;
   const size_t n_u = static_cast<size_t>(bu) * k / per;
@@ -213,25 +258,49 @@ stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
   if (q >= n_i + n_u) return;
   const bool item = q < n_i;
   if (!item) q -= n_i;
+  const size_t e = q * per / k;               // the entity's row
+  const int d0 = static_cast<int>(q * per % k);
   float* x = (item ? I : U) + q * per;
   long long* acc = (item ? gi : gu) + q * per;
-  const float c = (item ? cnt_i : cnt_u)[q * per / k];
+  const float c = (item ? cnt_i : cnt_u)[e];
   const float reg = item ? i_reg : u_reg;
+  int rank = k;
+  if (MASK) rank = qrow[(item ? li : lu)[e] - 1];
+  long long sums[4] = {0, 0, 0, 0};
+  float xs[4] = {0.f, 0.f, 0.f, 0.f};
   if (per == 4) {
     longlong2* a2 = reinterpret_cast<longlong2*>(acc);
     const longlong2 s0 = a2[0], s1 = a2[1];
     a2[0] = make_longlong2(0, 0);
     a2[1] = make_longlong2(0, 0);
-    const float4 a = make_float4(from_fixed(s0.x), from_fixed(s0.y),
-                                 from_fixed(s1.x), from_fixed(s1.y));
-    *reinterpret_cast<float4*>(x) = sgd_step(
-        *reinterpret_cast<float4*>(x), a, c, lr, reg, collision_norm);
+    sums[0] = s0.x, sums[1] = s0.y, sums[2] = s1.x, sums[3] = s1.y;
+    const float4 v = *reinterpret_cast<const float4*>(x);
+    xs[0] = v.x, xs[1] = v.y, xs[2] = v.z, xs[3] = v.w;
   } else {
-    const float a = from_fixed(*acc);
+    sums[0] = *acc;
     *acc = 0;
-    *x = sgd_step(make_float4(*x, 0.f, 0.f, 0.f), make_float4(a, 0.f, 0.f, 0.f),
-                  c, lr, reg, collision_norm).x;
+    xs[0] = *x;
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= per) break;
+    const int d = d0 + j;
+    float m = 1.f, cr = c;
+    if (MASK) {
+      const int h = first_above(qrow, k, d);
+      m = d < rank ? 1.f : 0.f;
+      cr = d < rank && h < k
+               ? static_cast<float>(item ? hist_i[e * k + h]
+                                         : hist_u[e * k + h])
+               : 0.f;
+    }
+    xs[j] = sgd_value(xs[j], from_fixed(sums[j]), m, cr, c, lr, reg,
+                      collision_norm);
+  }
+  if (per == 4)
+    *reinterpret_cast<float4*>(x) = make_float4(xs[0], xs[1], xs[2], xs[3]);
+  else
+    *x = xs[0];
 }
 
 // ---------------------------------------------------------------------
@@ -361,19 +430,26 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
 }
 
 // The epoch's U as bf16, [NU, bu_pad, kp], zero past bu and k: the
-// operand copy every panel of a stripe reads.
+// operand copy every panel of a stripe reads. With rank tables (lu3 [NU,
+// bu], qs [NU, k]: stripe s's rank row is that of its visit), also zero at
+// and past each user's rank at its stripe's visit, U o Mu.
 __global__ void __launch_bounds__(kThreads)
 u_bf16_kernel(const float* __restrict__ U, __nv_bfloat16* __restrict__ Ub,
-              int n_stripes, int bu, int k, int kp) {
+              int n_stripes, int bu, int k, int kp,
+              const int* __restrict__ lu3, const int* __restrict__ qs) {
   const int bp = bu_pad(bu);
   const size_t q = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (q >= static_cast<size_t>(n_stripes) * bp * kp / 2) return;
   const size_t row = q / (kp / 2);
   const int d = static_cast<int>(q % (kp / 2)) * 2;
   const int s = static_cast<int>(row / bp), u = static_cast<int>(row % bp);
-  const float* src = U + (static_cast<size_t>(s) * bu + u) * k;
-  const float a = u < bu && d < k ? src[d] : 0.f;
-  const float b = u < bu && d + 1 < k ? src[d + 1] : 0.f;
+  const size_t ur = static_cast<size_t>(s) * bu + u;
+  const float* src = U + ur * k;
+  int r = k;
+  if (lu3 != nullptr && u < bu)
+    r = qs[static_cast<size_t>(s) * k + lu3[ur] - 1];
+  const float a = u < bu && d < r ? src[d] : 0.f;
+  const float b = u < bu && d + 1 < r ? src[d + 1] : 0.f;
   *reinterpret_cast<__nv_bfloat162*>(Ub + row * kp + d) =
       __floats2bfloat162_rn(a, b);
 }
@@ -390,7 +466,10 @@ __host__ __device__ constexpr int ctas_per_sm(int kp) {
 // (panel, 64-user chunk) units, panel-major, so every SM carries the same
 // work whatever the panel count. On leaving a panel it adds its share of
 // that panel's item gradient to gi.
-template <typename RT, typename WT, bool CODES, int KP, int STAGE>
+// MASK: the item panel is zeroed at and past each item's rank,
+// qrow[li[p] - 1] (the bf16 U copy is masked already), so the three
+// products are those of U o Mu and I o Mi.
+template <typename RT, typename WT, bool CODES, bool MASK, int KP, int STAGE>
 __global__ void __launch_bounds__(kThreads, ctas_per_sm(KP))
 panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
              const __nv_bfloat16* __restrict__ Ubg,  // [bu_pad, KP]
@@ -399,7 +478,10 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
              const WT* __restrict__ W,               // [bu, ni_pad] / null
              long long* __restrict__ gu,             // [bu, k], fixed point
              long long* __restrict__ gi,             // [ni_pad, k], same
-             int bu, int ni_pad, int k, int vec, float r_scale, float lim) {
+             int bu, int ni_pad, int k, int vec, float r_scale, float lim,
+             const int* __restrict__ li,             // [ni_pad] (MASK)
+             const int* __restrict__ lu,             // unused: bf16 copy
+             const int* __restrict__ qrow) {         // [k] (MASK)
   static_assert(KP % 16 == 0 && KP <= 128, "KP: k padded to 16..128");
   constexpr int SR = sizeof(RT);
   constexpr int SW = CODES ? 0 : sizeof(WT);
@@ -422,15 +504,17 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
   const long long end = n_units * (blockIdx.x + 1) / gridDim.x;
   if (begin >= end) return;
 
-  // a panel's OLD item rows, bf16-rounded, k zero-padded to KP
+  // a panel's OLD item rows, bf16-rounded, k zero-padded to KP (MASK:
+  // zero from each item's rank on)
   auto load_panel = [&](int p0) {
     for (int q = tid; q < kPanel * KP / 2; q += kThreads) {
       const int p = q / (KP / 2), d = (q % (KP / 2)) * 2;
       float a = 0.f, b = 0.f;
       if (p0 + p < ni_pad) {
         const float* row = I + static_cast<size_t>(p0 + p) * k;
-        if (d < k) a = row[d];
-        if (d + 1 < k) b = row[d + 1];
+        const int r = MASK ? qrow[li[p0 + p] - 1] : k;
+        if (d < r) a = row[d];
+        if (d + 1 < r) b = row[d + 1];
       }
       *reinterpret_cast<__nv_bfloat162*>(Ib + p * USTR + d) =
           __floats2bfloat162_rn(a, b);
@@ -641,14 +725,17 @@ __host__ __device__ inline size_t smem_floats(int k) {
          + static_cast<size_t>(kPanel) * k;   // Gi
 }
 
-template <typename RT, typename WT, bool CODES, bool MMBF16>
+// MASK: the item rows and the user chunk are zeroed at and past each
+// entity's rank, qrow[l[e] - 1], as they are staged.
+template <typename RT, typename WT, bool CODES, bool MMBF16, bool MASK>
 __global__ void __launch_bounds__(kThreads)
 panel_kernel(const float* __restrict__ U,
              const __nv_bfloat16* __restrict__ Ubg,  // unused
              const float* __restrict__ I, const RT* __restrict__ R,
              const WT* __restrict__ W, long long* __restrict__ gu,
              long long* __restrict__ gi, int bu, int ni_pad, int k, int vec,
-             float r_scale, float lim) {
+             float r_scale, float lim, const int* __restrict__ li,
+             const int* __restrict__ lu, const int* __restrict__ qrow) {
   extern __shared__ float smem[];
   const int ks = k + 1;  // padded stride: item rows hit distinct banks
   float* Im = smem;                                   // [kPanel][ks]
@@ -663,8 +750,8 @@ panel_kernel(const float* __restrict__ U,
 
   for (int idx = tid; idx < kPanel * k; idx += kThreads) {
     const int p = idx / k, d = idx % k;
-    const float v =
-        p < np_here ? I[static_cast<size_t>(p0 + p) * k + d] : 0.f;
+    const bool live = p < np_here && (!MASK || d < qrow[li[p0 + p] - 1]);
+    const float v = live ? I[static_cast<size_t>(p0 + p) * k + d] : 0.f;
     Im[p * ks + d] = mm_operand<MMBF16>(v);   // the old rows, as operand
     Gi[idx] = 0.f;
   }
@@ -674,7 +761,9 @@ panel_kernel(const float* __restrict__ U,
     const int nu_here = min(kChunk, bu - u0);
     for (int idx = tid; idx < kChunk * k; idx += kThreads) {
       const int u = idx / k, d = idx % k;
-      Us[idx] = u < nu_here
+      const bool live =
+          u < nu_here && (!MASK || d < qrow[lu[u0 + u] - 1]);
+      Us[idx] = live
                     ? mm_operand<MMBF16>(U[static_cast<size_t>(u0 + u) * k + d])
                     : 0.f;
     }
@@ -791,6 +880,14 @@ struct Epoch {
   long long* gi;        // [ni_pad, k]
   __nv_bfloat16* ub;    // [NU, bu_pad, KP] (tensor cores)
   const long long* order;
+  // rank masks, or all null: lambda / rank tables, each stripe's rank row
+  // (that of its visit) and the stripes' suffix histograms of partner
+  // lambdas
+  const int* lu;        // [NU, bu]
+  const int* li;        // [ni_pad]
+  const int* qs;        // [NU, k]
+  const int* hist_u;    // [NU, bu, k]
+  const int16_t* hist_i;  // [NU, ni_pad, k]
   int n_order, n_stripes, bu, ni_pad, k, vec, collision_norm;
   float lr, r_scale, u_reg, i_reg;
   cudaStream_t stream;
@@ -814,9 +911,10 @@ Epoch make_epoch(void* u3, void* i_tab, const void* R, const void* W,
                reinterpret_cast<long long*>(base + scratch_gi(bu, k)),
                reinterpret_cast<__nv_bfloat16*>(base +
                                                 scratch_ub(bu, ni_pad, k)),
-               order, n_order, n_stripes, bu, ni_pad, k, 0, collision_norm,
-               lr, r_scale, u_reg, i_reg, static_cast<cudaStream_t>(stream),
-               failed, launched};
+               order, nullptr, nullptr, nullptr, nullptr, nullptr, n_order,
+               n_stripes, bu, ni_pad, k, 0, collision_norm, lr, r_scale,
+               u_reg, i_reg, static_cast<cudaStream_t>(stream), failed,
+               launched};
 }
 
 bool aligned16(const void* p) {
@@ -830,7 +928,7 @@ unsigned blocks_for(size_t n) {
 // The epoch's stripes in order: the panel kernel on `grid` CTAs, then
 // (step) the step kernel. ``kernel`` is an instantiation of either panel
 // kernel; they share their signature. `lim` bounds each gradient partial.
-template <typename RT, typename WT, typename Kernel>
+template <bool MASK, typename RT, typename WT, typename Kernel>
 cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
                  int kp, bool step, float lim) {
   const size_t bp = static_cast<size_t>(tc::bu_pad(e.bu));
@@ -840,18 +938,23 @@ cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
     float* U = e.u3 + static_cast<size_t>(s) * e.bu * e.k;
     const RT* R = static_cast<const RT*>(e.R) + tile;
     const WT* W = e.W ? static_cast<const WT*>(e.W) + tile : nullptr;
+    const int* lu = MASK ? e.lu + static_cast<size_t>(s) * e.bu : nullptr;
+    const int* qrow = MASK ? e.qs + static_cast<size_t>(s) * e.k : nullptr;
     kernel<<<grid, kThreads, smem, e.stream>>>(
         U, e.ub + static_cast<size_t>(s) * bp * kp, e.I, R, W, e.gu, e.gi,
-        e.bu, e.ni_pad, e.k, e.vec, e.r_scale, lim);
+        e.bu, e.ni_pad, e.k, e.vec, e.r_scale, lim, e.li, lu, qrow);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++*e.launched;
     if (err == cudaSuccess && step) {
       const size_t n = (static_cast<size_t>(e.ni_pad) + e.bu) * e.k;
-      stripe_step_kernel<<<blocks_for(e.k % 4 ? n : n / 4), kThreads, 0,
-                           e.stream>>>(
+      const size_t hk = static_cast<size_t>(s) * e.k;
+      stripe_step_kernel<MASK><<<blocks_for(e.k % 4 ? n : n / 4), kThreads,
+                                 0, e.stream>>>(
           e.I, e.gi, e.cnt_i + static_cast<size_t>(s) * e.ni_pad, e.ni_pad,
           U, e.gu, e.cnt_u + static_cast<size_t>(s) * e.bu, e.bu, e.k, e.lr,
-          e.i_reg, e.u_reg, e.collision_norm);
+          e.i_reg, e.u_reg, e.collision_norm, e.li, lu, qrow,
+          MASK ? e.hist_i + hk * e.ni_pad : nullptr,
+          MASK ? e.hist_u + hk * e.bu : nullptr);
       err = cudaGetLastError();
       if (err == cudaSuccess) ++*e.launched;
     }
@@ -871,11 +974,11 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename RT, typename WT, bool CODES, int KP, int STAGE>
+template <typename RT, typename WT, bool CODES, bool MASK, int KP, int STAGE>
 cudaError_t run_tc(const Epoch& e) {
   constexpr tc::Smem L =
       tc::smem_layout(sizeof(RT), CODES ? 0 : sizeof(WT), KP);
-  auto kernel = tc::panel_kernel<RT, WT, CODES, KP, STAGE>;
+  auto kernel = tc::panel_kernel<RT, WT, CODES, MASK, KP, STAGE>;
   cudaError_t err = set_smem(kernel, L.total);
   // the persistent grid: ctas_per_sm(KP) CTAs an SM, whatever the tile type
   int dev = 0, sms = 0, per_sm = 0;
@@ -896,44 +999,55 @@ cudaError_t run_tc(const Epoch& e) {
   const size_t n =
       static_cast<size_t>(e.n_stripes) * tc::bu_pad(e.bu) * KP / 2;
   tc::u_bf16_kernel<<<blocks_for(n), kThreads, 0, e.stream>>>(
-      e.u3, e.ub, e.n_stripes, e.bu, e.k, KP);
+      e.u3, e.ub, e.n_stripes, e.bu, e.k, KP, MASK ? e.lu : nullptr,
+      MASK ? e.qs : nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*e.launched;
-  return walk<RT, WT>(e, kernel, grid, L.total, KP, STAGE == kFull, lim);
+  return walk<MASK, RT, WT>(e, kernel, grid, L.total, KP, STAGE == kFull,
+                            lim);
 }
 
-template <typename RT, typename WT, bool CODES, bool MMBF16>
+template <typename RT, typename WT, bool CODES, bool MMBF16, bool MASK>
 cudaError_t run_cc(const Epoch& e) {
-  auto kernel = cc::panel_kernel<RT, WT, CODES, MMBF16>;
+  auto kernel = cc::panel_kernel<RT, WT, CODES, MMBF16, MASK>;
   const size_t smem = cc::smem_floats(e.k) * sizeof(float);
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const unsigned grid =
       static_cast<unsigned>((e.ni_pad + cc::kPanel - 1) / cc::kPanel);
   // Gu: one partial a panel; Gi: one, stored
-  return walk<RT, WT>(e, kernel, grid, smem, 0, true, fix_limit(grid));
+  return walk<MASK, RT, WT>(e, kernel, grid, smem, 0, true, fix_limit(grid));
 }
 
-template <typename RT, typename WT, bool CODES>
+template <typename RT, typename WT, bool CODES, bool MASK>
 cudaError_t run_rw(const Epoch& e, int mm_bf16) {
   switch (tc_kp(e.k, mm_bf16)) {
-    case 16: return run_tc<RT, WT, CODES, 16, kFull>(e);
-    case 32: return run_tc<RT, WT, CODES, 32, kFull>(e);
-    case 64: return run_tc<RT, WT, CODES, 64, kFull>(e);
-    case 128: return run_tc<RT, WT, CODES, 128, kFull>(e);
+    case 16: return run_tc<RT, WT, CODES, MASK, 16, kFull>(e);
+    case 32: return run_tc<RT, WT, CODES, MASK, 32, kFull>(e);
+    case 64: return run_tc<RT, WT, CODES, MASK, 64, kFull>(e);
+    case 128: return run_tc<RT, WT, CODES, MASK, 128, kFull>(e);
     default:
-      return mm_bf16 ? run_cc<RT, WT, CODES, true>(e)
-                     : run_cc<RT, WT, CODES, false>(e);
+      return mm_bf16 ? run_cc<RT, WT, CODES, true, MASK>(e)
+                     : run_cc<RT, WT, CODES, false, MASK>(e);
   }
 }
 
+// Rank masks are instantiated for the tiles of the 0/1-weight models that
+// carry them: int8 validity W (beside f32 / bf16 R) and int8 codes.
 template <typename RT>
 cudaError_t run_w(const Epoch& e, int wtype, int mm_bf16) {
+  const bool masked = e.qs != nullptr;
   switch (wtype) {
-    case kWInt8: return run_rw<RT, int8_t, false>(e, mm_bf16);
-    case kWBF16: return run_rw<RT, __nv_bfloat16, false>(e, mm_bf16);
-    case kWF32: return run_rw<RT, float, false>(e, mm_bf16);
+    case kWInt8:
+      return masked ? run_rw<RT, int8_t, false, true>(e, mm_bf16)
+                    : run_rw<RT, int8_t, false, false>(e, mm_bf16);
+    case kWBF16:
+      if (masked) return cudaErrorInvalidValue;
+      return run_rw<RT, __nv_bfloat16, false, false>(e, mm_bf16);
+    case kWF32:
+      if (masked) return cudaErrorInvalidValue;
+      return run_rw<RT, float, false, false>(e, mm_bf16);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -974,12 +1088,19 @@ size_t dense_rows_smem_bytes(int rtype, int wtype, int k, int mm_bf16) {
 // codes; W of wtype 0 int8 / 1 bf16 / 2 f32, or null for codes), u3 is
 // [n_stripes, bu, k], i_tab [ni_pad, k], cnt_u [n_stripes, bu] and cnt_i
 // [n_stripes, ni_pad] the tiles' f32 validity counts, `scratch` holds
-// dense_rows_scratch_bytes zeroed bytes; `order` is a host array. Returns
-// the cudaError_t of the first launch that failed (its stripe in
-// *failed_stripe, -1 for the U copy), else cudaSuccess; *launched counts
-// the kernels launched.
+// dense_rows_scratch_bytes zeroed bytes; `order` is a host array.
+// Rank masks (codes or int8 W only; all five null for full rank): lu
+// [n_stripes, bu] and li [ni_pad] int32 lambdas (or ranks) in [1, k], qs
+// [n_stripes, k] int32 each stripe's nondecreasing rank row (rank of lambda
+// L = qs[s][L - 1]), hist_u [n_stripes, bu, k] int32 and hist_i
+// [n_stripes, ni_pad, k] int16 the stripes' counts of valid partners of
+// lambda >= l + 1. Returns the cudaError_t of the first launch that failed
+// (its stripe in *failed_stripe, -1 for the U copy), else cudaSuccess;
+// *launched counts the kernels launched.
 int dense_rows_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
                      void* u3, void* i_tab, const void* R, const void* W,
+                     const void* lu, const void* li, const void* qs,
+                     const void* hist_u, const void* hist_i,
                      const void* cnt_u, const void* cnt_i, void* scratch,
                      const long long* order, int n_order, int n_stripes,
                      int bu, int ni_pad, int k, float lr, float r_scale,
@@ -988,17 +1109,27 @@ int dense_rows_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
   if (bu <= 0 || ni_pad <= 0 || k <= 0 || n_order < 0 || n_stripes <= 0)
     return cudaErrorInvalidValue;
   if ((rtype == kRCodes) != (W == nullptr)) return cudaErrorInvalidValue;
+  const int n_masks = (lu != nullptr) + (li != nullptr) + (qs != nullptr) +
+                      (hist_u != nullptr) + (hist_i != nullptr);
+  if (n_masks != 0 && n_masks != 5) return cudaErrorInvalidValue;
   const int rb = rtype_bytes(rtype), wb = W ? wtype_bytes(wtype) : 1;
   Epoch e = make_epoch(u3, i_tab, R, W, cnt_u, cnt_i, scratch, order,
                        n_order, n_stripes, bu, ni_pad, k, collision_norm, lr,
                        r_scale, u_reg, i_reg, stream, failed_stripe, launched);
+  e.lu = static_cast<const int*>(lu);
+  e.li = static_cast<const int*>(li);
+  e.qs = static_cast<const int*>(qs);
+  e.hist_u = static_cast<const int*>(hist_u);
+  e.hist_i = static_cast<const int16_t*>(hist_i);
   e.vec = (static_cast<size_t>(ni_pad) * rb) % 16 == 0 &&
           (static_cast<size_t>(ni_pad) * wb) % 16 == 0 && aligned16(R) &&
           (W == nullptr || aligned16(W));
   switch (rtype) {
     case kRF32: return run_w<float>(e, wtype, mm_bf16);
     case kRBF16: return run_w<__nv_bfloat16>(e, wtype, mm_bf16);
-    case kRCodes: return run_rw<int8_t, int8_t, true>(e, mm_bf16);
+    case kRCodes:
+      return n_masks ? run_rw<int8_t, int8_t, true, true>(e, mm_bf16)
+                     : run_rw<int8_t, int8_t, true, false>(e, mm_bf16);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1019,11 +1150,11 @@ int dense_rows_ablate(int stage, void* u3, void* i_tab, const void* R,
                        u_reg, i_reg, stream, failed_stripe, launched);
   e.vec = ni_pad % 16 == 0 && aligned16(R);
   switch (stage) {
-    case kStream: return run_tc<int8_t, int8_t, true, 64, kStream>(e);
-    case kPmm: return run_tc<int8_t, int8_t, true, 64, kPmm>(e);
-    case kElem: return run_tc<int8_t, int8_t, true, 64, kElem>(e);
-    case kItem: return run_tc<int8_t, int8_t, true, 64, kItem>(e);
-    case kFull: return run_tc<int8_t, int8_t, true, 64, kFull>(e);
+    case kStream: return run_tc<int8_t, int8_t, true, false, 64, kStream>(e);
+    case kPmm: return run_tc<int8_t, int8_t, true, false, 64, kPmm>(e);
+    case kElem: return run_tc<int8_t, int8_t, true, false, 64, kElem>(e);
+    case kItem: return run_tc<int8_t, int8_t, true, false, 64, kItem>(e);
+    case kFull: return run_tc<int8_t, int8_t, true, false, 64, kFull>(e);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -132,9 +132,45 @@ class ModelMF:
         return torch.ones(u_idx.shape, dtype=torch.float32,
                           device=u_idx.device)
 
+    def update_rank_mask(self, u_idx: torch.Tensor, i_idx: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
+        """[B, k] {0,1} mask of the dims each example predicts and updates
+        in training, or None for full rank. A model that samples its ranks
+        draws them from ``generator`` (on the indices' device)."""
+        return None
+
     def update_side_masks(self, u_idx: torch.Tensor, i_idx: torch.Tensor):
         """Per-side update gates (m_u, m_i) multiplying the whole user- or
         item-side gradient, or None. A model that overrides this carries
         gates that only the scatter SGD engine honours; the block engine
         refuses it (the JAX solver's test of the override)."""
         return None
+
+    def transform_init_state(self, state: MFState) -> MFState:
+        """Applied once to the initial state before training; the
+        identity here (a hook for models that zero dims at init)."""
+        return state
+
+
+class ModelMFBias:
+    """Bias-only model: estRating = b_u + b_i; factors and the global mean
+    are left out of the prediction (modelMFBias.cpp:94-99). Like the JAX
+    class it borrows ModelMF's hooks without being a ModelMF."""
+
+    name = "mf_bias"
+    use_bias = True
+    use_factors = False
+
+    def __init__(self, params: Params, n_users: int, n_items: int,
+                 user_freq=None, item_freq=None):
+        self.params = params
+        self.n_users = n_users
+        self.n_items = n_items
+        self.k = params.fac_dim
+
+    entity_ranks = ModelMF.entity_ranks
+    eval_view = ModelMF.eval_view
+    example_weight = ModelMF.example_weight
+    update_rank_mask = ModelMF.update_rank_mask
+    update_side_masks = ModelMF.update_side_masks
+    transform_init_state = ModelMF.transform_init_state

@@ -6,12 +6,14 @@ tables built once with numpy, as in the JAX package. They live on the CPU
 and are copied to the device of the indices they are asked about (once
 per device). Truncation is factor masking: the rank map is monotone, so
 the pair rank min(R(f_u), R(f_i)) factorizes into per-entity masks
-(models/base.py). ``ModelPoissonDropout`` (sampled training ranks) and the
-othersrc variants are ROADMAP queue 1, items 7 and 14.
+(models/base.py). ``ModelPoissonDropout`` draws its training ranks from a
+``torch.Generator`` the caller passes in. The othersrc variants are ROADMAP
+queue 1, item 14.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -120,6 +122,95 @@ class ModelDropoutSigmoid(ModelMF):
         t = self._tabs.on(u_idx.device)
         return torch.minimum(t["rank_u"][u_idx], t["rank_i"][i_idx])
 
-    def update_rank_mask(self, u_idx, i_idx):
+    def update_rank_mask(self, u_idx, i_idx, generator=None):
         """[B, k] {0,1} mask of the dims a pair predicts and updates."""
         return rank_mask(self.pair_rank(u_idx, i_idx), self.k)
+
+
+def poisson_cdf_ranks(fac_dim: int, cdf_cut: float = 0.99) -> np.ndarray:
+    """initCDFRanks (modelPoissonDropout.cpp:25-47): for each lambda in
+    1..k, the smallest index m with P(X <= m+1) >= cdf_cut under
+    Poisson(lambda), or k - 1 when none reaches it (copy of the JAX numpy
+    helper)."""
+    out = np.zeros(fac_dim, dtype=np.int32)
+    for lam in range(1, fac_dim + 1):
+        cdf = math.exp(-lam)  # P(X = 0)
+        k = 0
+        for k in range(fac_dim):
+            wt = math.exp(-lam + (k + 1) * math.log(lam)
+                          - math.lgamma(k + 2))  # P(X = k+1)
+            cdf += wt
+            if cdf >= cdf_cut:
+                break
+        else:
+            k = fac_dim - 1
+        out[lam - 1] = k
+    return out
+
+
+def poisson_cdf_table(k: int) -> np.ndarray:
+    """C [k, k] f32 with C[lam-1, m] = P(Poisson(lam) <= m), m = 0..k-1:
+    the quantile table of the stripe engine's common-random-number rank
+    draw. Per stripe visit one uniform U sets every entity's rank to
+    q(lam) = clip(#{m : C[lam-1, m] < U}, 1, k). The Poisson family is
+    stochastically increasing in lam, so q is monotone in lam and the pair
+    rank min(q(lam_u), q(lam_i)) is q(min(lam_u, lam_i)): for a uniform U,
+    exactly the reference's per-update marginal clip(Poisson(lam_pair), 1,
+    k) (modelPoissonDropout.cpp:189-207; README deviation #15). Only the
+    correlation differs: the pairs of one visit share its quantile level."""
+    C = np.zeros((k, k), np.float64)
+    for lam in range(1, k + 1):
+        cdf = math.exp(-lam)                       # P(X = 0)
+        C[lam - 1, 0] = cdf
+        for m in range(1, k):
+            cdf += math.exp(-lam + m * math.log(lam)
+                            - math.lgamma(m + 1))  # P(X = m)
+            C[lam - 1, m] = cdf
+    return C.astype(np.float32)
+
+
+class ModelPoissonDropout(ModelDropoutSigmoid):
+    """TMF+Dropout: the training rank of each update is drawn from
+    Poisson(lambda(u, i)), lambda = the TMF rank map, clipped to [1, k];
+    inference truncates at the Poisson 0.99-CDF rank of lambda
+    (modelPoissonDropout.cpp)."""
+
+    name = "tmf_dropout"
+    stochastic_rank = True
+
+    def __init__(self, params: Params, n_users: int, n_items: int,
+                 user_freq: np.ndarray, item_freq: np.ndarray, **_):
+        super().__init__(params, n_users, n_items, user_freq, item_freq)
+        # the entity lambda tables are TMF's sigmoid rank tables
+        self.lambda_u = self.rank_u
+        self.lambda_i = self.rank_i
+        self.cdf_ranks = poisson_cdf_ranks(self.k)
+        # inference dims for lambda: cdfRanks[lambda - 1] + 1, capped at k
+        eff = torch.from_numpy(
+            np.minimum(self.cdf_ranks + 1, self.k).astype(np.int32))
+        self.rank_u = eff[self.lambda_u.long() - 1]
+        self.rank_i = eff[self.lambda_i.long() - 1]
+        self._tabs = _DeviceTables(rank_u=self.rank_u, rank_i=self.rank_i,
+                                   lambda_u=self.lambda_u,
+                                   lambda_i=self.lambda_i)
+
+    def pair_lambda(self, u_idx, i_idx):
+        t = self._tabs.on(u_idx.device)
+        return torch.minimum(t["lambda_u"][u_idx], t["lambda_i"][i_idx])
+
+    def update_rank_mask(self, u_idx, i_idx, generator=None):
+        """clip(Poisson(pair lambda), 1, k) per example
+        (modelPoissonDropout.cpp:200-206), drawn from ``generator`` (a
+        generator of the indices' device)."""
+        lam = self.pair_lambda(u_idx, i_idx).to(torch.float32)
+        r = torch.poisson(lam, generator=generator).clamp(1, self.k)
+        return rank_mask(r.to(torch.int32), self.k)
+
+    def entity_lambdas(self):
+        """Per-entity training lambda tables (int32 in [1, k]): the
+        sigmoid rank map before the CDF inference transform."""
+        return self.lambda_u, self.lambda_i
+
+    def poisson_cdf_table(self) -> np.ndarray:
+        """``poisson_cdf_table(k)`` of this model's k."""
+        return poisson_cdf_table(self.k)

@@ -20,6 +20,16 @@ the tensor cores (``epoch_launches``).
 The validity counts the kernels read depend on the tiles alone: the
 solver computes them once at staging (``stripe_counts``) and passes them;
 a caller that passes none has them computed on each call.
+
+Rank masks (TMF, TMF+Dropout) come as ``ranks=(Lu, Li, Q)``: int32
+lambda (or rank) tables of the stripes' users [NU, bu] and of the items
+[ni_pad], and a per-visit rank table Q [NU, k] whose row t ranks the
+lambdas at the t-th stripe of ``row_order`` (``identity_quantiles`` for
+static ranks, ``visit_quantiles`` for Poisson draws). The kernel reads the
+masked regularization counts from suffix histograms of the tiles'
+lambdas, ``rank_hists``, which the solver stages once beside the counts.
+The masks are instantiated for int8 codes and int8 validity W only, the
+tiles of the 0/1-weight models that carry them.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ import torch
 
 from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops.dense_block_kernel import dense_sweep_rows
+
+Ranks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 KERNELS_PER_STRIPE = 2     # panel kernel + step kernel
 _RTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -46,7 +58,8 @@ _EPOCH_TAIL = [
 _SIGNATURES = {
     "dense_rows_epoch": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rtype,
-        _P, _P, _P, _P] + _EPOCH_TAIL),     # wtype, mm, cn; u3, i_tab, R, W
+        _P, _P, _P, _P,                     # wtype, mm, cn; u3, i_tab, R, W
+        _P, _P, _P, _P, _P] + _EPOCH_TAIL),  # lu, li, qs, hist_u, hist_i
     "dense_rows_ablate": (ctypes.c_int, [
         ctypes.c_int, _P, _P, _P] + _EPOCH_TAIL),   # stage; u3, i_tab, R
     "dense_rows_scratch_bytes": (ctypes.c_size_t, [ctypes.c_int] * 5),
@@ -80,6 +93,54 @@ def stripe_counts(R_rows: torch.Tensor, W_rows: Optional[torch.Tensor]
         cnt_u[s] = valid.sum(dim=1, dtype=torch.float32)
         cnt_i[s] = valid.sum(dim=0, dtype=torch.float32)
     return cnt_u, cnt_i
+
+
+def rank_hists(R_rows: torch.Tensor, W_rows: Optional[torch.Tensor],
+               Lu: torch.Tensor, Li: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Suffix histograms of the partners' lambdas, per stripe:
+    hist_u [NU, bu, k] int32 with hist_u[s, u, l] = #{valid i in row u of
+    stripe s : Li[i] > l}, and hist_i [NU, ni_pad, k] int16 the same for
+    each item over the stripe's users (at most bu <= 32767 of them).
+    Validity is W > 0, or code != 0 for int8 codes (W_rows=None). With a
+    nondecreasing rank row q, #{valid i : q[Li[i] - 1] > d} is
+    hist_u[s, u, j] for j the first index with q[j] > d: the stripe
+    kernel's masked regularization counts. 0/1 f32 products, so the
+    counts are exact."""
+    tiles = R_rows if W_rows is None else W_rows
+    NU, bu, ni = tiles.shape
+    if bu > torch.iinfo(torch.int16).max:
+        raise ValueError(f"int16 item histograms count at most 32767 users "
+                         f"a stripe, not bu={bu}")
+    dev = tiles.device
+    levels = torch.arange(k, device=dev)
+    above = lambda L: (L.to(dev)[..., None] > levels).to(torch.float32)
+    g_i = above(Li)                                    # [ni, k]
+    hist_u = torch.empty((NU, bu, k), dtype=torch.int32, device=dev)
+    hist_i = torch.empty((NU, ni, k), dtype=torch.int16, device=dev)
+    for s in range(NU):
+        valid = (tiles[s] != 0 if W_rows is None else tiles[s] > 0)
+        valid = valid.to(torch.float32)
+        hist_u[s] = valid @ g_i
+        hist_i[s] = valid.T @ above(Lu[s])
+    return hist_u, hist_i
+
+
+def _check_ranks(ranks, NU, bu, ni_pad, k, dev):
+    Lu, Li, Q = ranks
+    if (tuple(Lu.shape), tuple(Li.shape), tuple(Q.shape)) != (
+            (NU, bu), (ni_pad,), (NU, k)):
+        raise ValueError(f"ranks must be Lu [{NU}, {bu}], Li [{ni_pad}] and "
+                         f"Q [{NU}, {k}]")
+    if any(t.dtype != torch.int32 or t.device != dev for t in ranks):
+        raise ValueError(f"ranks must be int32 tensors on {dev}")
+    # the kernel's masked counts need rank rows nondecreasing in lambda
+    ok = ((Q[:, 1:] >= Q[:, :-1]).all() & (Q >= 1).all() & (Q <= k).all()
+          & (Lu >= 1).all() & (Lu <= k).all() & (Li >= 1).all()
+          & (Li <= k).all())
+    if not bool(ok):
+        raise ValueError(f"ranks: Lu, Li and Q must lie in [1, {k}] and each "
+                         "row of Q must be nondecreasing")
 
 
 def _check(u3, i_tab, row_order, R_rows, W_rows, r_scale):
@@ -121,6 +182,8 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
                      r_scale: Optional[float], u_reg: float, i_reg: float,
                      collision_norm: bool, mm_bf16: bool,
                      counts: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     = None, ranks: Optional[Ranks] = None,
+                     hists: Optional[Tuple[torch.Tensor, torch.Tensor]]
                      = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One row-stripe dense epoch over the stripes of ``row_order`` (a
     permutation of the NU stripes).
@@ -128,13 +191,20 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
     u3 [NU, bu, k] f32, i_tab [ni_pad, k] f32, R_rows [NU, bu, ni_pad]
     (f32/bf16 ratings with int8, bf16 or f32 weights W_rows, or int8 codes
     with W_rows=None and r_scale). ``counts``: the tiles'
-    ``stripe_counts``, computed here when not given. Updates u3 and i_tab
-    IN PLACE and returns them."""
+    ``stripe_counts``, computed here when not given. ``ranks``: (Lu, Li,
+    Q) rank masks, see the module docstring; ``hists``: their
+    ``rank_hists``, computed here when not given. Updates u3 and i_tab IN
+    PLACE and returns them."""
     _check(u3, i_tab, row_order, R_rows, W_rows, r_scale)
+    NU, bu, k = u3.shape
+    ni_pad = i_tab.shape[0]
+    if ranks is not None:
+        _check_ranks(ranks, NU, bu, ni_pad, k, u3.device)
     if u3.device.type == "cpu":
+        Lu, Li, Q = ranks if ranks is not None else (None, None, None)
         return dense_sweep_rows(u3, i_tab, row_order, lr, R_rows, W_rows,
                                 u_reg, i_reg, collision_norm, mm_bf16,
-                                r_scale=r_scale)
+                                r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
     if u3.device.type != "cuda":
         raise ValueError(f"no route for device {u3.device}")
     if R_rows.dtype not in _RTYPES or (
@@ -142,8 +212,11 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
                                     or R_rows.dtype == torch.int8)):
         raise ValueError("the CUDA kernel takes f32/bf16 R with int8, bf16 "
                          "or f32 W, or int8 codes without W")
-    NU, bu, k = u3.shape
-    ni_pad = i_tab.shape[0]
+    if ranks is not None and W_rows is not None and \
+            W_rows.dtype != torch.int8:
+        raise ValueError(f"rank masks are instantiated for int8 codes and "
+                         f"int8 W tiles, not {R_rows.dtype} R with "
+                         f"{W_rows.dtype} W")
     lib = library()
     rtype = _RTYPES[R_rows.dtype]
     wtype = 0 if W_rows is None else _WTYPES[W_rows.dtype]
@@ -155,6 +228,24 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
                    or not c.is_contiguous() for c in counts):
         raise ValueError(f"counts must be contiguous f32 [{NU}, {bu}] and "
                          f"[{NU}, {ni_pad}] on {u3.device}")
+    masks = [None] * 5
+    if ranks is not None:
+        Lu, Li, Q = ranks
+        if hists is None:
+            hists = rank_hists(R_rows, W_rows, Lu, Li, k)
+        hist_u, hist_i = hists
+        if (tuple(hist_u.shape), tuple(hist_i.shape)) != (
+                (NU, bu, k), (NU, ni_pad, k)) or \
+                (hist_u.dtype, hist_i.dtype) != (torch.int32, torch.int16) \
+                or any(h.device != u3.device or not h.is_contiguous()
+                       for h in hists):
+            raise ValueError(f"hists must be contiguous int32 [{NU}, {bu}, "
+                             f"{k}] and int16 [{NU}, {ni_pad}, {k}] on "
+                             f"{u3.device}")
+        # the kernels read each stripe's rank row: that of its visit
+        Qs = torch.empty_like(Q)
+        Qs[row_order.to(device=Q.device, dtype=torch.int64)] = Q
+        masks = [Lu.contiguous(), Li.contiguous(), Qs, hist_u, hist_i]
     # the stripe's user and item gradients (the kernels leave them zeroed)
     # and the bf16 copy of U
     scratch = torch.zeros(lib.dense_rows_scratch_bytes(NU, bu, ni_pad, k,
@@ -167,6 +258,7 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
             rtype, wtype, int(mm_bf16), int(collision_norm), u3.data_ptr(),
             i_tab.data_ptr(), R_rows.data_ptr(),
             None if W_rows is None else W_rows.data_ptr(),
+            *(None if m is None else m.data_ptr() for m in masks),
             cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
             order.data_ptr(), NU, NU, bu, ni_pad, k, float(lr),
             float(r_scale or 0.0), float(u_reg), float(i_reg),

@@ -24,7 +24,13 @@ is densified into [NU, bu, ni_pad] stripe tiles by the ladder of
 code * scale, else int8 validity with f32/bf16 ratings, else float
 weights); each epoch visits the stripes in a random order, one
 full-catalog masked-residual GD step per stripe
-(ops/dense_row_kernel.dense_rows_epoch).
+(ops/dense_row_kernel.dense_rows_epoch). Rank-masked models stage
+per-entity tables in the relabeled order, pad entities at rank k: TMF its
+static ranks, TMF+Dropout its lambdas, whose ranks are redrawn at every
+stripe visit from one uniform a visit (the common-random-number Poisson
+quantiles, README deviation #15). On a CUDA device the suffix histograms
+the kernel reads its masked counts from are staged once with the tiles,
+and their bytes count toward ``dense_budget_bytes``.
 
 Left out of the port, as TPU workarounds: the dummy factor block NU (the
 diag schedule's pad lanes are skipped), the panel-major relayout (a DMA
@@ -48,8 +54,11 @@ from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
                                                    block_sgd_epoch,
                                                    diag_schedule, plan,
                                                    stage_slices)
-from matfac_tpu_torch.ops.dense_block_kernel import densify_rows
+from matfac_tpu_torch.ops.dense_block_kernel import (densify_rows,
+                                                    identity_quantiles,
+                                                    visit_quantiles)
 from matfac_tpu_torch.ops.dense_row_kernel import (dense_rows_epoch,
+                                                   rank_hists,
                                                    stripe_counts)
 
 
@@ -172,23 +181,25 @@ class BlockSGDSolver:
             # per-side gates of the user / item updates; these engines
             # apply one pair mask to both sides
             raise ValueError("per-side update gates need SGDSolver")
-        if hasattr(model, "pair_lambda") or getattr(
-                model, "stochastic_rank", False):
-            if engine == "dense":
-                raise NotImplementedError(
-                    "the dense engine's per-stripe Poisson rank resampling "
-                    "is ROADMAP queue 1, item 7")
+        # Poisson TMF: the dense row engine redraws entity ranks at every
+        # stripe visit; every other engine stages static ranks, and would
+        # silently train the deterministic variant
+        self._pois = (engine == "dense" and hasattr(model, "pair_lambda")
+                      and hasattr(model, "entity_lambdas"))
+        if (hasattr(model, "pair_lambda") or getattr(
+                model, "stochastic_rank", False)) and not self._pois:
             raise ValueError(
                 "block-SGD stages static per-pair ranks; "
                 f"{model.name} needs per-update sampled ranks — use "
                 "the sgd engine (or DSGD, which samples in-kernel), "
                 "or the dense row engine (per-stripe-visit CRN "
                 "resampling)")
-        if engine == "dense" and hasattr(model, "pair_rank"):
-            raise NotImplementedError(
-                "rank-masked models on the dense engine (the Mu / Mi mask "
-                "tables) are ROADMAP queue 1, item 7; use the one-hot "
-                "engine (engine='xla')")
+        if engine == "dense" and not self._pois and \
+                hasattr(model, "pair_rank") and \
+                not hasattr(model, "entity_ranks"):
+            raise ValueError(
+                "dense engine needs per-entity rank tables (entity_ranks); "
+                f"{model.name} has none — use engine='xla'")
         self.model = model
         self.params = params
         self.device = torch.device(device)
@@ -256,20 +267,29 @@ class BlockSGDSolver:
         rt = torch.from_numpy(r.astype(np.int64))
         ct = torch.from_numpy(c.astype(np.int64))
         w = model.example_weight(rt, ct).cpu().numpy().astype(np.float32)
-        self.use_mask = hasattr(model, "pair_rank")
+        self.use_mask = hasattr(model, "pair_rank") and not self._pois
         lam = (model.pair_rank(rt, ct).cpu().numpy().astype(np.int32)
-               if self.use_mask else np.full(len(r), model.k, np.int32))
+               if self.use_mask and engine != "dense"
+               else np.full(len(r), model.k, np.int32))
         r = self.u_perm[r]
         c = self.i_perm[c]
         self._resident = None
         self._last_u_view = None
         self._last_i_view = None
         if engine == "dense":
+            k = model.k
+            masked = self.use_mask or self._pois
+            # the kernel's histograms: int32 [NU, bu, k], int16 [NU, ni, k]
+            hist_bytes = (self.NU * k * (4 * bu + 2 * self.n_items_pad)
+                          if masked and self.device.type == "cuda" else 0)
             self._stage_dense(r // bu, (r % bu).astype(np.int32),
                               c.astype(np.int32), v.astype(np.float32), w,
-                              self.NU, dense_budget_bytes)
+                              self.NU, dense_budget_bytes - hist_bytes)
             # the tiles' validity counts, which the stripe kernel reads
             self.counts = stripe_counts(self.R_rows, self.W_rows)
+            self.rank_tabs = self.hists = self.pois_cdf = None
+            if masked:
+                self._stage_ranks(model)
             self._order_gen = torch.Generator().manual_seed(params.seed + 41)
             return
         self._stage_cells(r, c, v.astype(np.float32), w, lam, batch_size)
@@ -348,6 +368,28 @@ class BlockSGDSolver:
                                        range_size)
 
     # ------------------------------------------------------------------
+    def _stage_ranks(self, model):
+        """Rank tables of the dense engine in the relabeled order: (Lu
+        [NU, bu], Li [ni_pad]) int32, pad entities at k (their W is 0, so
+        their masks never bite), TMF's ranks or TMF+Dropout's lambdas with
+        its [k, k] CDF table; on a CUDA device also the kernel's
+        ``rank_hists``."""
+        k = model.k
+        eu, ei = (model.entity_lambdas() if self._pois
+                  else model.entity_ranks())
+        lu = np.full(self.n_users_pad, k, np.int32)
+        li = np.full(self.n_items_pad, k, np.int32)
+        lu[self.u_perm] = np.asarray(eu, np.int32)
+        li[self.i_perm] = np.asarray(ei, np.int32)
+        dev = self.device
+        self.rank_tabs = (torch.from_numpy(lu.reshape(self.NU, self.bu))
+                          .to(dev), torch.from_numpy(li).to(dev))
+        if self._pois:
+            self.pois_cdf = torch.from_numpy(model.poisson_cdf_table()).to(dev)
+        if dev.type == "cuda":
+            self.hists = rank_hists(self.R_rows, self.W_rows,
+                                    *self.rank_tabs, k)
+
     def _stage_dense(self, cell, u_loc, i_loc, vals, wts, n_cells, budget):
         """Dense [bu, ni_pad] tiles per stripe. Ladder, best first: int8
         rating CODES (validity = code != 0; exact for star-grid data,
@@ -418,6 +460,18 @@ class BlockSGDSolver:
         permutation of range(NU) from the solver's own generator."""
         return torch.randperm(self.NU, generator=self._order_gen)
 
+    def epoch_ranks(self, round_u: Optional[torch.Tensor] = None):
+        """(Lu, Li, Q) for ``dense_rows_epoch``, or None without rank
+        masks: the identity rank rows for static ranks, the visits' Poisson
+        quantiles at ``round_u`` for TMF+Dropout."""
+        if self.rank_tabs is None:
+            return None
+        if self.pois_cdf is not None:
+            Q = visit_quantiles(self.pois_cdf, round_u)
+        else:
+            Q = identity_quantiles(self.NU, self.model.k, self.device)
+        return (*self.rank_tabs, Q)
+
     def _build_schedule(self):
         """Row schedule (the JAX numpy draws, bit for bit): a random
         user-row order, a random cell order within each row, a random
@@ -434,7 +488,13 @@ class BlockSGDSolver:
         """This epoch's schedule for ``epoch_with``: (row_of, ib_seq, boff)
         or, for the diag schedule, (ub_idx, ib_idx, boff) from a
         ``torch.Generator`` seeded by one draw of the numpy schedule rng,
-        the draw the JAX solver makes for its PRNG key."""
+        the draw the JAX solver makes for its PRNG key. Dense engine:
+        (stripe order, round uniforms), the uniforms [NU] drawn after the
+        order from the same generator for TMF+Dropout, else None."""
+        if self.engine == "dense":
+            order = self._stripe_order()
+            return order, (torch.rand(self.NU, generator=self._order_gen)
+                           if self.pois_cdf is not None else None)
         if self.schedule == "diag":
             seed = int(self._sched_rng.integers(2**31))
             return diag_schedule(torch.Generator().manual_seed(seed),
@@ -502,23 +562,22 @@ class BlockSGDSolver:
                     use_mask=self.use_mask, mm_bf16=self.mm_bf16)
 
     def epoch(self, state: MFState, lr: float) -> MFState:
-        if self.engine != "dense":
-            return self.epoch_with(state, lr, self.draw_schedule())
-        u3, i_tab = self._tables(state)
-        dense_rows_epoch(u3, i_tab, self._stripe_order(), lr, self.R_rows,
-                         self.W_rows, self.r_scale,
-                         float(self.params.u_reg), float(self.params.i_reg),
-                         self.collision_norm, self.mm_bf16,
-                         counts=self.counts)
-        return self._views(state, u3, i_tab)
+        return self.epoch_with(state, lr, self.draw_schedule())
 
     def epoch_with(self, state: MFState, lr: float, schedule) -> MFState:
-        """One one-hot epoch on the given schedule (``draw_schedule``'s
-        form; the tests pass the JAX solver's own)."""
-        if self.engine == "dense":
-            raise ValueError("epoch_with takes the one-hot engines' "
-                             "schedules")
+        """One epoch on the given schedule (``draw_schedule``'s form; the
+        tests pass the JAX solver's own draws)."""
         u_tab, i_tab = self._tables(state)
+        if self.engine == "dense":
+            order, round_u = schedule
+            dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,
+                             self.W_rows, self.r_scale,
+                             float(self.params.u_reg),
+                             float(self.params.i_reg), self.collision_norm,
+                             self.mm_bf16, counts=self.counts,
+                             ranks=self.epoch_ranks(round_u),
+                             hists=self.hists)
+            return self._views(state, u_tab, i_tab)
         sweep = (block_sgd_diag_epoch if self.schedule == "diag"
                  else block_sgd_epoch)
         sweep(u_tab, i_tab, *schedule, lr, *self.streams,

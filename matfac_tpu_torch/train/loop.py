@@ -1,6 +1,6 @@
 """The training loops and their front door (port of matfac_tpu/train/loop.py
-for plain MF, IFWMF and TMF on the one-hot cell engine, plain MF on the
-row-dense engine, and plain BPR).
+for plain MF, MF with biases, IFWMF, TMF and TMF+Dropout on the scatter,
+one-hot cell and row-dense engines, and plain BPR).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -31,12 +31,16 @@ from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.utils import freq as ufreq
 from matfac_tpu_torch.eval.metrics import Evaluator
 from matfac_tpu_torch.eval.ranking import CatalogScorer
-from matfac_tpu_torch.models.base import MFState, ModelMF, init_state
+from matfac_tpu_torch.models.base import (MFState, ModelMF, ModelMFBias,
+                                          init_state)
 from matfac_tpu_torch.models.bpr import ModelMFBPR
 from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
-                                              ModelInvPopMF)
-from matfac_tpu_torch.solvers.block_sgd import BlockSGDSolver
+                                              ModelInvPopMF,
+                                              ModelPoissonDropout)
+from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
+                                                rating_code_scale)
 from matfac_tpu_torch.solvers.bpr import BPRSolver
+from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
 
 
@@ -352,32 +356,94 @@ class TrainLoopHR:
 # one-call front door
 # ----------------------------------------------------------------------
 
+_SGD = ("sgd", "sgdpar", "sgdu", "hogsgd")
+_SOLVERS = ("auto",) + _SGD + ("sgdparsvd", "blocksgd", "densesgd", "als",
+                                "ialspp", "alsdense", "ccd", "ccd++",
+                                "ccdpp", "ccd++freqadap")
+# othersrc model variants, and their spellings, not yet in the port
+_OTHERSRC = ("tmf_bias", "increment", "mf_freq", "mffreq", "mf_headwt", "mfwt",
+             "dropoutmf", "dropoutmf_prob", "dropoutmf_ordered",
+             "dropoutmf_onlyordered", "mf_loc", "mfloc")
+
+
+def _auto_method(algo: str, data, params: Params) -> str:
+    """The JAX package's single-device solver choice (``_auto_method`` of
+    matfac_tpu/train/loop.py; the reference makes the user pick): plain MF
+    -> 'als'; bias models, per-side gated and adaptive-dropout models ->
+    'sgd'; the long-tail models -> 'densesgd' when the padded dense grid
+    fits 6e9 bytes (1 byte a slot where the ratings stage as int8 codes,
+    else 3), else 'sgd' for TMF+Dropout's sampled ranks, else 'blocksgd'
+    when the one-hot stream fits 8e9 bytes, else 'sgd'."""
+    if algo == "mf":
+        return "als"
+    if algo in ("mf_bias", "tmf_bias", "mf_loc", "mf_freq", "dropoutmf",
+                "dropoutmf_prob", "dropoutmf_ordered",
+                "dropoutmf_onlyordered"):
+        return "sgd"
+    nu_pad = -(-data.n_users // 2560) * 2560
+    ni_pad = -(-data.n_items // 128) * 128
+    bytes_per_slot = 3
+    if algo != "ifwmf":
+        v = data.train_mat.values
+        if len(v) > 2_000_000:
+            # a subsample decides the routing estimate only: the solver
+            # proves the codes on the filtered data and densesgd falls back
+            # on its budget error
+            v = v[:: len(v) // 2_000_000]
+        if rating_code_scale(v) is not None:
+            bytes_per_slot = 1
+    if nu_pad * ni_pad * bytes_per_slot <= 6e9:
+        return "densesgd"
+    if algo == "tmfdropout":
+        return "sgd"
+    if 7 * 4 * 1.5 * max(data.train_mat.nnz, 1) < 8e9:
+        return "blocksgd"
+    return "sgd"
+
+
+def _freq_reg_scale(freq: np.ndarray, invalid: np.ndarray,
+                    exponent: float) -> np.ndarray:
+    """(freq / mean valid freq) ** exponent: the sgd engine's
+    frequency-scaled regularization multiplier (othersrc
+    modelMFWtReg.cpp:96, with the marginal normalized so that the exponent
+    does not move the overall regularization)."""
+    f = np.asarray(freq, np.float64)
+    valid = ~invalid[: len(f)]
+    mean = max(float(f[valid].mean()) if valid.any() else 1.0, 1e-12)
+    return np.maximum(f / mean, 1e-12) ** exponent
+
+
 def train_model(data, params: Params, algo: str = "mf",
                 mf_method: str = "sgd", log_fn=print,
                 init_state_override: Optional[MFState] = None,
                 prefix: Optional[str] = None, mesh=None,
                 resume: bool = False, device="cuda"):
-    """Build model + solver and train; the JAX package's front door for
-    the slices ported so far: ``algo`` "mf", "ifwmf" or "tmf" with
-    ``mf_method="blocksgd"`` (the one-hot cell engine, diag schedule),
-    "mf" or "ifwmf" with ``mf_method="densesgd"`` (the row-dense engine,
-    IFWMF's popularity weights as float W tiles, falling back to blocksgd
-    when its tiles miss the budget), and ``algo="bpr"`` (the
-    pairwise stream or posneg engine with model selection on val HR@10,
-    or NDCG for hog / posneg). Everything else raises NotImplementedError
-    naming its ROADMAP item; so does the default ``mf_method="sgd"``
-    (JAX's default, the scatter engine: ROADMAP queue 1, item 9), so the
-    JAX-style call ``train_model(data, params)`` never trains another
-    engine. Returns (report, model, evaluator or scorer,
-    (invalid_users, invalid_items))."""
+    """Build model and solver from the reference's names and train; the
+    JAX package's front door for the slices ported so far.
+
+    algo: "mf", "mf_bias", "ifwmf", "tmf", "tmfdropout" (main.cpp --algo)
+    or "bpr" (the pairwise stream or posneg engine, model selection on val
+    HR@10, or NDCG for hog / posneg). mf_method: "sgd" and its spellings
+    "sgdpar", "sgdu", "hogsgd" (the scatter engine, JAX's default),
+    "blocksgd" (the one-hot cell engine, diag schedule), "densesgd" (the
+    row-dense stripe engine, falling back to sgd for sampled ranks and to
+    blocksgd otherwise when its tiles miss the budget), or "auto" (JAX's
+    ``_auto_method``). What is not ported raises NotImplementedError
+    naming its ROADMAP item; what JAX refuses raises JAX's ValueError.
+    Returns (report, model, evaluator or scorer, (invalid_users,
+    invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is ROADMAP queue 1, item 13")
-    if a in ("bprpoissondropout", "bpr_poisson", "tmfdropout"):
+    if a in ("bprpoissondropout", "bpr_poisson"):
         raise NotImplementedError(
-            f"algo={algo!r}: the Poisson-sampled TMF models are ROADMAP "
-            "queue 1, item 7")
+            f"algo={algo!r}: the BPR x TMF+Poisson hybrid is ROADMAP queue "
+            "1, item 11")
+    if a in _OTHERSRC:
+        raise NotImplementedError(
+            f"algo={algo!r}: the othersrc model variants are ROADMAP queue "
+            "1, item 14")
     inval_u, inval_i = ufreq.invalid_users_items(
         data.train_mat, data.n_users, data.n_items)
     if a == "bpr":
@@ -388,48 +454,64 @@ def train_model(data, params: Params, algo: str = "mf",
             log_fn("mf_method=auto resolved to 'train' (BPR stream)")
         return _train_ranking(data, params, m, log_fn, init_state_override,
                               inval_u, inval_i, prefix, resume, device)
-    if a == "mf_bias":
-        raise NotImplementedError(
-            "algo='mf_bias': bias models train through scatter SGD, "
-            "ROADMAP queue 1, item 9")
-    if a not in ("mf", "ifwmf", "tmf"):
-        raise NotImplementedError(
-            f"algo={algo!r}: the othersrc model variants are ROADMAP "
-            "queue 1, item 14")
+    models = {"mf": ModelMF, "mf_bias": ModelMFBias, "ifwmf": ModelInvPopMF,
+              "tmf": ModelDropoutSigmoid, "tmfdropout": ModelPoissonDropout}
+    if a not in models:
+        raise ValueError(f"unknown algo {algo!r}")
     user_freq, item_freq = ufreq.row_col_freq(data.train_mat)
     # zero-pad: entities seen only in test / val have zero train frequency
     user_freq = _pad_rows(user_freq, data.n_users)
     item_freq = _pad_rows(item_freq, data.n_items)
-    if a == "ifwmf":
-        model = ModelInvPopMF(params, data.n_users, data.n_items,
-                              user_freq=user_freq, item_freq=item_freq,
-                              invalid_users=inval_u, invalid_items=inval_i)
-    elif a == "tmf":
-        model = ModelDropoutSigmoid(params, data.n_users, data.n_items,
-                                    user_freq=user_freq, item_freq=item_freq)
+    cls = models[a]
+    if cls is ModelInvPopMF:
+        model = cls(params, data.n_users, data.n_items, user_freq=user_freq,
+                    item_freq=item_freq, invalid_users=inval_u,
+                    invalid_items=inval_i)
+    elif cls in (ModelDropoutSigmoid, ModelPoissonDropout):
+        model = cls(params, data.n_users, data.n_items, user_freq=user_freq,
+                    item_freq=item_freq)
     else:
-        model = ModelMF(params, data.n_users, data.n_items)
+        model = cls(params, data.n_users, data.n_items)
     if m == "auto":
-        raise NotImplementedError(
-            "mf_method='auto' resolves to ALS for plain MF (ROADMAP queue 1, "
-            "item 10) and to densesgd for IFWMF / TMF by the dense grid's "
-            "budget; TMF's Mu / Mi mask instantiation of the stripe kernel "
-            "is item 7 — pass mf_method='blocksgd' or 'densesgd'")
-    if m not in ("densesgd", "blocksgd"):
-        raise NotImplementedError(
-            f"mf_method={mf_method!r}: only 'densesgd' and 'blocksgd' are "
-            "ported (sgd is ROADMAP queue 1, item 9; ALS item 10; CCD/CCD++ "
-            "item 12)")
-    if m == "densesgd" and a == "tmf":
-        raise NotImplementedError(
-            "algo='tmf' on densesgd needs the stripe kernel's Mu / Mi rank "
-            "mask instantiation, ROADMAP queue 1, item 7 — pass "
-            "mf_method='blocksgd'")
-    if params.reg_exponent:
+        m = _auto_method(a, data, params)
+        log_fn(f"mf_method=auto resolved to '{m}' (the JAX package's "
+               "measured guidance)")
+        if m == "densesgd":
+            log_fn("note: densesgd trains at batch = user stripe; at a "
+                   "fixed learn_rate this differs from the blocksgd "
+                   "default's ~1-8k minibatches (pass mf_method="
+                   "'blocksgd' to keep the previous default)")
+    # the single-device guards of the JAX front door
+    if type(model).update_side_masks is not ModelMF.update_side_masks \
+            and m not in _SGD:
+        raise ValueError(
+            f"{model.name} carries per-side update gates that '{m}' does "
+            "not honor — use mf_method=sgd on a single device")
+    if m in ("als", "ialspp", "alsdense", "ccd", "ccd++", "ccdpp",
+             "ccd++freqadap"):
+        weighted = (type(model).example_weight
+                    is not ModelMF.example_weight)
+        masked = (hasattr(model, "pair_rank")
+                  or hasattr(model, "pair_lambda"))
+        if weighted or masked:
+            raise ValueError(
+                f"{model.name} carries per-example weights/rank masks "
+                f"that '{m}' (coordinate family) does not honor — use "
+                "an SGD-family method (sgd/blocksgd/sgdpar/auto)")
+    if params.reg_exponent and m not in ("als",) + _SGD:
         raise ValueError(
             f"reg_exponent is implemented for 'als' and the sgd engine, "
             f"not '{m}' — drop the exponent or switch method")
 
+    rs_u = rs_i = None
+    if params.reg_exponent:   # past the guard: the sgd engine (or ALS)
+        # per-occurrence multiplier normalized by the mean valid frequency,
+        # so the magnitude stays comparable at exponent 0
+        rs_u = _freq_reg_scale(user_freq, inval_u, params.reg_exponent)
+        rs_i = _freq_reg_scale(item_freq, inval_i, params.reg_exponent)
+    sgd = lambda: SGDSolver(model, params, data.train_mat, inval_u, inval_i,
+                            reg_scale_u=rs_u, reg_scale_i=rs_i,
+                            device=device)
     # the one-hot cell engine as the JAX front door builds it: the DSGD
     # diag schedule, 384-blocks, at most 1024 ratings per lane and step
     # (JAX's pad_k=128 fills the TPU's matrix lanes; the port drops it)
@@ -437,20 +519,40 @@ def train_model(data, params: Params, algo: str = "mf",
         model, params, data.train_mat, inval_u, inval_i,
         batch_size=min(params.batch_size, 1024), bu=384, bi=384,
         schedule="diag", device=device)
-    if m == "blocksgd":
+    if m in _SGD:
+        solver = sgd()
+    elif m == "blocksgd":
         solver = blocksgd()
-    else:
+    elif m == "densesgd":
         try:
             solver = BlockSGDSolver(model, params, data.train_mat, inval_u,
                                     inval_i, engine="dense", bu=None,
                                     bi=None, device=device)
         except ValueError as e:
-            # over-budget grids fall back rather than crash
-            log_fn(f"densesgd unavailable ({e}); falling back to blocksgd")
-            solver = blocksgd()
+            # over-budget grids fall back rather than crash; sampled ranks
+            # need the scatter engine's per-update masks
+            fb = ("sgd" if getattr(model, "stochastic_rank", False)
+                  else "blocksgd")
+            log_fn(f"densesgd unavailable ({e}); falling back to {fb}")
+            solver = sgd() if fb == "sgd" else blocksgd()
+    elif m == "sgdparsvd":
+        raise NotImplementedError(
+            "mf_method='sgdparsvd' (SVD init, singular-value-weighted "
+            "regularization, objective_sing) is ROADMAP queue 1, item 4")
+    elif m in ("als", "ialspp", "alsdense"):
+        raise NotImplementedError(
+            f"mf_method={mf_method!r}: ALS is ROADMAP queue 1, item 10")
+    elif m in ("ccd", "ccd++", "ccdpp", "ccd++freqadap"):
+        raise NotImplementedError(
+            f"mf_method={mf_method!r}: CCD / CCD++ are ROADMAP queue 1, "
+            "item 12")
+    else:
+        raise ValueError(f"unknown mf_method {mf_method!r}; one of "
+                         f"{_SOLVERS}")
     ev = Evaluator(data, inval_u, inval_i, params, device)
     state = init_state_override or init_state(
         params, data.n_users, data.n_items, device=device)
+    state = model.transform_init_state(state)
     loop = TrainLoop(model, solver, ev, params, prefix=prefix,
                      invalid_users=inval_u, invalid_items=inval_i,
                      log_fn=log_fn)

@@ -26,10 +26,11 @@ chip_smoke.py's (i): 53 item blocks at 20,000 items); 1024-blocks at k 64
 in one lane (the row schedule of (k)).
 
 It prints the card's name and power limit, then per shape the kernel's
-launch plan (route, cluster size C, clusters) and a table of us per step
-by stage and what each stage added, then the full step at other cluster
-sizes. ``slices`` is the step's chain floor: what a step costs before it
-gathers a row (its stream loads and its two cluster barriers).
+launch plan (route, cluster size C, clusters), the least time the card
+could take for one step (``step_bound``), a table of us per step by stage
+and what each stage added, then the full step at other cluster sizes.
+``slices`` is the step's chain floor: what a step costs before it gathers
+a row (its stream loads and its two cluster barriers).
 """
 
 from __future__ import annotations
@@ -52,6 +53,37 @@ SHAPES = (("(i) 384-blocks, k=64, 53 lanes", 1024, 384, 64, 53, (1, 4)),
           ("(k) 1024-blocks, k=64, 1 lane", 1024, 1024, 64, 1, (4, 8)))
 LO, HI = 32, 160
 LR, REG = 0.005, 0.01
+# H100 SXM peaks (NVIDIA's data sheet), as chip_smoke.py
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def _streams(shape, seed: int):
+    """The probe's cell streams for one run: uniform row ids in each
+    block, ratings around 3, every slot valid."""
+    _, bs, b, k, lanes, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u_loc = torch.randint(0, b, (lanes, bs), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    i_loc = torch.randint(0, b, (lanes, bs), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    vals = 3.0 + torch.randn((lanes, bs), generator=gen, device="cuda")
+    return gen, u_loc, i_loc, vals
+
+
+def step_bound(shape) -> tuple:
+    """(least us one step of every lane could take, "bytes" or
+    "operations") on the full stage's streams: each slot's u, i, r, w
+    (16 B) read once; each row a step touches, k f32, read once and
+    written once on each side; 8k FLOP a slot (the prediction's and the
+    two gradients' multiply-adds) at the f32 peak."""
+    _, bs, b, k, lanes, _ = shape
+    _, u_loc, i_loc, _ = _streams(shape, STAGES.index("full"))
+    rows = sum(int(torch.unique(x[lane]).numel()) for x in (u_loc, i_loc)
+               for lane in range(lanes))
+    t_bytes = (16 * bs * lanes + 2 * 4 * k * rows) / HBM_BYTES_PER_S * 1e6
+    t_ops = 8.0 * k * bs * lanes / PEAK_F32_FLOPS * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def run_ms(lib, stage: int, shape, rounds: int, cluster: int = 0,
@@ -59,14 +91,8 @@ def run_ms(lib, stage: int, shape, rounds: int, cluster: int = 0,
     """Min over ``reps`` of one launch's CUDA-event ms after a warm-up, at
     cluster size ``cluster`` (0: the plan's)."""
     _, bs, b, k, lanes, _ = shape
-    gen = torch.Generator(device="cuda").manual_seed(stage)
-    S = bs
-    u_loc = torch.randint(0, b, (lanes, S), generator=gen, device="cuda",
-                          dtype=torch.int32)
-    i_loc = torch.randint(0, b, (lanes, S), generator=gen, device="cuda",
-                          dtype=torch.int32)
-    vals = 3.0 + torch.randn((lanes, S), generator=gen, device="cuda")
-    wts = torch.ones((lanes, S), device="cuda")
+    gen, u_loc, i_loc, vals = _streams(shape, stage)
+    wts = torch.ones((lanes, bs), device="cuda")
     pl = bsk.plan_at(lib, lanes, bs, b, b, k, cluster)
     tables = bsk.slice_tables((u_loc, i_loc, vals, wts, None, None, None),
                               bs, b, b, False, False, pl["range"])
@@ -127,6 +153,8 @@ def main() -> int:
               f"clusters "
               f"({pl['resident']} co-resident), {pl['smem']} B shared "
               "memory per CTA", flush=True)
+        bound = step_bound(shape)
+        print(f"bound: {bound[0]:.4f} us per step ({bound[1]})", flush=True)
         print("| stage | us per step | added |")
         print("|---|---|---|")
         prev = 0.0

@@ -250,7 +250,7 @@ def test_bpr_training_lifts_hr(lo_data):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="bpr_poisson"), "item 7"),
+    (dict(algo="bpr_poisson"), "item 11"),
     (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11")])
 def test_unported_bpr_variants_raise_naming_their_roadmap_item(
         lo_data, kw, item):

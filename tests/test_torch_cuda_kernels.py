@@ -274,6 +274,242 @@ def test_stripe_range_guard_goes_non_finite(mm_bf16):
     assert not bool(torch.isfinite(k_state[1]).all())
 
 
+# the tile kinds the rank masks are instantiated for (0/1 weights)
+MASK_MODES = ["codes", "f32+W", "bf16+W"]
+
+
+def _ranks(rng, NU, bu, ni, k, kind, dev, full=False):
+    """(Lu [NU, bu], Li [ni], Q [NU, k]) int32 on the card: random lambdas
+    in [1, k] (all k when ``full``), with the identity rank rows (TMF's
+    static ranks) or one Poisson CRN quantile row per visit."""
+    lo = k if full else 1
+    Lu = torch.from_numpy(rng.integers(lo, k + 1, (NU, bu)).astype(np.int32))
+    Li = torch.from_numpy(rng.integers(lo, k + 1, ni).astype(np.int32))
+    if kind == "static":
+        Q = tdbk.identity_quantiles(NU, k)
+    else:
+        from matfac_tpu_torch.models.longtail import poisson_cdf_table
+        Q = tdbk.visit_quantiles(torch.from_numpy(poisson_cdf_table(k)),
+                                 torch.from_numpy(rng.random(NU)
+                                                  .astype(np.float32)))
+    return Lu.to(dev), Li.to(dev), Q.to(dev)
+
+
+def _masked_pair(args, ranks, mm_bf16, lr=LR, collision_norm=True):
+    """(kernel, plain) epochs of the same masked inputs."""
+    u3, i_tab, order, R, W, r_scale = args
+    got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
+                                r_scale, U_REG, I_REG, collision_norm,
+                                mm_bf16, ranks=ranks)
+    Lu, Li, Q = ranks
+    want = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R, W,
+                                 U_REG, I_REG, collision_norm, mm_bf16,
+                                 r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["static", "poisson"])
+@pytest.mark.parametrize("collision_norm", [True, False])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MASK_MODES)
+def test_masked_kernel_matches_plain(mode, mm_bf16, collision_norm, kind):
+    """Rank masks (TMF's static ranks, TMF+Dropout's quantile rows per
+    visit) through the kernel and the plain version: one epoch at the
+    ragged shape of test_kernel_matches_plain, rtol 1e-3 / atol 1e-5."""
+    dev = _cuda()
+    rng = np.random.default_rng(41)
+    NU, bu, ni, k = 4, 100, 200, 64
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
+    scale = 0.03 if mm_bf16 else 0.3
+    u3 = torch.from_numpy(scale * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(scale * rng.normal(size=(ni, k))).float()
+    args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
+            R, W, r_scale)
+    ranks = _ranks(rng, NU, bu, ni, k, kind, dev)
+    before = tdrk.dense_rows_epoch.launches
+    got, want = _masked_pair(args, ranks, mm_bf16,
+                             LR if collision_norm else LR / 20,
+                             collision_norm)
+    assert tdrk.dense_rows_epoch.launches - before == \
+        tdrk.epoch_launches(NU, k, mm_bf16)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+    # the masks bite: dims at or past an item's rank keep their values
+    assert not torch.equal(want[1], tdbk.dense_sweep_rows(
+        *(a.clone() for a in args[:2]), args[2], LR, R, W, U_REG, I_REG,
+        collision_norm, mm_bf16, r_scale=r_scale)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 160])
+@pytest.mark.parametrize("mode", ["codes", "bf16+W"])
+def test_masked_kernel_padding_and_edges(mode, k):
+    """k = 10 (padded to 16 on the tensor cores) and 160 (the CUDA-core
+    kernel), stripes of 130 users, a ragged 200-item catalog; Poisson rank
+    rows, rtol 1e-3 / atol 1e-5."""
+    dev = _cuda()
+    rng = np.random.default_rng(43)
+    NU, bu, ni = 3, 130, 200
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
+    u3 = torch.from_numpy(0.03 * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(0.03 * rng.normal(size=(ni, k))).float()
+    args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
+            R, W, r_scale)
+    got, want = _masked_pair(args, _ranks(rng, NU, bu, ni, k, "poisson", dev),
+                             True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collision_norm", [True, False])
+@pytest.mark.parametrize("mode", MASK_MODES)
+def test_masked_kernel_bf16_rounding_exact(mode, collision_norm):
+    """One masked stripe whose bf16 rounding is exact: the kernel matches
+    the plain version in its own matmul precision at rtol 1e-5 / atol 1e-6
+    and misses the other precision (the control)."""
+    dev = _cuda()
+    rng = np.random.default_rng(44)
+    bu, ni, k = 100, 200, 64
+    R, W, r_scale = _tiles(mode, rng, (1, bu, ni), dev)
+    args = (_dyadic(rng, (1, bu, k)).to(dev), _dyadic(rng, (ni, k)).to(dev),
+            torch.zeros(1, dtype=torch.int64), R, W, r_scale)
+    ranks = _ranks(rng, 1, bu, ni, k, "static", dev)
+    lr = LR if collision_norm else LR / 10
+    pairs = {mm: _masked_pair(args, ranks, mm, lr, collision_norm)
+             for mm in (True, False)}
+    for mm in (True, False):
+        for got, want, ctl in zip(pairs[mm][0], pairs[mm][1],
+                                  pairs[not mm][1]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            assert not torch.allclose(got, ctl, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 160])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MASK_MODES)
+def test_full_rank_masks_equal_the_unmasked_kernel(mode, mm_bf16, k):
+    """Every rank at k: the masked instantiation gives the unmasked
+    kernel's factors bit for bit, on both routes; with every lambda at k
+    and identity rank rows, and with random lambdas and rows of k."""
+    dev = _cuda()
+    rng = np.random.default_rng(45)
+    args = _stripe_args(mode, rng, dev, k=k)
+    NU, bu, k = args[0].shape
+    for full in (True, False):
+        ranks = _ranks(rng, NU, bu, args[1].shape[0], k, "static", dev,
+                       full=full)
+        if not full:
+            ranks = (*ranks[:2], torch.full_like(ranks[2], k))
+        u3, i_tab, order, R, W, r_scale = args
+        got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, LR, R,
+                                    W, r_scale, U_REG, I_REG, True, mm_bf16,
+                                    ranks=ranks)
+        want = _stripe_epoch(args, mm_bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("rtype", [torch.float32, torch.bfloat16])
+def test_masked_codes_equal_float_tiles_bitwise(rtype, mm_bf16):
+    """Masked half-star codes and masked float tiles of code * 0.5 with
+    int8 validity give bit-identical factors; the masked epoch run twice
+    is bit-identical too."""
+    dev = _cuda()
+    rng = np.random.default_rng(46)
+    NU, bu, ni, k = 3, 260, 1200, 64
+    codes, _, _ = _tiles("codes", rng, (NU, bu, ni), dev)
+    u3 = torch.from_numpy(0.1 * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(0.1 * rng.normal(size=(ni, k))).float()
+    base = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)))
+    ranks = _ranks(rng, NU, bu, ni, k, "poisson", dev)
+    run = lambda R, W, r_scale: tdrk.dense_rows_epoch(
+        base[0].clone(), base[1].clone(), base[2], LR, R, W, r_scale, U_REG,
+        I_REG, True, mm_bf16, ranks=ranks)
+    got = run(codes, None, 0.5)
+    again = run(codes, None, 0.5)
+    want = run((codes.float() * 0.5).to(rtype), (codes != 0).to(torch.int8),
+               None)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32+fW", "bf16+bfW"])
+def test_masked_kernel_refuses_float_weights(mode):
+    """Rank masks are instantiated for 0/1-weight tiles only: float W
+    raises, and nothing falls back to the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(47)
+    args = _stripe_args(mode, rng, dev, NU=2, bu=64, ni=256, k=16)
+    u3, i_tab, order, R, W, r_scale = args
+    ranks = _ranks(rng, 2, 64, 256, 16, "static", dev)
+    before = tdrk.dense_rows_epoch.launches
+    with pytest.raises(ValueError, match="rank masks are instantiated"):
+        tdrk.dense_rows_epoch(u3, i_tab, order, LR, R, W, r_scale, U_REG,
+                              I_REG, True, True, ranks=ranks)
+    assert tdrk.dense_rows_epoch.launches == before
+
+
+def _longtail_data():
+    from matfac_tpu_torch import (Data, low_rank_ratings,
+                                  split_train_test_val)
+    mat, _, _ = low_rank_ratings(600, 500, k=4, density=0.1, seed=2,
+                                 noise=0.1, nonneg=True, power_law=0.8)
+    tr, te, va = split_train_test_val(mat, 0.1, 0.1, seed=1)
+    return Data(train_mat=tr, test_mat=te, val_mat=va)
+
+
+@pytest.mark.cuda
+def test_tmfdropout_densesgd_resume_is_bit_exact_on_the_card(tmp_path):
+    """TMF+Dropout on densesgd (the masked kernel, quantile rows drawn by
+    the solver's generator) stopped after 3 epochs and resumed to 5 equals
+    the uninterrupted run, bit for bit; its ranks are not all k."""
+    from matfac_tpu_torch import Params
+    from matfac_tpu_torch.train.loop import train_model
+    _cuda()
+    data = _longtail_data()
+    p = Params(fac_dim=16, u_reg=0.01, i_reg=0.01, learn_rate=0.05,
+               max_iter=5, seed=1, disp_iter=1000, save_iter=1)
+    run = lambda prefix, params, resume: train_model(
+        data, params, algo="tmfdropout", mf_method="densesgd", device="cuda",
+        prefix=str(tmp_path / prefix), resume=resume,
+        log_fn=lambda s: None)[0]
+    full = run("full", p, False)
+    Lu, Li = full.solver.rank_tabs
+    assert int(Lu.min()) < 16 and full.solver.pois_cdf is not None
+    run("part", p.replace(max_iter=3), False)
+    res = run("part", p, True)
+    assert torch.equal(full.state.u_fac, res.state.u_fac)
+    assert torch.equal(full.state.i_fac, res.state.i_fac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["mf", "tmfdropout", "mf_bias"])
+def test_scatter_engine_trains_on_the_card(algo):
+    """train_model's default method (the scatter engine) on the card: val
+    RMSE finite and below the initial state's, state on the card."""
+    from matfac_tpu_torch import Params
+    from matfac_tpu_torch.models.base import init_state
+    from matfac_tpu_torch.train.loop import train_model
+    _cuda()
+    data = _longtail_data()
+    p = Params(fac_dim=16, u_reg=0.01, i_reg=0.01, learn_rate=0.01,
+               max_iter=5, seed=1, disp_iter=1000, batch_size=1024)
+    rep, model, ev, _ = train_model(data, p, algo=algo, device="cuda",
+                                    log_fn=lambda s: None)
+    assert rep.state.u_fac.device.type == "cuda"
+    val0 = ev.rmse(model.eval_view(init_state(p, data.n_users, data.n_items,
+                                              device="cuda")), "val")
+    assert np.isfinite(rep.best_metric) and rep.best_metric < val0
+
+
 def _topk_inputs(rng, n_users, n_items, k, exact, dev):
     """topk_catalog's inputs: ~10% invalid items, ~5% rated, user 0 rates
     all but 5 items, user 1 every item; exact=True: scores exact in f32

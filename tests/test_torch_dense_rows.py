@@ -238,3 +238,176 @@ def test_stripe_counts_are_the_validity_counts(mode):
     np.testing.assert_array_equal(cnt_u.numpy(), valid.sum(2))
     np.testing.assert_array_equal(cnt_i.numpy(), valid.sum(1))
     assert cnt_u.dtype == cnt_i.dtype == torch.float32
+
+
+# ----------------------------------------------------------------------
+# rank masks (TMF's static ranks, TMF+Dropout's per-visit Poisson ranks)
+# ----------------------------------------------------------------------
+
+def _lambdas(rng, NU, bu, ni, k):
+    return (rng.integers(1, k + 1, (NU, bu)).astype(np.int32),
+            rng.integers(1, k + 1, ni).astype(np.int32))
+
+
+def _masks(L, k):
+    return (np.arange(k) < L[..., None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("collision_norm", [False, True])
+@pytest.mark.parametrize("mode", ["float_w_int8", "float_w_f32", "codes"])
+def test_masked_cell_dense_update_matches_jax(mode, collision_norm, mm_bf16):
+    """cell_dense_update with 0/1 rank masks Mu / Mi: the masked products,
+    the masked counts (vm @ Mi) o Mu, the unmasked normalization; f32 and
+    bf16 operands at the classes of the unmasked test."""
+    rng = np.random.default_rng(20)
+    U, I = _factors(rng, 24, 8), _factors(rng, 40, 8)
+    R, W, r_scale = _tiles(mode, rng, (24, 40))
+    Lu, Li = _lambdas(rng, 1, 24, 40, 8)
+    Mu, Mi = _masks(Lu[0], 8), _masks(Li, 8)
+    mm_dtype = jnp.bfloat16 if mm_bf16 else jnp.float32
+    uj, ij = jdbk.cell_dense_update(
+        _j(U), _j(I), _j(R), _j(W), jnp.float32(LR), U_REG, I_REG,
+        collision_norm, mm_dtype, Mu=_j(Mu), Mi=_j(Mi), r_scale=r_scale)
+    ut, it = tdbk.cell_dense_update(
+        _t(U), _t(I), _t(R), _t(W), LR, U_REG, I_REG, collision_norm,
+        mm_bf16, Mu=_t(Mu), Mi=_t(Mi), r_scale=r_scale)
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), **TOL[mm_bf16])
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), **TOL[mm_bf16])
+    # masked dims of entities that rate nothing there keep their values
+    assert np.array_equal(ut.numpy()[Mu == 0], U[Mu == 0])
+
+
+def _poisson(k, NU, seed):
+    from matfac_tpu_torch.models.longtail import poisson_cdf_table
+    rng = np.random.default_rng(seed)
+    return poisson_cdf_table(k), rng.random(NU).astype(np.float32)
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("collision_norm", [False, True])
+@pytest.mark.parametrize("ranks", ["static", "poisson"])
+@pytest.mark.parametrize("mode", ["float_w_int8", "codes"])
+def test_masked_dense_sweep_rows_matches_jax(mode, ranks, collision_norm,
+                                             mm_bf16):
+    """Two epochs of dense_sweep_rows with the same stripe orders: static
+    masks Mu3 / Mi (TMF), or lambda tables with the Poisson CDF table and
+    the same round uniforms (TMF+Dropout); and the port's per-visit rank
+    table Q form (``visit_quantiles`` / ``identity_quantiles``, what the
+    stripe kernel reads) gives the port's mask form bit for bit."""
+    u3, i_tab, R, W, r_scale, orders = _stripes(mode, seed=21)
+    NU, bu, k = u3.shape
+    ni = i_tab.shape[0]
+    Lu, Li = _lambdas(np.random.default_rng(22), NU, bu, ni, k)
+    if ranks == "static":
+        kw_j = dict(Mu3=_j(_masks(Lu, k)), Mi=_j(_masks(Li, k)))
+        kw_t = dict(Mu3=_t(_masks(Lu, k)), Mi=_t(_masks(Li, k)))
+        q_of = lambda epoch: tdbk.identity_quantiles(NU, k)
+    else:
+        cdf, _ = _poisson(k, NU, 0)
+        us = [_poisson(k, NU, 1 + e)[1] for e in range(2)]
+        kw_j = [dict(Lu3=_j(Lu), Li=_j(Li), pois_cdf=_j(cdf),
+                     round_u=_j(u)) for u in us]
+        kw_t = [dict(Lu3=_t(Lu), Li=_t(Li), pois_cdf=_t(cdf),
+                     round_u=_t(u)) for u in us]
+        q_of = lambda epoch: tdbk.visit_quantiles(_t(cdf), _t(us[epoch]))
+    uj, ij = _j(u3), _j(i_tab)
+    ut, it = _t(u3), _t(i_tab)
+    uq, iq = _t(u3), _t(i_tab)
+    for e, order in enumerate(orders):
+        kj = kw_j if ranks == "static" else kw_j[e]
+        kt = kw_t if ranks == "static" else kw_t[e]
+        uj, ij = jdbk.dense_sweep_rows(
+            uj, ij, _j(order), jnp.float32(LR), _j(R), _j(W), U_REG, I_REG,
+            collision_norm, mm_bf16=mm_bf16, r_scale=r_scale, **kj)
+        ut, it = tdbk.dense_sweep_rows(
+            ut, it, _t(order), LR, _t(R), _t(W), U_REG, I_REG,
+            collision_norm, mm_bf16=mm_bf16, r_scale=r_scale, **kt)
+        uq, iq = tdbk.dense_sweep_rows(
+            uq, iq, _t(order), LR, _t(R), _t(W), U_REG, I_REG,
+            collision_norm, mm_bf16=mm_bf16, r_scale=r_scale, Lu3=_t(Lu),
+            Li=_t(Li), Q=q_of(e))
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), **TOL[mm_bf16])
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), **TOL[mm_bf16])
+    assert torch.equal(ut, uq) and torch.equal(it, iq)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_visit_quantiles_match_jax_and_are_monotone(k):
+    """Q[t, lam - 1] = clip(#{m : C[lam - 1, m] < U_t}, 1, k), the rank
+    row JAX's dense_sweep_rows derives per visit, exactly; nondecreasing
+    in lambda at every uniform (what the kernel's masked counts need)."""
+    cdf, _ = _poisson(k, 1, 0)
+    us = np.linspace(1e-6, 1 - 1e-6, 2001).astype(np.float32)
+    Q = tdbk.visit_quantiles(_t(cdf), _t(us)).numpy()
+    want = np.clip((cdf[None] < us[:, None, None]).sum(-1), 1, k)
+    assert Q.dtype == np.int32 and np.array_equal(Q, want)
+    assert np.all(np.diff(Q, axis=1) >= 0)
+    assert np.array_equal(tdbk.identity_quantiles(3, k).numpy(),
+                          np.tile(np.arange(1, k + 1, dtype=np.int32), (3, 1)))
+
+
+@pytest.mark.parametrize("ranks", ["static", "poisson"])
+@pytest.mark.parametrize("mode", ["float_w_int8", "codes"])
+def test_rank_hists_give_the_masked_counts(mode, ranks):
+    """The suffix histograms the kernel gathers its masked regularization
+    counts from: for every visit row q and dim d, hist[.., j] with j the
+    first index of q above d equals (vm @ Mi)[.., d] where the entity's
+    own mask is live (exact integers), for users and items."""
+    _, _, R, W, _, _ = _stripes(mode, seed=23)
+    NU, bu, ni = R.shape
+    k = 6
+    Lu, Li = _lambdas(np.random.default_rng(24), NU, bu, ni, k)
+    hist_u, hist_i = tdrk.rank_hists(_t(R), _t(W), _t(Lu), _t(Li), k)
+    assert (hist_u.dtype, hist_i.dtype) == (torch.int32, torch.int16)
+    if ranks == "static":
+        Q = tdbk.identity_quantiles(NU, k)
+    else:
+        cdf, u = _poisson(k, NU, 25)
+        Q = tdbk.visit_quantiles(_t(cdf), _t(u))
+    vm = torch.from_numpy(((W > 0) if W is not None else (R != 0))
+                          .astype(np.float32))
+    for s in range(NU):
+        q = Q[s]
+        Mu = tdbk.rank_masks(_t(Lu[s]), q)
+        Mi = tdbk.rank_masks(_t(Li), q)
+        cnt_u, cnt_i = (vm[s] @ Mi) * Mu, (vm[s].T @ Mu) * Mi
+        for d in range(k):
+            above = torch.nonzero(q > d)
+            if not len(above):
+                assert float(cnt_u[:, d].abs().sum()) == 0.0
+                continue
+            j = int(above[0])
+            assert torch.equal(cnt_u[:, d], hist_u[s, :, j].float()
+                               * Mu[:, d])
+            assert torch.equal(cnt_i[:, d], hist_i[s, :, j].float()
+                               * Mi[:, d])
+
+
+def test_masked_cpu_route_is_the_plain_version_and_checks_ranks():
+    """dense_rows_epoch with ranks on CPU tensors runs dense_sweep_rows
+    with the same Q (no launch); ranks out of [1, k] or a Q row that is not
+    nondecreasing are refused."""
+    u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=26)
+    NU, bu, k = u3.shape
+    Lu, Li = _lambdas(np.random.default_rng(27), NU, bu, i_tab.shape[0], k)
+    cdf, u = _poisson(k, NU, 28)
+    Q = tdbk.visit_quantiles(_t(cdf), _t(u))
+    ranks = (_t(Lu), _t(Li), Q)
+    before = tdrk.dense_rows_epoch.launches
+    got = tdrk.dense_rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(R),
+                                _t(W), None, U_REG, I_REG, True, True,
+                                ranks=ranks)
+    want = tdbk.dense_sweep_rows(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(R),
+                                 _t(W), U_REG, I_REG, True, True, Lu3=_t(Lu),
+                                 Li=_t(Li), Q=Q)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tdrk.dense_rows_epoch.launches == before
+    bad_q = Q.clone()
+    bad_q[0] = torch.arange(k, 0, -1, dtype=torch.int32)
+    for bad in ((_t(Lu) * 0, _t(Li), Q), (_t(Lu), _t(Li) + k, Q),
+                (_t(Lu), _t(Li), bad_q), (_t(Lu).long(), _t(Li), Q)):
+        with pytest.raises(ValueError, match="ranks"):
+            tdrk.dense_rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR,
+                                  _t(R), _t(W), None, U_REG, I_REG, True,
+                                  True, ranks=bad)

@@ -161,3 +161,91 @@ def test_model_mf_has_the_jax_hooks():
     assert view.u_fac.sum(1).tolist() == [1, 2, 3, 4, 0]
     assert view.i_fac.sum(1).tolist() == [4, 4, 2]
     assert float(view.u_bias.abs().sum() + view.mu.abs()) == 0.0
+
+
+@pytest.mark.parametrize("k", [1, 4, 8, 16])
+def test_poisson_cdf_ranks_and_table_match_jax(k):
+    """poisson_cdf_ranks and the CRN quantile table, exactly."""
+    assert np.array_equal(tlt.poisson_cdf_ranks(k), jlt.poisson_cdf_ranks(k))
+    for cut in (0.5, 0.9):
+        assert np.array_equal(tlt.poisson_cdf_ranks(k, cut),
+                              jlt.poisson_cdf_ranks(k, cut))
+    data, iu, ii, uf, if_ = _data()
+    j = jlt.ModelPoissonDropout(Params(fac_dim=k), data.n_users,
+                                data.n_items, uf, if_)
+    got = tlt.poisson_cdf_table(k)
+    assert got.dtype == np.float32 and np.array_equal(got,
+                                                      j.poisson_cdf_table())
+
+
+@pytest.mark.parametrize("rho,alpha,k", [(1.0, 0.0, 8), (3.0, 0.5, 16)])
+def test_poisson_dropout_tables_match_jax(rho, alpha, k):
+    """TMF+Dropout's lambda tables (TMF's sigmoid ranks), its CDF-truncated
+    inference ranks, pair lambdas and its eval view, exactly."""
+    data, iu, ii, uf, if_ = _data()
+    p = Params(fac_dim=k, rho_rms=rho, alpha=alpha, seed=3)
+    j = jlt.ModelPoissonDropout(p, data.n_users, data.n_items, uf, if_)
+    t = tlt.ModelPoissonDropout(p, data.n_users, data.n_items, uf, if_)
+    assert t.stochastic_rank and t.name == j.name == "tmf_dropout"
+    assert np.array_equal(t.cdf_ranks, j.cdf_ranks)
+    for got, want in zip(t.entity_lambdas() + t.entity_ranks(),
+                         j.entity_lambdas() + j.entity_ranks()):
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(),
+                                                           np.asarray(want))
+    u = np.arange(data.n_users)
+    i = u % data.n_items
+    assert np.array_equal(
+        t.pair_lambda(torch.from_numpy(u), torch.from_numpy(i)).numpy(),
+        np.asarray(j.pair_lambda(jnp.asarray(u), jnp.asarray(i))))
+    sj = j_init_state(p, data.n_users, data.n_items)
+    st = state_from_numpy(*(np.asarray(a) for a in sj), device="cpu")
+    for got, want in zip(t.eval_view(st), j.eval_view(sj)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_poisson_update_masks_are_clipped_poisson_draws():
+    """update_rank_mask draws clip(Poisson(pair lambda), 1, k) per example
+    from the generator it is given: prefix masks, reproducible from the
+    generator's seed, and the clipped-Poisson mean per lambda within 4
+    standard errors (the JAX key draws cannot be reproduced by torch)."""
+    data, iu, ii, uf, if_ = _data()
+    p = Params(fac_dim=8, rho_rms=3.0)
+    t = tlt.ModelPoissonDropout(p, data.n_users, data.n_items, uf, if_)
+    u = torch.arange(data.n_users).repeat(400)
+    i = u % data.n_items
+    draw = lambda: t.update_rank_mask(
+        u, i, generator=torch.Generator().manual_seed(5))
+    m = draw()
+    assert torch.equal(m, draw())
+    r = m.sum(1)
+    assert torch.equal(m, (torch.arange(8) < r[:, None]).float())
+    assert int(r.min()) >= 1 and int(r.max()) <= 8
+    lam = t.pair_lambda(u, i)
+    rng = np.random.default_rng(0)
+    for L in torch.unique(lam).tolist():
+        x = r[lam == L].numpy()
+        ref = np.clip(rng.poisson(L, 200_000), 1, 8)
+        se = ref.std() / np.sqrt(len(x)) + 1e-9
+        assert abs(x.mean() - ref.mean()) < 4 * se + 1e-3, L
+
+
+def test_model_mf_bias_and_the_init_hook_match_jax():
+    """ModelMFBias: bias-only prediction, ModelMF's hooks (no rank mask, no
+    side gates, weight 1), the identity transform_init_state; its eval view
+    equals JAX's."""
+    from matfac_tpu.models.base import ModelMFBias as JModelMFBias
+    from matfac_tpu_torch.models.base import ModelMFBias
+    p = Params(fac_dim=4, seed=2)
+    j, t = JModelMFBias(p, 7, 5), ModelMFBias(p, 7, 5)
+    assert (t.name, t.use_bias, t.use_factors) == (j.name, j.use_bias,
+                                                   j.use_factors)
+    idx = torch.arange(5)
+    assert t.update_rank_mask(idx, idx) is None
+    assert t.update_side_masks(idx, idx) is None
+    assert torch.equal(t.example_weight(idx, idx), torch.ones(5))
+    sj = j_init_state(p, 7, 5)
+    st = state_from_numpy(*(np.asarray(a) for a in sj), device="cpu")
+    assert t.transform_init_state(st) is st
+    assert ModelMF(p, 7, 5).transform_init_state(st) is st
+    for got, want in zip(t.eval_view(st), j.eval_view(sj)):
+        assert np.array_equal(got.numpy(), np.asarray(want))

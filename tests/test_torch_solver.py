@@ -197,9 +197,11 @@ def test_internal_state_round_trips_the_stripe_order():
 
 
 def test_unported_layouts_and_engines_raise():
-    """The one-hot engines are ported (tests/test_torch_block_sgd.py); the
-    dense engine's cell grid and its rank-mask tables are not."""
-    from matfac_tpu_torch.models.longtail import ModelDropoutSigmoid
+    """The one-hot engines are ported (tests/test_torch_block_sgd.py) and
+    the dense engine takes TMF's rank masks; the dense cell grid is not
+    ported, and sampled ranks on the one-hot engine raise JAX's error."""
+    from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
+                                                  ModelPoissonDropout)
     mat, params, iu, ii = _setup()
     model = ModelMF(params, 60, 40)
     with pytest.raises(NotImplementedError, match="item 2"):
@@ -207,6 +209,108 @@ def test_unported_layouts_and_engines_raise():
                            engine="dense", device="cpu")
     uf, if_ = freq.row_col_freq(mat)
     tmf = ModelDropoutSigmoid(params, 60, 40, user_freq=uf, item_freq=if_)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=None,
-                           engine="dense", device="cpu")
+    dense = tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=None,
+                               engine="dense", device="cpu")
+    assert dense.rank_tabs is not None and dense.pois_cdf is None
+    pois = ModelPoissonDropout(params, 60, 40, user_freq=uf, item_freq=if_)
+    with pytest.raises(ValueError, match="static per-pair ranks"):
+        tbs.BlockSGDSolver(pois, params, mat, iu, ii, device="cpu")
+
+
+def _longtail_pair(algo, kind, codes, collision_norm, bu=16):
+    from matfac_tpu.models import longtail as jlt
+    from matfac_tpu_torch.models import longtail as tlt
+    mat, _, iu, ii = _setup(stars=kind == "stars")
+    p = Params(fac_dim=6, u_reg=0.01, i_reg=0.02, learn_rate=0.05, seed=2,
+               rho_rms=3.0)
+    uf, if_ = freq.row_col_freq(mat)
+    uf, if_ = np.resize(uf, 60), np.resize(if_, 40)
+    cls = {"tmf": ("ModelDropoutSigmoid"),
+           "tmfdropout": ("ModelPoissonDropout")}[algo]
+    kw = dict(bu=bu, bi=None, engine="dense", dense_codes=codes,
+              collision_norm=collision_norm, mm_bf16=False)
+    j = jbs.BlockSGDSolver(getattr(jlt, cls)(p, 60, 40, uf, if_), p, mat, iu,
+                           ii, **kw)
+    t = tbs.BlockSGDSolver(getattr(tlt, cls)(p, 60, 40, uf, if_), p, mat, iu,
+                           ii, device="cpu", **kw)
+    return j, t, p
+
+
+@pytest.mark.parametrize("algo", ["tmf", "tmfdropout"])
+def test_rank_tables_match_jax(algo):
+    """The staged rank tables in the relabeled order, pad entities at k:
+    TMF's masks are JAX's Mu3 / Mi, TMF+Dropout's lambda tables and CDF
+    table JAX's, exactly."""
+    j, t, p = _longtail_pair(algo, "float", "off", True)
+    Lu, Li = t.rank_tabs
+    k = p.fac_dim
+    assert (Lu.dtype, Li.dtype) == (torch.int32, torch.int32)
+    if algo == "tmf":
+        mu3, mi = (np.asarray(a) for a in j._mask_tabs)
+        iota = np.arange(k)
+        assert np.array_equal((iota < Lu.numpy()[..., None]), mu3[:j.NU] > 0)
+        assert np.array_equal((iota < Li.numpy()[:, None]), mi > 0)
+        assert t.pois_cdf is None
+    else:
+        lu3, li, cdf = (np.asarray(a) for a in j._pois_tabs)
+        assert np.array_equal(Lu.numpy(), lu3[:j.NU])
+        assert np.array_equal(Li.numpy(), li)
+        assert np.array_equal(t.pois_cdf.numpy(), cdf)
+    assert int(Li.min()) < k and int(Lu.max()) == k
+    assert t.hists is None   # staged for the kernel on a CUDA device only
+
+
+@pytest.mark.parametrize("collision_norm", [False, True])
+@pytest.mark.parametrize("kind,codes", [("float", "off"), ("stars", "codes")])
+@pytest.mark.parametrize("algo", ["tmf", "tmfdropout"])
+def test_masked_epochs_match_jax_with_its_draws(algo, kind, codes,
+                                                collision_norm):
+    """Two dense epochs of TMF / TMF+Dropout, the port fed the JAX
+    solver's stripe orders and round uniforms through epoch_with: factors
+    at rtol 1e-5 / atol 1e-6 (f32 products)."""
+    j, t, params = _longtail_pair(algo, kind, codes, collision_norm)
+    assert (t.r_scale is None) == (codes == "off")
+    rng = np.random.default_rng(params.seed + 41)
+    sj = j_init_state(params, 60, 40, seed=3)
+    st = state_from_numpy(*(np.asarray(a) for a in sj), device="cpu")
+    for _ in range(2):
+        seed = int(rng.integers(2**31))
+        j._sched_rng = _Replay(seed)
+        key = jax.random.PRNGKey(seed)
+        round_u = None
+        if algo == "tmfdropout":
+            key, ku = jax.random.split(key)
+            round_u = torch.from_numpy(np.asarray(jax.random.uniform(
+                ku, (t.NU,), jax.numpy.float32)))
+        order = torch.from_numpy(np.asarray(
+            device_diag_schedule(key, t.NU, 1, 1)[0][:, 0], np.int64))
+        sj = j.epoch(sj, params.learn_rate, None)
+        st = t.epoch_with(st, params.learn_rate, (order, round_u))
+    np.testing.assert_allclose(st.u_fac.numpy(), np.asarray(sj.u_fac),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(st.i_fac.numpy(), np.asarray(sj.i_fac),
+                               rtol=1e-5, atol=1e-6)
+
+
+class _Replay:
+    """A schedule rng whose next integers() draw is the given seed."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def integers(self, *_):
+        return self.seed
+
+
+def test_dense_draws_come_from_the_order_generator():
+    """draw_schedule (dense): the stripe order, then TMF+Dropout's [NU]
+    round uniforms, from the one generator internal_state saves."""
+    _, a, _ = _longtail_pair("tmfdropout", "float", "off", True)
+    _, b, _ = _longtail_pair("tmfdropout", "float", "off", True)
+    a.draw_schedule()
+    b.set_internal_state(a.internal_state())
+    (oa, ua), (ob, ub) = a.draw_schedule(), b.draw_schedule()
+    assert torch.equal(oa, ob) and torch.equal(ua, ub)
+    assert ua.shape == (a.NU,) and ua.dtype == torch.float32
+    _, c, _ = _longtail_pair("tmf", "float", "off", True)
+    assert c.draw_schedule()[1] is None

@@ -22,6 +22,7 @@ from matfac_tpu.train.loop import train_model as j_train_model
 from matfac_tpu_torch.models.base import (MFState, init_state, rank_mask,
                                           state_from_numpy, state_to_numpy)
 from matfac_tpu_torch.solvers.block_sgd import BlockSGDSolver
+from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
 from matfac_tpu_torch.train.loop import TrainLoop, train_model
 
@@ -337,29 +338,44 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf", mf_method="densesgd"), "item 7"),
-    (dict(algo="ifwmf", mf_method="auto"), "item 7"),
-    (dict(algo="tmf", mf_method="auto"), "item 7"),
-    (dict(algo="tmfdropout", mf_method="blocksgd"), "item 7"),
+    (dict(mf_method="sgdparsvd"), "item 4"),
+    (dict(algo="tmf_bias"), "item 14"),
     (dict(algo="mf_loc", mf_method="blocksgd"), "item 14"),
     (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11"),
-    (dict(mf_method="als"), "item 10"), (dict(mf_method="sgd"), "item 9"),
+    (dict(mf_method="als"), "item 10"),
     (dict(mf_method="ccd++"), "item 12"), (dict(mf_method="auto"), "item 10"),
-    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 7"),
-    (dict(), "item 9")])
+    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 11")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    """BPR is ported; its dense engine (stream mode) and Poisson hybrid are
-    not. IFWMF and TMF train on blocksgd and IFWMF on densesgd; TMF's
-    dense-kernel mask instantiation (and with it 'auto' for the long-tail
-    models), and the Poisson-sampled and othersrc models, are not ported.
-    The default method is JAX's, ``"sgd"`` (item 9): the JAX-style call
-    ``train_model(data, params)`` raises rather than train another
-    engine."""
+    """BPR is ported; its dense engine (stream mode) and the BPR x
+    TMF+Poisson hybrid are not. Plain MF's 'auto' resolves to ALS, which is
+    not ported; neither are sgdparsvd, CCD, mesh training and the othersrc
+    models. The paths that train (the default sgd, TMF and TMF+Dropout on
+    densesgd, 'auto' for the long-tail models) are cases of the parity
+    tests below."""
     data, p = _data()
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
     with pytest.raises(NotImplementedError, match=item):
         train_model(data, p, device="cpu", log_fn=lambda s: None, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(algo="tmfdropout", mf_method="blocksgd"), "static per-pair ranks"),
+    (dict(algo="tmf", mf_method="als"), "coordinate family"),
+    (dict(algo="ifwmf", mf_method="ccd"), "coordinate family"),
+    (dict(algo="tmf", mf_method="densesgd",
+          params=dict(reg_exponent=0.5)), "reg_exponent"),
+    (dict(mf_method="nope"), "unknown mf_method")])
+def test_refusals_match_jax(kw, match):
+    """What JAX refuses, the port refuses with JAX's ValueError: sampled
+    ranks on the one-hot engine, weighted or rank-masked models on the
+    coordinate family, reg_exponent off the sgd engine, unknown methods."""
+    data, p = _data()
+    kw = dict(kw)
+    p = p.replace(**kw.pop("params", {}))
+    for fn, extra in ((j_train_model, {}), (train_model, dict(device="cpu"))):
+        with pytest.raises(ValueError, match=match):
+            fn(data, p, log_fn=lambda s: None, **kw, **extra)
 
 
 def test_epoch_log_has_the_jax_fields_and_tracks_train_rmse():
@@ -480,3 +496,240 @@ def test_blocksgd_refuses_reg_exponent_like_jax():
             fn(data, p, mf_method="blocksgd", log_fn=lambda s: None, **kw)
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
+
+
+# ----------------------------------------------------------------------
+# the scatter SGD engine (the default method), the long-tail models on
+# densesgd, and 'auto'
+# ----------------------------------------------------------------------
+
+def _longtail_data():
+    """Power-law degrees, so TMF's ranks spread over 1..k."""
+    data, _, _ = synthetic_data(n_users=100, n_items=80, k=3, density=0.3,
+                                seed=3, noise=0.05, nonneg=True,
+                                power_law=0.8)
+    p = Params(fac_dim=6, u_reg=0.05, i_reg=0.05, learn_rate=0.05,
+               max_iter=6, seed=1, disp_iter=1000, save_iter=1,
+               batch_size=128, rho_rms=3.0)
+    return data, p
+
+
+def _jax_model(algo, data, p):
+    from matfac_tpu.models import base as jbase
+    from matfac_tpu.models import longtail as jlt
+    from matfac_tpu.utils import freq as jfreq
+    uf, if_ = jfreq.row_col_freq(data.train_mat)
+    iu, ii = jfreq.invalid_users_items(data.train_mat, data.n_users,
+                                       data.n_items)
+    n, m = data.n_users, data.n_items
+    uf = np.pad(uf, (0, max(n - len(uf), 0)))[:n]
+    if_ = np.pad(if_, (0, max(m - len(if_), 0)))[:m]
+    return {"mf": lambda: jbase.ModelMF(p, n, m),
+            "mf_bias": lambda: jbase.ModelMFBias(p, n, m),
+            "ifwmf": lambda: jlt.ModelInvPopMF(p, n, m, uf, if_, iu, ii),
+            "tmf": lambda: jlt.ModelDropoutSigmoid(p, n, m, uf, if_),
+            "tmfdropout": lambda: jlt.ModelPoissonDropout(p, n, m, uf, if_),
+            }[algo]()
+
+
+def _jax_sgd_epoch(jmodel):
+    """Stand-in for SGDSolver.epoch: the draws of the JAX loop's key chain
+    (PRNGKey(seed), one split an epoch) and of JAX's SGDSolver epoch
+    (tests/test_torch_sgd.jax_draws), through epoch_with."""
+    from test_torch_sgd import jax_draws
+
+    def epoch(self, state, lr):
+        if not hasattr(self, "_jax_key"):
+            self._jax_key = jax.random.PRNGKey(self.params.seed)
+        self._jax_key, ek = jax.random.split(self._jax_key)
+        return self.epoch_with(state, lr, *jax_draws(self, jmodel, ek))
+    return epoch
+
+
+def _jax_dense_draw(self):
+    """Stand-in for BlockSGDSolver.draw_schedule (dense): the JAX dense
+    solver's stripe order and, for TMF+Dropout, round uniforms, from one
+    key a epoch (default_rng(seed + 41); dense_epoch_rows_keyed)."""
+    if self.engine != "dense":
+        raise AssertionError("dense engine expected")
+    if not hasattr(self, "_jax_rng"):
+        self._jax_rng = np.random.default_rng(self.params.seed + 41)
+    key = jax.random.PRNGKey(int(self._jax_rng.integers(2**31)))
+    round_u = None
+    if self.pois_cdf is not None:
+        key, ku = jax.random.split(key)
+        round_u = torch.from_numpy(np.asarray(
+            jax.random.uniform(ku, (self.NU,), jax.numpy.float32)))
+    order = device_diag_schedule(key, self.NU, 1, 1)[0][:, 0]
+    return torch.from_numpy(np.asarray(order, np.int64)), round_u
+
+
+def _compare_runs(rep_t, rep_j, rtol):
+    assert rep_t.stop_reason == rep_j.stop_reason
+    assert rep_t.best_iter == rep_j.best_iter
+    assert len(rep_t.history) == len(rep_j.history)
+    np.testing.assert_allclose([h.val_rmse for h in rep_t.history],
+                               [h.val_rmse for h in rep_j.history],
+                               rtol=rtol)
+    np.testing.assert_allclose([h.objective for h in rep_t.history],
+                               [h.objective for h in rep_j.history],
+                               rtol=rtol)
+    for got, want in zip(rep_t.state, rep_j.state):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=rtol, atol=rtol / 10)
+
+
+@pytest.mark.parametrize("algo,method,extra", [
+    ("mf", None, {}), ("mf", "sgd", {}), ("mf", "sgdpar", {}),
+    ("mf", "sgdu", {}), ("mf", "hogsgd", {}), ("mf_bias", "sgd", {}),
+    ("ifwmf", "sgd", {}), ("tmf", "sgd", {}), ("tmfdropout", "sgd", {}),
+    ("mf", "sgd", dict(reg_exponent=0.5)),
+    ("mf_bias", "sgd", dict(reg_exponent=-0.5))])
+def test_train_model_sgd_matches_jax(algo, method, extra, monkeypatch):
+    """train_model on the scatter engine, JAX's default (``method=None``:
+    the call ``train_model(data, params)``) and its spellings, and with
+    reg_exponent's frequency-scaled regularization, against the JAX front
+    door from one initial state, the port drawing the JAX key chain's
+    batch orders and Poisson masks: val RMSE, objective and the final
+    state at rtol 1e-5 (f32 sums in another order)."""
+    data, p = _longtail_data()
+    p = p.replace(**extra)
+    monkeypatch.setattr(SGDSolver, "epoch",
+                        _jax_sgd_epoch(_jax_model(algo, data, p)))
+    kw = {} if method is None else dict(mf_method=method)
+    if algo != "mf":
+        kw["algo"] = algo
+    js = j_init_state(p, data.n_users, data.n_items)
+    # the JAX sgd epoch donates the state it is given: copy it first
+    st = state_from_numpy(*(np.asarray(a) for a in js), device="cpu")
+    rep_j, *_ = j_train_model(data, p, init_state_override=js,
+                              log_fn=lambda s: None, **kw)
+    rep_t, model, *_ = train_model(data, p, device="cpu",
+                                   init_state_override=st,
+                                   log_fn=lambda s: None, **kw)
+    assert isinstance(rep_t.solver, SGDSolver)
+    assert model.name == _jax_model(algo, data, p).name
+    _compare_runs(rep_t, rep_j, 1e-5)
+
+
+@pytest.mark.parametrize("algo", ["tmf", "tmfdropout"])
+def test_train_model_longtail_densesgd_matches_jax(algo, monkeypatch):
+    """TMF and TMF+Dropout on the row-dense engine (rank masks; Poisson
+    ranks redrawn at every stripe visit) against the JAX front door, the
+    port drawing JAX's stripe orders and round uniforms: rtol 1e-3
+    (mm_bf16 operand rounding compounds over the epochs). The ranks are
+    not trivial."""
+    data, p = _longtail_data()
+    monkeypatch.setattr(BlockSGDSolver, "draw_schedule", _jax_dense_draw)
+    js = j_init_state(p, data.n_users, data.n_items)
+    st = state_from_numpy(*(np.asarray(a) for a in js), device="cpu")
+    rep_j, *_ = j_train_model(data, p, algo=algo, mf_method="densesgd",
+                              init_state_override=js,
+                              log_fn=lambda s: None)
+    rep_t, *_ = train_model(data, p, algo=algo, mf_method="densesgd",
+                            device="cpu", init_state_override=st,
+                            log_fn=lambda s: None)
+    sol = rep_t.solver
+    assert sol.engine == "dense" and sol.rank_tabs is not None
+    assert (sol.pois_cdf is not None) == (algo == "tmfdropout")
+    assert int(sol.rank_tabs[1].min()) < p.fac_dim
+    _compare_runs(rep_t, rep_j, 1e-3)
+
+
+@pytest.mark.parametrize("algo", ["ifwmf", "tmf", "tmfdropout", "mf_bias"])
+def test_train_model_auto_matches_jax(algo, monkeypatch):
+    """mf_method='auto' resolves as JAX's _auto_method (densesgd for the
+    long-tail models at this size, sgd for mf_bias) and trains as JAX."""
+    data, p = _longtail_data()
+    monkeypatch.setattr(BlockSGDSolver, "draw_schedule", _jax_dense_draw)
+    monkeypatch.setattr(SGDSolver, "epoch",
+                        _jax_sgd_epoch(_jax_model(algo, data, p)))
+    js = j_init_state(p, data.n_users, data.n_items)
+    st = state_from_numpy(*(np.asarray(a) for a in js), device="cpu")
+    logs_j, logs_t = [], []
+    rep_j, *_ = j_train_model(data, p, algo=algo, mf_method="auto",
+                              init_state_override=js, log_fn=logs_j.append)
+    rep_t, *_ = train_model(data, p, algo=algo, mf_method="auto",
+                            device="cpu", init_state_override=st,
+                            log_fn=logs_t.append)
+    pick = lambda logs: logs[0].split("'")[1]
+    assert pick(logs_t) == pick(logs_j) == ("sgd" if algo == "mf_bias"
+                                            else "densesgd")
+    _compare_runs(rep_t, rep_j, 1e-3 if algo != "mf_bias" else 1e-5)
+
+
+class _Mat:
+    def __init__(self, values, nnz):
+        self.values, self.nnz = values, nnz
+
+
+class _Data:
+    def __init__(self, n_users, n_items, values, nnz):
+        self.n_users, self.n_items = n_users, n_items
+        self.train_mat = _Mat(values, nnz)
+
+
+@pytest.mark.parametrize("shape", ["small", "wide_stars", "wide_float",
+                                   "wide_float_huge_nnz", "edge_stars"])
+def test_auto_method_matches_jax(shape):
+    """The port's copy of _auto_method picks JAX's method for every algo
+    at grids inside and outside the 6e9-byte dense budget, with star and
+    continuous ratings, and streams inside and outside 8e9 bytes."""
+    from matfac_tpu.train.loop import _auto_method as j_auto
+    from matfac_tpu_torch.train.loop import _auto_method as t_auto
+    stars = np.asarray([1.0, 2.5, 4.0, 5.0] * 10, np.float32)
+    floats = np.linspace(1.0, 5.0, 40).astype(np.float32) + 0.013
+    n_users, n_items, values, nnz = {
+        "small": (100, 80, floats, 2_000),
+        "wide_stars": (1_000_000, 5_000, stars, 10_000_000),
+        "wide_float": (1_000_000, 5_000, floats, 10_000_000),
+        "wide_float_huge_nnz": (1_000_000, 5_000, floats, 200_000_000),
+        "edge_stars": (2_560 * 900, 2_560, stars, 1_000),
+    }[shape]
+    data = _Data(n_users, n_items, values, nnz)
+    p = Params(fac_dim=8)
+    for algo in ("mf", "mf_bias", "ifwmf", "tmf", "tmfdropout", "tmf_bias",
+                 "mf_loc", "dropoutmf"):
+        assert t_auto(algo, data, p) == j_auto(algo, data, p, None), algo
+
+
+@pytest.mark.parametrize("algo,method", [("tmfdropout", "sgd"),
+                                         ("mf_bias", "sgd"),
+                                         ("tmfdropout", "densesgd"),
+                                         ("tmf", "densesgd")])
+def test_longtail_and_sgd_resume_is_bit_exact(algo, method, tmp_path):
+    """Stopped at epoch 3 and resumed to 6 equals the uninterrupted run on
+    the CPU: the sgd engine's batch-order and mask generators, and the
+    dense engine's order generator (which also draws the round
+    uniforms), are in the loop checkpoint."""
+    data, p = _longtail_data()
+    run = lambda prefix, params, resume: train_model(
+        data, params, algo=algo, mf_method=method, device="cpu",
+        prefix=str(tmp_path / prefix), resume=resume,
+        log_fn=lambda s: None)[0]
+    full = run("full", p, False)
+    run("part", p.replace(max_iter=3), False)
+    res = run("part", p, True)
+    assert all(torch.equal(a, b) for a, b in zip(full.state, res.state))
+    assert full.best_metric == res.best_metric
+
+
+def test_densesgd_falls_back_to_sgd_for_sampled_ranks(monkeypatch):
+    """TMF+Dropout on a dense grid over its budget falls back to the
+    scatter engine, as the JAX front door does (the one-hot engines stage
+    static ranks), and trains exactly as mf_method='sgd'."""
+    data, p = _longtail_data()
+    p = p.replace(max_iter=2)
+
+    def over_budget(self, *a, **kw):
+        raise ValueError("dense tiles need 9.0 GiB > dense_budget 8.0 GiB")
+
+    monkeypatch.setattr(BlockSGDSolver, "_stage_dense", over_budget)
+    logs = []
+    fb = train_model(data, p, algo="tmfdropout", mf_method="densesgd",
+                     device="cpu", log_fn=logs.append)[0]
+    assert any("falling back to sgd" in s for s in logs), logs
+    assert isinstance(fb.solver, SGDSolver)
+    direct = train_model(data, p, algo="tmfdropout", mf_method="sgd",
+                         device="cpu", log_fn=lambda s: None)[0]
+    assert all(torch.equal(a, b) for a, b in zip(fb.state, direct.state))
