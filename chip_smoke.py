@@ -72,6 +72,14 @@ Phases, in order; any failure raises and the script exits non-zero:
       and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
       epoch's time, batches and CUDA kernels, and whether two runs of an
       epoch are bit-identical, logged;
+  (p) the coordinate family's ALS on (d)'s data with bench.py's Params
+      (k 64, reg 0.01), 2 epochs each: train_model(mf_method="auto")
+      (exact bucketed ALS), ALSSolver(cg_iters=6), SubspaceALSSolver,
+      DenseALSSolver (bf16 values, exact, ridge retry) and with
+      cg_iters=6, gram_int8=True; no hand kernel (JAX uses XLA);
+  (q) CCD on the same data: train_model for ccd++ (2 epochs), ccd++ with
+      ccd_group_dims=4 and ccd++freqadap (1 each), ccd (2); two runs of
+      one CCD++ and one CCD epoch must be bit-identical;
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -85,7 +93,12 @@ the initial state's. (i),
 (j) and (k) check the launch count and the kernel's device count of
 finished cells, that the objective and val RMSE are finite and fall,
 replay a first epoch on the staged streams through kernel and plain with
-one schedule and hold them to (h)'s bf16 class, and time both.
+one schedule and hold them to (h)'s bf16 class, and time both. (p) and
+(q) check that val RMSE falls and the factors stay finite, hold chunks,
+row blocks or a partial epoch on the card against the CPU (COORD_TOL,
+BF16_TOL; CG solves by the quadratic they minimize, CG_OBJ_RTOL), and log
+each solver's epoch ms, idle share, peak memory, top three device ops and
+bound.
 
 The line before the last is a JSON record of the kernels: per kernel its
 launches on the main path, max abs error against the plain version, its
@@ -99,6 +112,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -124,6 +138,7 @@ from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_rows,
 from matfac_tpu_torch.serving import Recommender
 from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
                                                 stage_batch_collision_counts)
+from matfac_tpu_torch.solvers import als
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train.loop import TrainLoop, train_model
 
@@ -183,7 +198,7 @@ CELL_ALGO = {"d": "mf", "e": "mf", "l": "ifwmf"}
 TILE_KINDS = ("f32+W", "bf16+W", "codes", "f32+fW", "bf16+bfW")
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -1767,6 +1782,443 @@ def phase_scatter(data: Data, dev="cuda"):
 
 
 # ----------------------------------------------------------------------
+# (p), (q): the coordinate family, plain PyTorch (no hand kernel)
+# ----------------------------------------------------------------------
+
+# bench.py:53-54's Params (fac_dim 64, reg 0.01) on (d)'s data
+COORD_PARAMS = dict(fac_dim=64, u_reg=0.01, i_reg=0.01, learn_rate=0.005,
+                    seed=0, obj_iter=1, disp_iter=1)
+# card vs CPU: the CPU parity tests' multi-epoch class, JAX's
+# engine-to-engine 2e-3 (tests/test_torch_ccd.py, test_torch_train.py).
+# At k = 64 and reg 0.01 a row with fewer than 64 ratings has a Gram of
+# rank < k plus 0.01 I, so f32 summation-order noise (cuBLAS / cuSOLVER
+# against MKL / LAPACK) grows by its condition number: 2.3e-4 in one chunk
+# of exact ALS (H100 80GB HBM3, 700 W); the int8 Grams' quantization
+# flips on such noise. bf16 dense Grams at their 5e-3 class.
+COORD_TOL = (2e-3, 2e-3)
+BF16_TOL = (5e-3, 5e-3)
+
+
+def _device_profile(fn, top: int = 3):
+    """(device busy ms, [(op, ms)] of the ``top`` device ops by summed time)
+    in one call of fn, by torch.profiler, after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    ranked = sorted(by.items(), key=lambda kv: -kv[1])
+    return sum(by.values()), [(n[:60], round(ms, 3)) for n, ms in
+                              ranked[:top]]
+
+
+def _held(tag: str, what: str, got, want, tol) -> float:
+    """Max abs error of card vs CPU tensors; raises past rtol / atol."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=tol[0], atol=tol[1])
+    log(f"({tag}) {what}: card vs CPU max_abs {err:.3e} (rtol {tol[0]}, "
+        f"atol {tol[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"({tag}) {what}: the card disagrees with the "
+                             "CPU")
+    return err
+
+
+def _time_epoch(tag: str, name: str, epoch, bound) -> dict:
+    """Epoch ms (CUDA events, two timings after the runs before), peak
+    device memory of an epoch, device busy ms, idle share and top three
+    device ops (torch.profiler), beside the bound."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [_cuda_ms(epoch) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    busy, top = _device_profile(epoch)
+    out = dict(ms=ms, busy=busy, idle=1.0 - busy / float(np.mean(ms)),
+               peak_gb=peak / 1e9, top=top, bound=bound)
+    log(f"({tag}) {name} epoch (CUDA events): {ms[0]:.3f} / {ms[1]:.3f} ms, "
+        f"device busy {busy:.3f} ms, idle share {out['idle']:.3f}, peak "
+        f"memory {out['peak_gb']:.2f} GB, bound {bound[0]:.3f} ms "
+        f"({bound[1]}); top device ops {top}")
+    return out
+
+
+def _val_falls(tag: str, name: str, vals, val0: float, state) -> None:
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.u_fac,
+                                                         state.i_fac))
+    ok = finite and all(np.isfinite(vals)) and vals[-1] < val0
+    log(f"({tag}) {name}: val RMSE at init {val0!r}, per epoch {vals!r}; "
+        f"factors finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"({tag}) {name}: val RMSE did not fall or the "
+                             "factors are not finite")
+
+
+def _epochs(solver, ev, model, state, n: int):
+    """n epochs of a solver built outside train_model; val RMSE after each."""
+    vals = []
+    for _ in range(n):
+        state = solver.epoch(state, 0.0)
+        vals.append(ev.rmse(model.eval_view(state), "val"))
+    return state, vals
+
+
+def _staged_bytes(solver) -> int:
+    return sum(t.nbytes for side in solver._stage for c in side for t in c)
+
+
+def als_bound(solver):
+    """Bucketed ALS epoch: the staged rows read once, the tables read and
+    written once; each padded slot's Gram (2k^2), b (2k), and a row's
+    Cholesky (k^3 / 3) and two triangular solves (2k^2) -- or cg_iters
+    matvecs (2k^2 each) -- in f32 (batched products, not tensor cores)."""
+    k = solver.model.k
+    flops = 0.0
+    for side in solver._stage:
+        for ids, cols, *_ in side:
+            nb, cap = cols.shape
+            flops += 2.0 * nb * cap * k * (k + 1)
+            flops += nb * (solver.cg_iters * 2.0 * k * k if solver.cg_iters
+                           else k ** 3 / 3.0 + 2.0 * k * k)
+    tables = 4 * k * (solver.model.n_users + solver.model.n_items)
+    return _bound(_staged_bytes(solver) + 3 * tables, flops, "f32")
+
+
+def subspace_bound(solver):
+    """iALS++ epoch: the staged rows and tables as ALS; a padded slot's
+    prediction (2k), then per block its Gram (2d^2), gradient (2d) and
+    prediction update (2d), a row's d x d Cholesky and solves, in f32."""
+    k, d = solver.model.k, solver.d
+    nbl = solver._block_idx.shape[0]
+    flops = 0.0
+    for side in solver._stage:
+        for ids, cols, *_ in side:
+            nb, cap = cols.shape
+            flops += 2.0 * nb * cap * k + nbl * (
+                2.0 * nb * cap * d * (d + 2) + nb * (d ** 3 / 3.0 + 2 * d * d))
+    tables = 4 * k * (solver.model.n_users + solver.model.n_items)
+    return _bound(_staged_bytes(solver) + 3 * tables, flops, "f32")
+
+
+def dense_als_bound(solver):
+    """Dense ALS epoch: the dense values (and the int8 masks) read once, the
+    tables read and written once; per sweep the Gram product 2 n_rows n_src
+    P on the tensor cores (bf16, or int8 with gram_int8) -- the larger
+    part -- and b's 2 n_rows n_src k."""
+    k = solver.model.k
+    P = k * (k + 1) // 2 if solver.packed else k * k
+    mn = solver.nu_pad * solver.ni_pad
+    nbytes = solver.dense.nbytes + (2 * solver.mask_rows.nbytes
+                                    if solver.gram_int8 else 0) \
+        + 12 * k * (solver.nu_pad + solver.ni_pad)
+    gram = 2 * 2.0 * mn * P
+    peak = "int8" if solver.gram_int8 else (
+        "bf16" if solver.dense.dtype == torch.bfloat16 else "f32")
+    return _bound(nbytes, gram + 2 * 2.0 * mn * k, peak)
+
+
+def ccd_bound(solver):
+    """CCD / CCD++ epoch: the staged stream (rows, cols, the item-sorted
+    view's permutation, rows and cols, int64; the ratings) and the residual
+    read once, the residual and the tables written once; per dim (group of
+    g) per side per alternation each entry's integrand, W = 2 (P + g at
+    g > 1) values of ~2 flops each, and its sum, in f32."""
+    nnz, k = solver.vals.numel(), solver.model.k
+    g = solver.g
+    W = 2 if g == 1 else g * (g + 1) // 2 + g
+    passes = (k // g) * solver.n_inner * 2
+    flops = passes * nnz * 3.0 * W + (k // g) * 4.0 * nnz * g
+    nbytes = nnz * (5 * 8 + 3 * 4) + 12 * k * (solver.n_users
+                                                + solver.n_items)
+    return _bound(nbytes, flops, "f32")
+
+
+# CG's sixth iterate at k = 64 is far from converged, and where a Gram is
+# near-singular it moves along the flat directions by up to 0.22 when the
+# Gram is perturbed by 1e-7 relative (a CPU run at fac_dim 8,
+# tests/test_torch_cuda_coordinate.py's data), so card and CPU are held
+# by the quadratic CG minimizes, summed over the rows, not by the iterate
+CG_OBJ_RTOL = 1e-3
+
+
+def _quadratic(pred, w, r, x, lam) -> float:
+    """sum over rows of 0.5 x^T (G + lam I) x - b^T x, the normal equations'
+    quadratic, in float64 from the predictions pred = <q_i, x> [n, m], the
+    0/1 weights w and ratings r [n, m]."""
+    pred, w, r, x = (t.double() for t in (pred, w, r, x))
+    return float((0.5 * (w * pred * pred).sum(dim=1)
+                  + 0.5 * lam * (x * x).sum(dim=1)
+                  - (w * r * pred).sum(dim=1)).sum())
+
+
+def _held_quadratic(tag, what, q_card, q_cpu) -> float:
+    rel = abs(q_card - q_cpu) / abs(q_cpu)
+    ok = np.isfinite(q_card) and rel <= CG_OBJ_RTOL
+    log(f"({tag}) {what}: CG's quadratic card {q_card!r} CPU {q_cpu!r}, "
+        f"relative difference {rel:.3e} (rtol {CG_OBJ_RTOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"({tag}) {what}: the card's CG solves are "
+                             "worse than the CPU's")
+    return rel
+
+
+def _cpu_copy(solver):
+    """The solver with its staged tensors on the CPU (no restaging)."""
+    c = copy.copy(solver)
+    for key, v in vars(solver).items():
+        if torch.is_tensor(v):
+            setattr(c, key, v.cpu())
+    if hasattr(solver, "_stage"):
+        c._stage = [[tuple(t.cpu() for t in ch) for ch in side]
+                    for side in solver._stage]
+    c.device = torch.device("cpu")
+    return c
+
+
+def _cpu_state(state):
+    return type(state)(*(t.cpu() for t in state))
+
+
+def _bucket_chunks_vs_cpu(tag, name, solver, state, blocks=None):
+    """The user sweep's first and last chunk (degrees lowest and highest)
+    and the item sweep's last, each solved on the card and on the CPU from
+    the same tables."""
+    p = solver.params
+    cpu = _cpu_copy(solver)
+    worst = 0.0
+    for side, j in ((0, 0), (0, -1), (1, -1)):
+        tgt, src = (state.u_fac, state.i_fac) if side == 0 else \
+            (state.i_fac, state.u_fac)
+        reg = float(p.u_reg if side == 0 else p.i_reg)
+        outs = []
+        for s, t_, s_ in ((solver, tgt, src), (cpu, tgt.cpu(), src.cpu())):
+            t_ = t_.clone()
+            chunk = s._stage[side][j]
+            if blocks is None:
+                als._solve_bucket(t_, s_, *chunk, reg, cg_iters=s.cg_iters,
+                                  reg_exp=s.reg_exp)
+            else:
+                als._subspace_solve_bucket(t_, s_, *chunk,
+                                           blocks.to(s_.device), reg, s.d)
+            outs.append(t_[chunk[-1]])
+        what = (f"{name}, {'user' if side == 0 else 'item'} chunk {j} "
+                f"({tuple(chunk[1].shape)})")
+        if not solver.cg_iters:
+            worst = max(worst, _held(tag, what, *outs, COORD_TOL))
+            continue
+        ids, cols, vals, mask, sel, _ = chunk
+        q = src.cpu()[cols[sel]].double()                  # [n, cap, k]
+        w = (mask * (vals > 0))[sel]
+        lam = reg * (torch.clamp_min(w.sum(dim=1), 1.0) ** solver.reg_exp
+                     if solver.reg_exp else 1.0)
+        quad = [_quadratic(torch.bmm(q, x.cpu().double()[:, :, None])[
+            :, :, 0], w, vals[sel], x.cpu(), lam) for x in outs]
+        worst = max(worst, _held_quadratic(tag, what, *quad))
+    return worst
+
+
+def _dense_blocks_vs_cpu(tag, name, solver, state):
+    """The first row block of each sweep on the card and on the CPU, from
+    the same tables (the whole sweep on the CPU would take minutes)."""
+    blk, k = solver.row_block, solver.model.k
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n - len(t)))
+    u = pad(state.u_fac, solver.nu_pad)
+    i = pad(state.i_fac, solver.ni_pad)
+    tol = BF16_TOL if solver.dense.dtype == torch.bfloat16 else COORD_TOL
+    kw = dict(cg_iters=solver.cg_iters, packed=solver.packed,
+              gram_int8=solver.gram_int8)
+    p = solver.params
+    for side, tgt, src, vals, m8 in (
+            ("user", u, i, solver.dense[:blk], solver.mask_rows),
+            ("item", i, u, solver.dense[:, :blk], solver.mask_cols)):
+        reg = float(p.u_reg if side == "user" else p.i_reg)
+        tr = side == "item"
+        m8 = None if m8 is None else m8[:blk]
+        outs = [als.dense_als_sweep(t[:blk], s_, v, reg, blk, transposed=tr,
+                                    mask8=m, **kw)
+                for t, s_, v, m in ((tgt, src, vals, m8),
+                                    (tgt.cpu(), src.cpu(), vals.cpu(),
+                                     None if m8 is None else m8.cpu()))]
+        what = f"{name}, first {side} block"
+        if not solver.cg_iters:
+            _held(tag, what, *outs, tol)
+            continue
+        r = (vals.t() if tr else vals).cpu().double()      # [blk, n_src]
+        q = src.cpu().double()
+        _held_quadratic(tag, what, *(_quadratic(
+            x.cpu().double() @ q.t(), (r > 0).double(), r, x.cpu(), reg)
+            for x in outs))
+
+
+def phase_als(data: Data, dev="cuda") -> dict:
+    """(p): ALS at (d)'s data and bench.py's Params, 2 epochs each:
+    train_model(mf_method="auto") (exact bucketed ALS), ALSSolver(cg_iters=6)
+    (bench.py's perf path), DenseALSSolver by default (bf16 values, exact
+    Cholesky with the ridge retry) and with cg_iters=6, gram_int8=True, and
+    SubspaceALSSolver; val RMSE falls, the factors stay finite; chunks or
+    row blocks of an epoch held against the CPU; epoch ms, idle share,
+    peak memory, top device ops, bound."""
+    params = Params(**dict(COORD_PARAMS, max_iter=2))
+    logs = []
+    t0 = time.perf_counter()
+    rep, model, ev, (iu, ii) = train_model(
+        data, params, mf_method="auto", device=dev,
+        log_fn=lambda s: (logs.append(s), log(f"(p) {s}")))
+    wall = time.perf_counter() - t0
+    assert "resolved to 'als'" in logs[0], logs[0]
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    out = {}
+    solver = rep.solver
+    assert isinstance(solver, als.ALSSolver) and solver.cg_iters == 0
+    _val_falls("p", "auto -> als (exact)", [h.val_rmse for h in
+                                            rep.history], val0, rep.state)
+    log(f"(p) train_model wall {wall:.1f} s; epochs in the loop "
+        f"{[round(1e3 * h.seconds, 3) for h in rep.history]} ms")
+    _bucket_chunks_vs_cpu("p", "als exact", solver, rep.state)
+    out["als"] = _time_epoch("p", "als exact", lambda: solver.epoch(
+        rep.state, 0.0), als_bound(solver))
+    del rep, solver
+    torch.cuda.empty_cache()
+    makers = {
+        "als cg6": lambda: als.ALSSolver(model, params, data.train_mat, iu,
+                                         ii, cg_iters=6, device=dev),
+        "ialspp": lambda: als.SubspaceALSSolver(model, params,
+                                                data.train_mat, iu, ii,
+                                                device=dev),
+        "alsdense": lambda: als.DenseALSSolver(model, params, data.train_mat,
+                                               iu, ii, device=dev),
+        "alsdense cg6 int8": lambda: als.DenseALSSolver(
+            model, params, data.train_mat, iu, ii, cg_iters=6,
+            gram_int8=True, device=dev),
+    }
+    bounds = {"als cg6": als_bound, "ialspp": subspace_bound,
+              "alsdense": dense_als_bound,
+              "alsdense cg6 int8": dense_als_bound}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        solver = make()
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        st, vals = _epochs(solver, ev, model, s0, 2)
+        log(f"(p) {name}: staged in {stage_s:.1f} s")
+        _val_falls("p", name, vals, val0, st)
+        if name.startswith("alsdense"):
+            _dense_blocks_vs_cpu("p", name, solver, st)
+        else:
+            blocks = None
+            if name == "ialspp":
+                blocks = torch.from_numpy(solver._block_idx[
+                    solver.draw().numpy()])
+            _bucket_chunks_vs_cpu("p", name, solver, st, blocks)
+        out[name] = _time_epoch("p", name, lambda: solver.epoch(st, 0.0),
+                                bounds[name](solver))
+        if name == "alsdense cg6 int8":
+            _int8_layouts(solver, st)
+        del solver, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _int8_layouts(solver, state):
+    """One user block's int8 Gram product with QQ row-major (as the sweep
+    passes it) and column-major, beside the bf16 product of the same
+    block (CUDA events, mean of 20)."""
+    k, blk = solver.model.k, solver.row_block
+    iu_, il_ = np.triu_indices(k)
+    qf = torch.nn.functional.pad(state.i_fac, (0, 0, 0, solver.ni_pad
+                                               - state.i_fac.shape[0]))
+    qq = qf[:, torch.from_numpy(iu_).to(qf.device)] * \
+        qf[:, torch.from_numpy(il_).to(qf.device)]
+    _, q8 = als.quantize_columns(qq)
+    q8 = torch.nn.functional.pad(q8, (0, (-q8.shape[1]) % 8))
+    m8 = solver.mask_rows[:blk]
+    col_major = q8.t().contiguous().t()
+    bf = qq.to(torch.bfloat16)
+    mb = m8.to(torch.bfloat16)
+    same = torch.equal(torch._int_mm(m8, q8), torch._int_mm(m8, col_major))
+    t = {name: _cuda_ms(fn, 20) for name, fn in (
+        ("row-major", lambda: torch._int_mm(m8, q8)),
+        ("column-major", lambda: torch._int_mm(m8, col_major)),
+        ("bf16", lambda: torch.mm(mb, bf, out_dtype=torch.float32)))}
+    log(f"(p) int8 Gram of one user block [{blk} x {m8.shape[1]}] @ "
+        f"[{q8.shape[0]} x {q8.shape[1]}]: QQ row-major {t['row-major']:.4f} "
+        f"ms, column-major {t['column-major']:.4f} ms (equal {same}); the "
+        f"bf16 product {t['bf16']:.4f} ms")
+
+
+def phase_ccd(data: Data, dev="cuda") -> dict:
+    """(q): train_model(mf_method="ccd++") 2 epochs, ccd++ with
+    ccd_group_dims=4 1 epoch, ccd++freqadap 1 epoch, ccd 2 epochs, at (d)'s
+    data and bench.py's Params: val RMSE falls, factors finite; a partial
+    epoch (one dim, one group of 4, two dims a side for CCD) on the card
+    and on the CPU from the same tables and residual; two runs of one
+    CCD++ and one CCD epoch bit-identical; epoch ms, idle share, peak
+    memory, top device ops, bound."""
+    out = {}
+    runs = (("ccd++", {}, 2), ("ccd++ g4", dict(ccd_group_dims=4), 1),
+            ("ccd++freqadap", {}, 1), ("ccd", {}, 2))
+    for name, extra, n in runs:
+        params = Params(**dict(COORD_PARAMS, max_iter=n, **extra))
+        method = name.split()[0]
+        t0 = time.perf_counter()
+        rep, model, ev, _ = train_model(data, params, mf_method=method,
+                                        device=dev,
+                                        log_fn=lambda s: log(f"(q) {s}"))
+        wall = time.perf_counter() - t0
+        solver = rep.solver
+        s0 = init_state(params, data.n_users, data.n_items, device=dev)
+        val0 = ev.rmse(model.eval_view(s0), "val")
+        _val_falls("q", name, [h.val_rmse for h in rep.history], val0,
+                   rep.state)
+        log(f"(q) {name}: train_model wall {wall:.1f} s, epochs in the loop "
+            f"{[round(1e3 * h.seconds, 3) for h in rep.history]} ms; "
+            f"{solver.vals.numel()} staged ratings, g = {solver.g}"
+            + (f", {int(solver.item_dim_ok.sum())} of {solver.n_items} "
+               "items above the frequency threshold"
+               if solver.item_dim_ok is not None else ""))
+        # a partial epoch on both devices from the same tables and residual
+        cpu = _cpu_copy(solver)
+        k = solver.model.k
+        dims = (([0, k - 1], [k - 1, 1]) if name == "ccd"
+                else list(range(solver.g)))
+        st_c = cpu.epoch_with(_cpu_state(rep.state), 0.0, dims)
+        st_g = solver.epoch_with(rep.state, 0.0, dims)
+        for what, a, b in (("u", st_g.u_fac, st_c.u_fac),
+                           ("i", st_g.i_fac, st_c.i_fac),
+                           ("res", solver.res, cpu.res)):
+            _held("q", f"{name} partial epoch {dims}, {what}", a, b,
+                  COORD_TOL)
+        if name in ("ccd++", "ccd"):
+            res0 = solver.res.clone()
+            draws = solver.draw()
+            outs = []
+            for _ in range(2):
+                solver.res = res0.clone()
+                st = solver.epoch_with(rep.state, 0.0, draws)
+                outs.append((st.u_fac, st.i_fac, solver.res))
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            log(f"(q) {name}: two runs of one epoch bit-identical {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"(q) {name}: two runs of one epoch "
+                                     "differ")
+        out[name] = _time_epoch("q", name, lambda: solver.epoch(
+            rep.state, 0.0), ccd_bound(solver))
+        del rep, solver, ev, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 # (m): the toolchain probes
 # ----------------------------------------------------------------------
 
@@ -1839,6 +2291,8 @@ def main() -> int:
     l_ = run_cell("l", data_d)
     n = phase_longtail_dense(data_d)
     phase_scatter(data_d)
+    phase_als(data_d)
+    phase_ccd(data_d)
     probes = phase_probes()
 
     float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS

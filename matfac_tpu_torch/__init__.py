@@ -18,8 +18,12 @@ one-hot cell engine (``mf_method="blocksgd"`` for MF, IFWMF and TMF,
 selection on val HR@10 (``train_model(algo="bpr")``), ranking eval
 (``eval.ranking``) and serving (``serving.Recommender``), whose
 full-catalog top-N runs as a hand-written CUDA kernel
-(``csrc/topk.cu``). Each kernel runs on a CUDA tensor, its plain PyTorch
-version on a CPU tensor.
+(``csrc/topk.cu``); and the coordinate family for plain MF, which JAX
+computes with XLA and the port with plain PyTorch: ALS (``solvers/als.py``:
+bucketed, iALS++ subspace and dense masked-Gram solvers, ``mf_method``
+"als", "ialspp", "alsdense", and "auto" for plain MF) and CCD / CCD++
+(``solvers/ccd.py``: "ccd", "ccd++", "ccdpp", "ccd++freqadap"). Each
+kernel runs on a CUDA tensor, its plain PyTorch version on a CPU tensor.
 """
 
 from matfac_tpu_torch.config import Params
@@ -27,6 +31,10 @@ from matfac_tpu_torch.data.csr import RatingMatrix
 from matfac_tpu_torch.data.dataset import Data
 from matfac_tpu_torch.data.io import split_train_test_val
 from matfac_tpu_torch.data.synthetic import low_rank_ratings
+from matfac_tpu_torch.solvers.als import (ALSSolver, DenseALSSolver,
+                                          SubspaceALSSolver)
+from matfac_tpu_torch.solvers.ccd import CCDPPSolver, CCDSolver
 
 __all__ = ["Params", "RatingMatrix", "Data", "split_train_test_val",
-           "low_rank_ratings"]
+           "low_rank_ratings", "ALSSolver", "SubspaceALSSolver",
+           "DenseALSSolver", "CCDPPSolver", "CCDSolver"]

@@ -1,6 +1,7 @@
 """The training loops and their front door (port of matfac_tpu/train/loop.py
 for plain MF, MF with biases, IFWMF, TMF and TMF+Dropout on the scatter,
-one-hot cell and row-dense engines, and plain BPR).
+one-hot cell and row-dense engines, plain MF on the coordinate family (ALS,
+CCD, CCD++), and plain BPR).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -37,8 +38,11 @@ from matfac_tpu_torch.models.bpr import ModelMFBPR
 from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
                                               ModelInvPopMF,
                                               ModelPoissonDropout)
+from matfac_tpu_torch.solvers.als import (ALSSolver, DenseALSSolver,
+                                          SubspaceALSSolver)
 from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
                                                 rating_code_scale)
+from matfac_tpu_torch.solvers.ccd import CCDPPSolver, CCDSolver
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
@@ -163,6 +167,9 @@ class TrainLoop:
                         self.log_fn(f"epoch {it}: non-finite obj/val — "
                                     f"rollback to best, lr {lr} -> {lr/2}")
                         state = _snapshot(best_state)
+                        if hasattr(self.solver, "reset"):
+                            # e.g. CCD's carried residual starts again
+                            self.solver.reset()
                         lr /= 2
                         continue
                     stop = "nan_at_min_lr"
@@ -427,9 +434,13 @@ def train_model(data, params: Params, algo: str = "mf",
     "sgdpar", "sgdu", "hogsgd" (the scatter engine, JAX's default),
     "blocksgd" (the one-hot cell engine, diag schedule), "densesgd" (the
     row-dense stripe engine, falling back to sgd for sampled ranks and to
-    blocksgd otherwise when its tiles miss the budget), or "auto" (JAX's
-    ``_auto_method``). What is not ported raises NotImplementedError
-    naming its ROADMAP item; what JAX refuses raises JAX's ValueError.
+    blocksgd otherwise when its tiles miss the budget), the coordinate
+    family "als" (bucketed, exact Cholesky), "ialspp" (iALS++ subspace
+    sweeps), "alsdense" (dense masked Grams), "ccd", "ccd++" / "ccdpp" and
+    "ccd++freqadap" (``params.ccd_group_dims`` dims a sweep), or "auto"
+    (JAX's ``_auto_method``: "als" for plain MF). What is not ported
+    raises NotImplementedError naming its ROADMAP item; what JAX refuses
+    raises JAX's ValueError.
     Returns (report, model, evaluator or scorer, (invalid_users,
     invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
@@ -539,13 +550,28 @@ def train_model(data, params: Params, algo: str = "mf",
         raise NotImplementedError(
             "mf_method='sgdparsvd' (SVD init, singular-value-weighted "
             "regularization, objective_sing) is ROADMAP queue 1, item 4")
-    elif m in ("als", "ialspp", "alsdense"):
-        raise NotImplementedError(
-            f"mf_method={mf_method!r}: ALS is ROADMAP queue 1, item 10")
-    elif m in ("ccd", "ccd++", "ccdpp", "ccd++freqadap"):
-        raise NotImplementedError(
-            f"mf_method={mf_method!r}: CCD / CCD++ are ROADMAP queue 1, "
-            "item 12")
+    elif m == "als":
+        # exact Cholesky solves (cg_iters=0), as the JAX front door builds it
+        solver = ALSSolver(model, params, data.train_mat, inval_u, inval_i,
+                           device=device)
+    elif m == "ialspp":
+        solver = SubspaceALSSolver(model, params, data.train_mat, inval_u,
+                                   inval_i, device=device)
+    elif m == "alsdense":
+        solver = DenseALSSolver(model, params, data.train_mat, inval_u,
+                                inval_i, device=device)
+    elif m == "ccd":
+        if not data.train_mat.is_sorted():
+            raise ValueError("CCD requires sorted CSR (main.cpp:1245)")
+        solver = CCDSolver(model, params, data.train_mat, inval_u, inval_i,
+                           device=device)
+    elif m in ("ccd++", "ccdpp", "ccd++freqadap"):
+        fa = m == "ccd++freqadap"
+        solver = CCDPPSolver(model, params, data.train_mat, inval_u,
+                             inval_i, freq_adaptive=fa,
+                             item_freq=item_freq if fa else None,
+                             group_dims=getattr(params, "ccd_group_dims", 1),
+                             device=device)
     else:
         raise ValueError(f"unknown mf_method {mf_method!r}; one of "
                          f"{_SOLVERS}")
