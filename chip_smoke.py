@@ -40,6 +40,19 @@ Phases, in order; any failure raises and the script exits non-zero:
       on the best view (top-10 of every user, val HR@10, top-1000, test
       ARHR, the Recommender's answers), the fused pass's memory (no score
       scratch), and the passes timed, the radix route beside the fused one.
+  (r) the BPR x TMF+Poisson hybrid at (g)'s data: train_model(
+      algo="bpr_poisson") for 3 epochs of "train" (Poisson-sampled triple
+      ranks) and 2 of "sigmoid", lr 0.1 (the JAX package's end-to-end BPR
+      run), val HR@10 after each epoch through the fused top-N kernel on
+      the CDF-truncated view (launches counted around each run), that
+      kernel held against topk_plain on the truncated best view, 4 steps
+      held against the CPU copy of the solver on the same draws and masks;
+  (s) the dense-stripe BPR engine at (g)'s data: train_model(algo="bpr",
+      bpr_engine="dense") for 3 epochs at one negative a positive, then 2
+      epochs of the panel epoch at panel_q=128 (TrainLoopHR), val HR@10
+      each epoch through the fused kernel; 1 stripe held against the CPU
+      copy on the same draws; whether two runs of an epoch repeat bit for
+      bit;
   (h) one-hot cell kernel vs plain: csrc/block_sgd.cu against the plain
       PyTorch versions on the same CUDA tensors: the row schedule, the diag
       schedule (with a dummy lane) and fused_cell_update's single cell;
@@ -80,6 +93,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   (q) CCD on the same data: train_model for ccd++ (2 epochs), ccd++ with
       ccd_group_dims=4 and ccd++freqadap (1 each), ccd (2); two runs of
       one CCD++ and one CCD epoch must be bit-identical;
+  (t) SVD-initialised SGD on (d)'s data: svd_init at k 64 timed, its
+      leading singular pair checked on the card and a 20,000-user slice
+      held against the CPU with one test matrix; train_model(mf_method=
+      "sgdparsvd") for 2 epochs: val RMSE falls from the SVD start, 4
+      batches held against the CPU copy of the solver; no hand kernel
+      (JAX uses XLA);
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -98,7 +117,9 @@ one schedule and hold them to (h)'s bf16 class, and time both. (p) and
 row blocks or a partial epoch on the card against the CPU (COORD_TOL,
 BF16_TOL; CG solves by the quadratic they minimize, CG_OBJ_RTOL), and log
 each solver's epoch ms, idle share, peak memory, top three device ops and
-bound.
+bound; (r), (s) and (t) do the same for their solvers (SCATTER_TOL,
+DENSE_BPR_TOL) and fail the run if val HR@10 does not rise, or val RMSE
+does not fall.
 
 The line before the last is a JSON record of the kernels: per kernel its
 launches on the main path, max abs error against the plain version, its
@@ -122,7 +143,7 @@ import time
 import numpy as np
 import torch
 
-from matfac_tpu_torch import (Data, Params, low_rank_ratings,
+from matfac_tpu_torch import (Data, Params, RatingMatrix, low_rank_ratings,
                               split_train_test_val)
 from matfac_tpu_torch.models.base import ModelMF, init_state
 from matfac_tpu_torch.models.longtail import poisson_cdf_table
@@ -135,12 +156,16 @@ from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_rows,
                                                     identity_quantiles,
                                                     visit_quantiles)
+from matfac_tpu_torch.ops.svd_init import svd_init
 from matfac_tpu_torch.serving import Recommender
 from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
                                                 stage_batch_collision_counts)
 from matfac_tpu_torch.solvers import als
+from matfac_tpu_torch.solvers.bpr import BPRSolver
+from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
-from matfac_tpu_torch.train.loop import TrainLoop, train_model
+from matfac_tpu_torch.train.loop import TrainLoop, TrainLoopHR, train_model
+from matfac_tpu_torch.utils import freq
 
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
 TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
@@ -604,8 +629,14 @@ def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
 def _bound(nbytes: float, flops: float, peak: str):
     """(least ms the card could take, "bytes" or "operations"): nbytes
     each read or written once at HBM rate, flops at the peak of ``peak``."""
+    return _bound_ops(nbytes, {peak: flops})
+
+
+def _bound_ops(nbytes: float, flops: dict):
+    """_bound for work of several types ({peak: flops}): the operations'
+    times at their peaks, summed, against the bytes' time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    t_ops = sum(f / PEAK_FLOPS[kind] * 1e3 for kind, f in flops.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -930,15 +961,13 @@ def _pass_bound(args: dict, n: int) -> tuple:
     return _bound(nbytes, 2.0 * B * n_items * k, "f32")
 
 
-def phase_ranking(dev="cuda"):
+def phase_ranking(data: Data, dev="cuda"):
     """(g): the main path (train with val HR@10 after each epoch, test ARHR
     at n=1000, Recommender answering 2,048 users) with the top-N counts
     zeroed just before and read after each step; then each route against
     the plain version on the best view, and timed. Returns {route:
     (launches, max abs error, kernel ms, plain ms, bound)}."""
-    data_kw, params_kw = BPR_CELL
-    data = bench_data(**data_kw)
-    params = Params(**params_kw)
+    params = Params(**BPR_CELL[1])
     n_users, n_items = data.n_users, data.n_items
     os.makedirs(RUN_DIR, exist_ok=True)
     prefix = os.path.join(RUN_DIR, "bpr")
@@ -1095,6 +1124,430 @@ def phase_ranking(dev="cuda"):
                       float(np.mean(p10)), bound10),
             "radix": (n_arhr, err_all, float(np.mean(k1k)),
                       float(np.mean(p1k)), bound1k)}
+
+
+# ----------------------------------------------------------------------
+# (r), (s): the rest of BPR at (g)'s shape, plain PyTorch around the
+# top-N kernel
+# ----------------------------------------------------------------------
+
+# The JAX package's own end-to-end BPR run at this shape steps at lr 0.1
+# (scripts/tpu_bpr_end2end.py:65). At (g)'s 0.005 the loss stays at
+# n ln 2 for the first epochs and val HR@10 does not move in 2-3 of them
+# (a rehearsal at 20k x 4k on the CPU: 0.0024 -> 0.0027 in three hybrid
+# epochs, below its start after two sigmoid ones); at 0.1 it rose to 0.25
+# (hybrid) and 0.45 (dense engine) in two.
+BPR_E2E_LR = 0.1
+# card vs CPU, the scatter engines (stream BPR, sgd) on the same draws and
+# masks: f32 sums in another order (index_add_'s atomics on the card), a
+# few steps from a trained state
+SCATTER_TOL = (1e-4, 1e-5)
+# the dense engine: the JAX package's own replica tolerance for it
+# (tests/test_bpr_dense.py: bf16 score operands, f32 sums in another order)
+DENSE_BPR_TOL = (2e-4, 2e-5)
+
+
+def _tensor_bytes(obj) -> int:
+    return sum(v.nbytes for v in vars(obj).values() if torch.is_tensor(v))
+
+
+def bpr_bound(solver, draws_bytes: int):
+    """A stream BPR epoch: the staged positives, CSR rows and sampler tables
+    and the epoch's draws read once, both tables read and written once;
+    per pair three k-dots and three k-wide gradient rows (~16k f32
+    FLOP)."""
+    k = solver.params.fac_dim
+    tables = 4 * k * (solver.model.n_users + solver.model.n_items)
+    return _bound_ops(_tensor_bytes(solver) + draws_bytes + 2 * tables,
+                      {"f32": 16.0 * k * solver.n_pos})
+
+
+def dense_bpr_bound(solver):
+    """A dense BPR epoch: the int8 mask, the staged positives and counts,
+    both tables read and written once; per stripe the bf16 score product
+    and the two f32 routing products, 2 bu ni_pad k FLOP each."""
+    k = solver.params.fac_dim
+    prod = 2.0 * solver.NU * solver.bu * solver.ni_pad * k
+    tables = 4 * k * (solver.n_users_pad + solver.ni_pad)
+    return _bound_ops(_tensor_bytes(solver) + 2 * tables,
+                      {"bf16": prod, "f32": 2 * prod})
+
+
+def _clone_state(state, device=None):
+    """A copy of every table (on ``device``, default its own): the stream
+    BPR epoch updates the tables it is given in place."""
+    return type(state)(*(t.to(device or t.device, copy=True)
+                         for t in state))
+
+
+def _hr_run(tag: str, data: Data, params: Params, algo: str, method: str,
+            dev: str):
+    """train_model with the top-N counts zeroed just before and read just
+    after; the launches must be one fused pass per HR@10 check (the
+    initial one and one an epoch), val HR@10 finite and its best above
+    the initial state's."""
+    tk.topk_catalog.launches = 0
+    t0 = time.perf_counter()
+    rep, model, scorer, _ = train_model(data, params, algo=algo,
+                                        mf_method=method, device=dev,
+                                        log_fn=lambda s: log(f"({tag}) {s}"))
+    wall = time.perf_counter() - t0
+    launches = tk.topk_catalog.launches
+    epochs = len(rep.history)
+    plan = tk.fused_plan(data.n_users, data.n_items, 10)
+    assert rep.stop_reason == "max_iter" and epochs == params.max_iter, \
+        (rep.stop_reason, epochs)
+    assert plan["route"] == "fused" and \
+        launches == (1 + epochs) * plan["launches"], (launches, plan)
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    hr0 = scorer.hit_rate(model.eval_view(s0), data.val_mat, 10)
+    hrs = [h.val_rmse for h in rep.history]
+    ok = all(np.isfinite(hrs)) and rep.best_metric > hr0
+    log(f"({tag}) {algo} {method}: {type(rep.solver).__name__}, top-N "
+        f"launches {launches} (the initial check and one an epoch, fused); "
+        f"train_model wall {wall:.1f} s; val HR@10 at init {hr0!r}, per "
+        f"epoch {hrs!r}, best {rep.best_metric!r} at epoch {rep.best_iter}; "
+        f"loss per epoch {[h.objective for h in rep.history]!r}; epoch in "
+        f"the loop {[round(1e3 * h.seconds, 3) for h in rep.history]} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"({tag}) {algo} {method}: val HR@10 did not "
+                             "rise or is not finite")
+    return rep, model, scorer, launches
+
+
+def _bpr_partial_masks(solver, border, bits, steps: int):
+    """The sampled triple masks of the first ``steps`` steps, drawn on the
+    solver's device from its mask generator, for both devices to use."""
+    B = solver.batch_size
+    masks = []
+    for t in range(steps):
+        sl = slice(int(border[t]) * B, (int(border[t]) + 1) * B)
+        neg, _ = solver.sample_rankgap(solver.pos_start[sl],
+                                       solver.pos_deg[sl], bits[t, 0],
+                                       bits[t, 1])
+        masks.append(solver.model.triple_rank_mask(
+            solver.pos_u[sl], solver.pos_i[sl], neg,
+            generator=solver.mask_gen))
+    return masks
+
+
+def _twice(tag: str, what: str, run):
+    """Two runs of one epoch from one state with one set of draws: bit-
+    identical or not, and the largest difference (logged)."""
+    a, b = run(), run()
+    diff = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a[:2], b[:2]))
+    log(f"({tag}) {what}: two runs of one epoch on the card bit-identical "
+        f"{diff == 0.0} (largest difference {diff:.3e})")
+    return diff
+
+
+def phase_hybrid(data: Data, dev="cuda") -> dict:
+    """(r): train_model(algo="bpr_poisson") at (g)'s shape, 3 epochs of
+    "train" (Poisson-sampled triple ranks) and 2 of "sigmoid" (lambda
+    itself), val HR@10 after each epoch through the fused top-N kernel on
+    the CDF-truncated view; that kernel held against topk_plain on the
+    truncated best view; 4 steps on the card held against the CPU copy of
+    the solver on the same draws and masks; epoch ms, idle share, peak
+    memory and bound. Returns {method: timing}, the top-N launches and the
+    kernel's error."""
+    out, launches, err = {}, 0, 0.0
+    for method, n in (("train", 3), ("sigmoid", 2)):
+        params = Params(**dict(BPR_CELL[1], learn_rate=BPR_E2E_LR,
+                               max_iter=n))
+        rep, model, scorer, n_launch = _hr_run("r", data, params,
+                                               "bpr_poisson", method, dev)
+        launches += n_launch
+        solver = rep.solver
+        assert isinstance(solver, BPRSolver), type(solver)
+        assert model.sample_poisson == (method == "train")
+        view = model.eval_view(rep.best_state)
+        r_u, r_i = model.rank_u, model.rank_i
+        cut = float((view.i_fac == 0).float().mean())
+        log(f"(r) {method}: inference ranks: users {int(r_u.min())}-"
+            f"{int(r_u.max())} (mean {float(r_u.float().mean()):.2f}), items "
+            f"{int(r_i.min())}-{int(r_i.max())} (mean "
+            f"{float(r_i.float().mean()):.2f}); lambda items "
+            f"{int(model.lambda_i.min())}-{int(model.lambda_i.max())}; "
+            f"{cut:.4f} of the item view's entries cut to 0")
+        assert int(r_i.min()) < params.fac_dim and cut > 0, \
+            "the eval view should be rank-truncated"
+        args = dict(u_fac=view.u_fac, i_fac=view.i_fac, i_bias=view.i_bias,
+                    u_bias=view.u_bias, mu=view.mu,
+                    invalid=scorer.invalid_items_dev, indptr=scorer.indptr,
+                    indices=scorer.indices, users=scorer._all_users)
+        ok, e, held = topk_agree(tk.topk_catalog(**args, n=10),
+                                 tk.topk_plain(**args, n=10), False)
+        err = max(err, e)
+        log(f"(r) {method}: top-10 of every user on the truncated best view, "
+            f"kernel vs plain: max_abs {e:.3e}, ids held at {held:.4f} of "
+            f"slots {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("(r) top-10 kernel vs plain on the "
+                                 "truncated view")
+        # a partial epoch on both devices: the same draws and masks
+        lr = params.learn_rate
+        border, bits = solver.draw()
+        steps = 4
+        masks = (_bpr_partial_masks(solver, border, bits, steps)
+                 if model.sample_poisson else None)
+        cpu = _cpu_copy(solver)
+        st_c = cpu.epoch_with(_clone_state(rep.state, "cpu"), lr,
+                              border[:steps],
+                              bits.cpu(), masks)
+        st_g = solver.epoch_with(_clone_state(rep.state), lr, border[:steps],
+                                 bits, masks)
+        for what, a, b in (("u", st_g.u_fac, st_c.u_fac),
+                           ("i", st_g.i_fac, st_c.i_fac)):
+            _held("r", f"{method}, {steps} steps of "
+                  f"{solver.batch_size}, {what}", a, b, SCATTER_TOL)
+        gen0 = solver.mask_gen.get_state()
+
+        def epoch_again():
+            solver.mask_gen.set_state(gen0)
+            return solver.epoch_with(_clone_state(rep.state), lr, border,
+                                     bits)
+
+        _twice("r", method, epoch_again)
+        state = _clone_state(rep.state)
+        draws_bytes = bits.nbytes + border.nbytes
+        out[method] = _time_epoch("r", f"bpr_poisson {method}",
+                                  lambda: solver.epoch(state, lr),
+                                  bpr_bound(solver, draws_bytes))
+        out[method]["pairs_per_s"] = solver.n_pos / np.mean(
+            out[method]["ms"]) * 1e3
+        log(f"(r) {method}: {solver.n_pos} positives in {solver.n_batches} "
+            f"batches, {out[method]['pairs_per_s']:.4e} pairs/s")
+        del rep, solver, scorer, cpu, st_c, st_g, state, view, args
+        torch.cuda.empty_cache()
+    return {"timings": out, "launches": launches, "max_abs_err": err}
+
+
+def phase_dense_bpr(data: Data, dev="cuda") -> dict:
+    """(s): train_model(algo="bpr", bpr_engine="dense") at (g)'s shape, 3
+    epochs at one negative a positive, then 2 epochs of the panel epoch at
+    panel_q=128 (DenseBPRSolver built directly, TrainLoopHR), val HR@10 after
+    each epoch through the fused top-N kernel; 1 stripe on the card held
+    against the CPU copy of the solver on the same draws; whether two runs
+    of an epoch repeat bit for bit; epoch ms, pairs/s, idle share, peak
+    memory and bound. Returns {mode: timing} and the top-N launches."""
+    out, launches = {}, 0
+    base = dict(BPR_CELL[1], learn_rate=BPR_E2E_LR)
+    params = Params(**dict(base, max_iter=3, bpr_engine="dense"))
+    rep, model, scorer, n_launch = _hr_run("s", data, params, "bpr",
+                                           "train", dev)
+    launches += n_launch
+    runs = [("T=1", rep.solver, rep.state)]
+    del rep
+    # the panel epoch: JAX's front door builds no panel solver, so it is
+    # built here and trained by the same loop, from the initial state
+    inval_u, inval_i = freq.invalid_users_items(data.train_mat, data.n_users,
+                                                data.n_items)
+    pp = Params(**dict(base, max_iter=2))
+    panel = DenseBPRSolver(model, pp, data.train_mat, inval_u, inval_i,
+                           panel_q=128, device=dev)
+    tk.topk_catalog.launches = 0
+    t0 = time.perf_counter()
+    prep = TrainLoopHR(model, panel, scorer, data.val_mat, pp,
+                       log_fn=lambda s: log(f"(s) {s}")).run(
+        init_state(pp, data.n_users, data.n_items, device=dev))
+    wall = time.perf_counter() - t0
+    n_launch = tk.topk_catalog.launches
+    launches += n_launch
+    s0 = init_state(pp, data.n_users, data.n_items, device=dev)
+    hr0 = scorer.hit_rate(model.eval_view(s0), data.val_mat, 10)
+    hrs = [h.val_rmse for h in prep.history]
+    ok = (all(np.isfinite(hrs)) and prep.best_metric > hr0
+          and n_launch == 3 * tk.fused_plan(data.n_users, data.n_items,
+                                            10)["launches"])
+    log(f"(s) panel_q=128 ({panel.nb} sub-batches a stripe): top-N launches "
+        f"{n_launch}; wall {wall:.1f} s; val HR@10 at init {hr0!r}, per "
+        f"epoch {hrs!r}; loss {[h.objective for h in prep.history]!r}; "
+        f"epoch in the loop {[round(1e3 * h.seconds, 3) for h in prep.history]}"
+        f" ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(s) panel epoch: val HR@10 did not rise")
+    runs.append(("panel_q=128", panel, prep.state))
+    del prep
+    for name, solver, state in runs:
+        log(f"(s) {name}: NU={solver.NU} bu={solver.bu} ni_pad="
+            f"{solver.ni_pad} S={solver.S} nb={solver.nb} (pad share "
+            f"{solver.pad_frac:.3f}); W_rows {solver.W_rows.nbytes / 1e9:.3f}"
+            f" GB int8; {solver.n_pos} positives")
+        lr = solver.params.learn_rate
+        row_of, d = solver.draw()
+        cpu = _cpu_copy(solver)
+        # one stripe: a second reads the items the first updated, and there
+        # a one-ulp f32 difference can flip a bf16 operand rounding of the
+        # score product (1e-7 relative noise on a trained state moved two
+        # stripes by 2e-4 in a rehearsal on the CPU, 20k x 4k)
+        st_c = cpu.epoch_with(_clone_state(state, "cpu"), lr, row_of[:1],
+                              d.cpu())
+        st_g = solver.epoch_with(_clone_state(state), lr, row_of[:1], d)
+        for what, a, b in (("u", st_g.u_fac, st_c.u_fac),
+                           ("i", st_g.i_fac, st_c.i_fac)):
+            _held("s", f"{name}, 1 stripe, {what}", a, b, DENSE_BPR_TOL)
+        for what, a, b in (("loss", solver.last_loss, cpu.last_loss),
+                           ("inversions", solver.last_inversions,
+                            cpu.last_inversions)):
+            log(f"(s) {name}, 1 stripe, {what}: card {float(a)!r} CPU "
+                f"{float(b)!r}")
+        del cpu, st_c, st_g
+        out[name] = dict(twice=_twice("s", name, lambda: solver.epoch_with(
+            _clone_state(state), lr, row_of, d)))
+        held = [_clone_state(state)]
+
+        def epoch():   # epochs in a row, as the loop runs them
+            held[0] = solver.epoch(held[0], lr)
+
+        out[name].update(_time_epoch("s", f"dense BPR {name}", epoch,
+                                     dense_bpr_bound(solver)))
+        ms = float(np.mean(out[name]["ms"]))
+        t = solver.panel_q or solver.n_negs
+        out[name]["pairs_per_s"] = solver.n_pos / ms * 1e3
+        log(f"(s) {name}: {out[name]['pairs_per_s']:.4e} pairs/s (positives "
+            f"an epoch second, bench.py's bpr_dense_pairs_per_sec), "
+            f"{solver.n_pos * t / ms * 1e3:.4e} (positive, negative) pairs/s "
+            f"at {t} negatives a positive")
+        del solver, state, held
+        torch.cuda.empty_cache()
+    del runs, panel
+    torch.cuda.empty_cache()
+    return {"timings": out, "launches": launches}
+
+
+def svd_bound(mat, rr: int, n_iter: int):
+    """The randomized SVD: 2 n_iter + 2 COO products, each reading the COO
+    triplets and its dense operand once and writing its output once, 2 nnz
+    rr FLOP each; 2 n_iter + 1 QRs of [n, rr] (~2 n rr^2 FLOP each, f32)."""
+    n_prod = 2 * n_iter + 2
+    coo = mat.nnz * (8 + 8 + 4)
+    dense = 4 * rr * (mat.nrows + mat.ncols)
+    qr = (n_iter + 1) * 2.0 * mat.nrows * rr * rr + n_iter * 2.0 * \
+        mat.ncols * rr * rr
+    return _bound_ops(n_prod * (coo + dense),
+                      {"f32": n_prod * 2.0 * mat.nnz * rr + qr})
+
+
+def sgd_bound(solver):
+    """A scatter SGD epoch: the staged stream read once, both tables read
+    and written once; ~8k f32 FLOP a rating."""
+    k = solver.params.fac_dim
+    tables = 4 * k * (solver.model.n_users + solver.model.n_items)
+    return _bound_ops(_tensor_bytes(solver) + 2 * tables,
+                      {"f32": 8.0 * k * solver.nnz})
+
+
+def _svd_vs_cpu(mat, k: int, dev: str, n_rows: int = 20_000) -> float:
+    """svd_init of the first ``n_rows`` users' rows on the card and on the
+    CPU with one test matrix: singular values at rtol 1e-4, vectors by
+    |u_card . u_cpu| = 1 at atol 1e-3 (either may flip a sign), as the CPU
+    parity tests hold the port to JAX. Returns the largest value error."""
+    r, c, v = mat.to_coo()
+    keep = r < n_rows
+    sub = RatingMatrix.from_coo(r[keep], c[keep], v[keep], n_rows,
+                                mat.ncols)
+    rr = min(k + 8, sub.nrows, sub.ncols)
+    omega = torch.randn(sub.ncols, rr,
+                        generator=torch.Generator().manual_seed(3)).numpy()
+    gu, gv, gs = svd_init(sub, k, omega=omega, device=dev)
+    cu, cv, cs_ = svd_init(sub, k, omega=omega, device="cpu")
+    err = float(np.abs(gs - cs_).max())
+    dots = [np.abs((a * b).sum(0)) for a, b in ((gu, cu), (gv, cv))]
+    ok = (np.allclose(gs, cs_, rtol=1e-4, atol=0)
+          and all(np.allclose(d, 1.0, atol=1e-3) for d in dots))
+    log(f"(t) svd_init of {sub.nrows} x {sub.ncols} (nnz {sub.nnz}), card vs "
+        f"CPU with one omega: singular values max_abs {err:.3e} (rtol "
+        f"1e-4), |u . u| min {float(dots[0].min()):.6f}, |v . v| min "
+        f"{float(dots[1].min()):.6f} (atol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(t) svd_init: the card disagrees with the CPU")
+    return err
+
+
+def phase_sgdparsvd(data: Data, dev="cuda") -> dict:
+    """(t): the SVD init at (d)'s shape and k 64 timed on its own (CUDA
+    synchronized) and checked on the card (orthonormal columns, descending
+    singular values, |A v_1 - s_1 u_1| / s_1 of the leading, well-separated
+    pair; the other dims' residuals logged) and against the CPU on a
+    20,000-user slice; then train_model(mf_method="sgdparsvd") for 2 epochs
+    with (d)'s Params: val RMSE falls from the SVD start; 4 batches on the
+    card held against the CPU copy of the solver on the same batch order;
+    epoch ms, idle share, peak memory and bound."""
+    params = Params(**dict(CELLS["d"][1], max_iter=2))
+    k = params.fac_dim
+    mat = data.train_mat
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u0, v0, sv = svd_init(mat, k, device=dev)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rr = min(k + 8, mat.nrows, mat.ncols)
+    bound = svd_bound(mat, rr, 6)
+    # on the card: A v_j against s_j u_j
+    ip, cols, vals = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in (mat.indptr, mat.indices, mat.values))
+    rows = torch.repeat_interleave(torch.arange(mat.nrows, device=dev),
+                                   ip[1:] - ip[:-1])
+    U, V = torch.from_numpy(u0).to(dev), torch.from_numpy(v0).to(dev)
+    av = torch.zeros(mat.nrows, k, device=dev).index_add_(
+        0, rows, vals.float()[:, None] * V[cols.long()])
+    s_t = torch.from_numpy(sv).to(dev)
+    resid = ((av - U * s_t[None, :]).norm(dim=0) / s_t).cpu().numpy()
+    ortho = float((U.t() @ U - torch.eye(k, device=dev)).abs().max())
+    ok = (bool(np.all(np.diff(sv) <= 0)) and sv[-1] > 0 and ortho < 1e-4
+          and float(resid[0]) < 1e-4)
+    log(f"(t) svd_init at {mat.nrows} x {mat.ncols}, nnz {mat.nnz}, rank "
+        f"{k} (+8 oversampled, 6 power iterations): {ms[0]:.1f} / "
+        f"{ms[1]:.1f} ms (host clock, synchronized), bound {bound[0]:.3f} ms "
+        f"({bound[1]}); singular values {sv[0]:.4f}, {sv[1]:.4f} .. "
+        f"{sv[-1]:.4f}; |U^T U - I| max {ortho:.3e}; |A v_j - s_j u_j| / "
+        f"s_j: dim 0 {float(resid[0]):.3e}, dims 1-7 max "
+        f"{float(resid[1:8].max()):.3e}, all max {float(resid.max()):.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(t) the SVD init is wrong on the card")
+    del ip, cols, vals, rows, U, V, av
+    svd_err = _svd_vs_cpu(mat, k, dev)
+    t0 = time.perf_counter()
+    rep, model, ev, _ = train_model(data, params, mf_method="sgdparsvd",
+                                    device=dev,
+                                    log_fn=lambda s: log(f"(t) {s}"))
+    wall = time.perf_counter() - t0
+    solver = rep.solver
+    assert isinstance(solver, SGDSolver) and solver.reg_vec is not None
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    s0 = s0._replace(u_fac=torch.from_numpy(u0).to(dev)[: data.n_users],
+                     i_fac=torch.from_numpy(v0).to(dev)[: data.n_items])
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    log(f"(t) sgdparsvd: train_model wall {wall:.1f} s (its own SVD init "
+        f"included); per-dim reg {float(solver.reg_vec.min()):.5f} .. "
+        f"{float(solver.reg_vec.max()):.5f}; objective_sing per epoch "
+        f"{[h.objective for h in rep.history]!r}; epoch in the loop "
+        f"{[round(1e3 * h.seconds, 3) for h in rep.history]} ms")
+    _val_falls("t", "sgdparsvd", [h.val_rmse for h in rep.history], val0,
+               rep.state)
+    border = solver.batch_order()
+    cpu = _cpu_copy(solver)
+    st_c = cpu.epoch_with(_clone_state(rep.state, "cpu"),
+                          params.learn_rate, border[:4])
+    st_g = solver.epoch_with(rep.state, params.learn_rate, border[:4])
+    for what, a, b in (("u", st_g.u_fac, st_c.u_fac),
+                       ("i", st_g.i_fac, st_c.i_fac)):
+        _held("t", f"sgdparsvd, 4 batches of {solver.batch_size}, {what}",
+              a, b, SCATTER_TOL)
+    del cpu, st_c, st_g
+    out = _time_epoch("t", "sgdparsvd (scatter SGD, per-dim reg)",
+                      lambda: solver.epoch_with(rep.state, params.learn_rate,
+                                                border), sgd_bound(solver))
+    out.update(svd_ms=ms, svd_bound=bound, svd_err=svd_err, ratings_per_s=solver.nnz / float(
+        np.mean(out["ms"])) * 1e3)
+    del rep, solver, ev
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2281,7 +2734,11 @@ def main() -> int:
     d = run_cell("d", data_d)
     e = run_cell("e")
     err_f = phase_topk_vs_plain()
-    g = phase_ranking()
+    data_g = bench_data(**BPR_CELL[0])
+    g = phase_ranking(data_g)
+    hyb = phase_hybrid(data_g)
+    dbpr = phase_dense_bpr(data_g)
+    del data_g
     block = phase_block_vs_plain()
     (n_i, err_i, k_i, p_i, bound_i), cell, ev, inval, s0 = \
         phase_blocksgd(data_d)
@@ -2293,6 +2750,7 @@ def main() -> int:
     phase_scatter(data_d)
     phase_als(data_d)
     phase_ccd(data_d)
+    phase_sgdparsvd(data_d)
     probes = phase_probes()
 
     float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS
@@ -2325,8 +2783,10 @@ def main() -> int:
               n["ms"], n["plain_ms"], (n["bound_ms"], n["bound_by"]),
               n["library_ms"], stripe_lib),
         entry("topk_catalog<fused>", TOPK_SOURCE,
-              "matfac_tpu/ops/topk_kernel.py:118", g["fused"][0],
-              max(err_f, g["fused"][1]), *g["fused"][2:]),
+              "matfac_tpu/ops/topk_kernel.py:118",
+              g["fused"][0] + hyb["launches"] + dbpr["launches"],
+              max(err_f, g["fused"][1], hyb["max_abs_err"]),
+              *g["fused"][2:]),
         entry("topk_catalog<radix>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118", g["radix"][0],
               max(err_f, g["radix"][1]), *g["radix"][2:]),

@@ -1,6 +1,6 @@
-"""Pointwise evaluation: RMSE, the regularized objective and NDCG@n (port
-of matfac_tpu/eval/metrics.py; ``objective_sing`` and
-``full_low_rank_err`` are ROADMAP queue 1, item 4).
+"""Pointwise evaluation: RMSE, the regularized objective, the
+singular-value-weighted objective, the low-rank recovery error and NDCG@n
+(port of matfac_tpu/eval/metrics.py).
 
 Semantics of the reference (model.cpp:214-251 RMSE with invalid
 filtering, model.cpp:1770-1815 objective). Torch runs eagerly, so the COO
@@ -133,6 +133,56 @@ class Evaluator:
                                self.valid_u, self.valid_i, float(p.u_reg),
                                float(p.i_reg))
         return float(s + reg)
+
+    def objective_sing(self, view: EvalView, state, singular_vals) -> float:
+        """objectiveSing (model.cpp:1818-1865): SSE(train) plus the L2
+        penalty of each dim weighted by its singular value, with NO
+        u_reg / i_reg scaling."""
+        s, _ = sse(view, self.train_coo)
+        sv = torch.as_tensor(np.asarray(singular_vals, np.float32),
+                             device=self.device)[None, :]
+        u = ((state.u_fac * state.u_fac * sv).sum(dim=1)
+             * self.valid_u).sum(dtype=torch.float64)
+        i = ((state.i_fac * state.i_fac * sv).sum(dim=1)
+             * self.valid_i).sum(dtype=torch.float64)
+        return float(s + float(u) + float(i))
+
+    def full_low_rank_err(self, view: EvalView, orig_u_fac, orig_i_fac,
+                          exclude_rated: bool = True,
+                          user_block: int = 512) -> float:
+        """fullLowRankErr (model.cpp:1942-2038): RMSE between the model and
+        a known ground-truth low-rank model over all valid (user, item)
+        cells, train-rated cells excluded unless ``exclude_rated`` is
+        False (synthetic-recovery validation). Dense, a user block at a
+        time."""
+        dev = self.device
+        ou = torch.as_tensor(np.asarray(orig_u_fac, np.float32), device=dev)
+        oi = torch.as_tensor(np.asarray(orig_i_fac, np.float32), device=dev)
+        n_users = self.n_users
+        if exclude_rated:
+            cols, _, mask = self._data.train_mat.pad_rows()
+            pad = max(n_users - cols.shape[0], 0)
+            rated_cols = torch.from_numpy(np.pad(
+                cols, ((0, pad), (0, 0))).astype(np.int64)).to(dev)
+            rated_mask = torch.from_numpy(np.pad(
+                mask, ((0, pad), (0, 0)))).to(dev)
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        count = torch.zeros((), dtype=torch.float64, device=dev)
+        for s in range(0, n_users, user_block):
+            e = min(s + user_block, n_users)
+            pred = (view.mu + view.u_bias[s:e, None] + view.i_bias[None, :]
+                    + view.u_fac[s:e] @ view.i_fac.t())
+            orig = ou[s:e] @ oi.t()
+            ok = self.valid_u[s:e, None] * self.valid_i[None, :]
+            if exclude_rated:
+                m = rated_mask[s:e]
+                rows = torch.arange(e - s, device=dev)[:, None].expand_as(m)
+                ok = ok.clone()
+                ok[rows[m], rated_cols[s:e][m]] = 0.0
+            d = (orig - pred) * ok
+            total += (d * d).sum(dtype=torch.float64)
+            count += ok.sum(dtype=torch.float64)
+        return float(np.sqrt(float(total) / max(float(count), 1.0)))
 
     # -- NDCG ----------------------------------------------------------
     def _padded_test(self, which: str):

@@ -1,5 +1,5 @@
 """BPR pairwise-ranking SGD with CSR gap negative sampling (port of
-matfac_tpu/solvers/bpr.py; plain BPR, so no triple rank masks).
+matfac_tpu/solvers/bpr.py).
 
 ModelMFBPR::train / trainHogPosNeg (modelMFBPR.cpp:245-722). Positives are
 train entries with rating > 0 and valid user and item (getBPRUIRatings,
@@ -25,7 +25,10 @@ The pairwise step (modelMFBPR.cpp:501-521), batched, from the factors at
 the batch's start: r_uij = <p_u, q_p - q_n>, c = -1 / (1 + e^r_uij),
 p_u -= lr (c (q_p - q_n) + 2 u_reg p_u), q_p -= lr (c p_u + 2 i_reg q_p),
 q_n -= lr (-c p_u + 2 i_reg q_n); duplicates add up (``index_add_``, as
-``.at[].add``), the item scatter over the fused [p; neg] index.
+``.at[].add``), the item scatter over the fused [p; neg] index. A model
+with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in r_uij
+and all three gradients; the mask of each step is drawn from the solver's
+second generator (``mask_gen``), or given to ``epoch_with``.
 
 What the port keeps from the JAX package: each epoch's randomness is one
 batch order ``border`` [n_batches] and one tensor of 32-bit random words
@@ -54,23 +57,26 @@ from matfac_tpu_torch.models.base import MFState
 _WORD = 1 << 32
 
 
-def bpr_pair_terms(pu, qp, qn, w, u_reg: float, i_reg: float):
+def bpr_pair_terms(pu, qp, qn, w, u_reg: float, i_reg: float, m=None):
     """Batched pairwise BPR loss and analytic gradients
     (modelMFBPR.cpp:501-521) of the per-triple loss
 
-        w * [ ln(1 + e^{-r_uij}) + u_reg ||pu||^2
-              + i_reg (||qp||^2 + ||qn||^2) ]
+        w * [ ln(1 + e^{-r_uij}) + u_reg ||pu ⊙ m||^2
+              + i_reg (||qp ⊙ m||^2 + ||qn ⊙ m||^2) ]
 
-    with r_uij = <pu, qp − qn> (the JAX version's rank mask m is None for
-    plain BPR). Returns (gu, gp, gn, r_uij, loss_sum); loss_sum is the
-    data term only, computed as logaddexp(0, -r) so it stays finite at
-    |r| ~ 1e3 in f32."""
-    r_uij = (pu * qp).sum(dim=1) - (pu * qn).sum(dim=1)
+    with r_uij = <pu ⊙ m, qp − qn>; ``m`` is the [B, k] triple rank mask,
+    None (all ones) for plain BPR. Returns (gu, gp, gn, r_uij, loss_sum);
+    loss_sum is the data term only, computed as logaddexp(0, -r) so it
+    stays finite at |r| ~ 1e3 in f32."""
+    pm = pu if m is None else pu * m
+    r_uij = (pm * qp).sum(dim=1) - (pm * qn).sum(dim=1)
     loss_sum = (w * torch.logaddexp(torch.zeros_like(r_uij), -r_uij)).sum()
     coeff = w * (-1.0 / (1.0 + torch.exp(r_uij)))
     gu = coeff[:, None] * (qp - qn) + 2.0 * u_reg * w[:, None] * pu
     gp = coeff[:, None] * pu + 2.0 * i_reg * w[:, None] * qp
     gn = -coeff[:, None] * pu + 2.0 * i_reg * w[:, None] * qn
+    if m is not None:
+        gu, gp, gn = gu * m, gp * m, gn * m
     return gu, gp, gn, r_uij, loss_sum
 
 
@@ -166,6 +172,10 @@ class BPRSolver:
             self.train_user_start = as_t(ip[tu])
             self.train_user_deg = as_t(np.maximum(ip[tu + 1] - ip[tu], 1))
         self.generator = torch.Generator(device=dev).manual_seed(params.seed)
+        # the triple rank masks of a sampled-rank model are drawn where the
+        # indices live
+        self.mask_gen = torch.Generator(device=dev).manual_seed(
+            params.seed + 47)
         self.last_loss = torch.zeros((), device=dev)
         self.last_inversions = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -266,34 +276,48 @@ class BPRSolver:
         return border, bits
 
     def internal_state(self) -> dict:
-        """What an exact resume needs besides the factor tables."""
-        return {"gen": self.generator.get_state().numpy()}
+        """What an exact resume needs besides the factor tables: both
+        generators."""
+        return {"gen": self.generator.get_state().cpu().numpy(),
+                "mask_gen": self.mask_gen.get_state().cpu().numpy()}
 
     def set_internal_state(self, st: dict) -> None:
+        as_state = lambda a: torch.from_numpy(np.asarray(a, np.uint8))
         if "gen" in st:
-            self.generator.set_state(
-                torch.from_numpy(np.asarray(st["gen"], np.uint8)))
+            self.generator.set_state(as_state(st["gen"]))
+        if "mask_gen" in st:
+            self.mask_gen.set_state(as_state(st["mask_gen"]))
 
-    def _step(self, st: MFState, u, p, neg, w, lr: float):
+    def _step(self, st: MFState, u, p, neg, w, lr: float, m=None):
         params = self.params
+        if m is None:
+            m = self.model.triple_rank_mask(u, p, neg,
+                                            generator=self.mask_gen)
         pu, qp, qn = st.u_fac[u], st.i_fac[p], st.i_fac[neg]
         gu, gp, gn, r_uij, loss = bpr_pair_terms(
-            pu, qp, qn, w, float(params.u_reg), float(params.i_reg))
+            pu, qp, qn, w, float(params.u_reg), float(params.i_reg), m)
         inv = ((-r_uij > float(params.eps)) & (w > 0)).sum()
         st.u_fac.index_add_(0, u, (-lr * gu).to(st.u_fac.dtype))
         st.i_fac.index_add_(0, torch.cat([p, neg]),
                             (-lr * torch.cat([gp, gn])).to(st.i_fac.dtype))
         return loss, inv
 
-    def epoch_with(self, state: MFState, lr: float, border, bits) -> MFState:
-        """One epoch on the given draws (see ``draw``)."""
+    def epoch_with(self, state: MFState, lr: float, border, bits,
+                   masks=None) -> MFState:
+        """One epoch on the given draws (see ``draw``). ``masks``: the
+        triple rank mask of each step, [B, k] 0/1 (step t uses masks[t]),
+        in place of the model's, e.g. the draws of the JAX engine; None asks
+        the model (a sampled-rank model draws from ``mask_gen``)."""
         loss = torch.zeros((), device=self.device)
         inv = torch.zeros((), dtype=torch.int64, device=self.device)
         B = self.batch_size
         bits = bits.to(self.device)
+        mask_of = lambda t: (None if masks is None else torch.as_tensor(
+            masks[t], dtype=torch.float32, device=self.device))
         if self.mode == "posneg":
             for b in range(self.n_batches):
-                bl, bi = self._step(state, *self.sample_posneg(bits[b]), lr)
+                bl, bi = self._step(state, *self.sample_posneg(bits[b]), lr,
+                                    mask_of(b))
                 loss, inv = loss + bl, inv + bi
         else:
             # step t takes batch border[t] and the words bits[t]
@@ -308,7 +332,7 @@ class BPRSolver:
                                               bits[t, 1])
                 w = self.pos_valid[sl] * ok.to(torch.float32)
                 bl, bi = self._step(state, self.pos_u[sl], self.pos_i[sl],
-                                    neg, w, lr)
+                                    neg, w, lr, mask_of(t))
                 loss, inv = loss + bl, inv + bi
         self.last_loss, self.last_inversions = loss, inv
         return state

@@ -247,14 +247,3 @@ def test_bpr_training_lifts_hr(lo_data):
                                         mf_method="auto", device="cpu",
                                         log_fn=lambda s: None)
     assert rep.best_metric > 0.3 and rep.best_iter >= 0
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(algo="bpr_poisson"), "item 11"),
-    (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11")])
-def test_unported_bpr_variants_raise_naming_their_roadmap_item(
-        lo_data, kw, item):
-    kw = dict(kw)
-    p = _bpr_params(**kw.pop("params", {}))
-    with pytest.raises(NotImplementedError, match=item):
-        train_model(lo_data, p, device="cpu", log_fn=lambda s: None, **kw)

@@ -359,17 +359,14 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mf_method="sgdparsvd"), "item 4"),
     (dict(algo="tmf_bias"), "item 14"),
     (dict(algo="mf_loc", mf_method="blocksgd"), "item 14"),
-    (dict(algo="bpr", params=dict(bpr_engine="dense")), "item 11"),
-    (dict(mesh=object()), "item 13"), (dict(algo="bpr_poisson"), "item 11")])
+    (dict(mesh=object()), "item 13")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    """BPR is ported; its dense engine (stream mode) and the BPR x
-    TMF+Poisson hybrid are not; neither are sgdparsvd, mesh training and
-    the othersrc models. The paths that train (the default sgd, TMF and
-    TMF+Dropout on densesgd, 'auto' for every model, ALS and CCD) are
-    cases of the parity tests below."""
+    """Mesh training and the othersrc models are not ported. The paths
+    that train (the default sgd, TMF and TMF+Dropout on densesgd, 'auto'
+    for every model, ALS, CCD, sgdparsvd, and BPR and its hybrid on both
+    pairwise engines) are cases of the parity tests."""
     data, p = _data()
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
