@@ -99,6 +99,21 @@ Phases, in order; any failure raises and the script exits non-zero:
       "sgdparsvd") for 2 epochs: val RMSE falls from the SVD start, 4
       batches held against the CPU copy of the solver; no hand kernel
       (JAX uses XLA);
+  (u) the port's front door at (d)'s width: (d)'s splits written once
+      through the port's write_csr (the val split also the probe matrix),
+      then ``matfac_tpu_torch.cli.main`` in process for mf_headwt with
+      --mf_method auto (the one-hot kernel, float weights; 2 epochs) and
+      densesgd (the stripe kernel, bf16 W; 4 epochs at lr 0.1, val RMSE
+      down by 1% at least), tmf_bias, mf_loc and dropoutmf_ordered (2
+      epochs each, the scatter engine), mf_freq (5 stages of 1 epoch),
+      increment (6 epochs, a growth check at epoch 5) and bpr (2 epochs at
+      lr 0.1; the top-N kernel, fused for val and test HR@10 and radix for
+      test ARHR), tmf_bias alone writing its text checkpoints: each run's
+      report lines, epoch ms, idle share, peak memory, checkpoint seconds
+      and val metric before and after (it must improve); one stripe
+      epoch, one one-hot epoch and the top-10 / top-1000 passes of these
+      runs held against their plain versions, and the ranking run's
+      quartile_ranking_report;
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -133,7 +148,9 @@ Without a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -145,6 +162,10 @@ import torch
 
 from matfac_tpu_torch import (Data, Params, RatingMatrix, low_rank_ratings,
                               split_train_test_val)
+from matfac_tpu_torch import cli
+from matfac_tpu_torch.data import io as mfio
+from matfac_tpu_torch.eval.quartile import quartile_ranking_report
+from matfac_tpu_torch.models import increment as inc_mod
 from matfac_tpu_torch.models.base import ModelMF, init_state
 from matfac_tpu_torch.models.longtail import poisson_cdf_table
 from matfac_tpu_torch.ops import _build
@@ -164,6 +185,8 @@ from matfac_tpu_torch.solvers import als
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
+from matfac_tpu_torch.train import checkpoint as ckpt_mod
+from matfac_tpu_torch.train import loop as loop_mod
 from matfac_tpu_torch.train.loop import TrainLoop, TrainLoopHR, train_model
 from matfac_tpu_torch.utils import freq
 
@@ -2235,6 +2258,326 @@ def phase_scatter(data: Data, dev="cuda"):
 
 
 # ----------------------------------------------------------------------
+# (u): the port's front door, python -m matfac_tpu_torch.cli, at (d)'s width
+# ----------------------------------------------------------------------
+
+# (d)'s Params as flags (bench.py's k 64, reg 0.01, seed 0); the val split
+# is the probe matrix (--graphmat) of ModelIncrement
+CLI_FLAGS = ["--facdim", "64", "--ureg", "0.01", "--ireg", "0.01", "--seed",
+             "0"]
+# (tag, flags) of each run, in order. Learn rates: the one-hot engine at
+# (i)'s 0.005; the scatter engines at (o)'s 0.05; the stripe engine at 0.1
+# for 4 epochs: it takes one collision-normalized step a user an epoch, so
+# from the uniform(-0.01, 0.01) start (d)'s lr 0.05 moves val RMSE by
+# ~1e-5 in 2 epochs and by 3% only at epoch 5, and the run is held to a
+# relative drop of at least CLI_MIN_DROP;
+# ModelIncrement's scatter sums colliding gradients with no collision
+# normalization, and its hottest item takes ~89 of a 16,384 batch here
+# (the same shares at a tenth of the users on the CPU), where lr 0.005
+# diverged and rolled every entity back at the growth check and 0.002
+# trained (val RMSE 3.264 -> 3.216 in 6 epochs, every entity grown); BPR
+# at (r)'s lr 0.1, reg 0.001 and 65,536-pair batches.
+CLI_RUNS = (
+    ("mf_headwt auto", ["--algo", "mf_headwt", "--mf_method", "auto",
+                        "--maxiter", "2", "--learnrate", "0.005"]),
+    ("mf_headwt densesgd", ["--algo", "mf_headwt", "--mf_method",
+                            "densesgd", "--maxiter", "4", "--learnrate",
+                            "0.1"]),
+    ("tmf_bias", ["--algo", "tmf_bias", "--maxiter", "2", "--learnrate",
+                  "0.05"]),
+    ("mf_loc", ["--algo", "mf_loc", "--maxiter", "2", "--learnrate",
+                "0.05"]),
+    ("dropoutmf_ordered", ["--algo", "dropoutmf_ordered", "--maxiter", "2",
+                           "--learnrate", "0.05"]),
+    ("mf_freq", ["--algo", "mf_freq", "--maxiter", "1", "--learnrate",
+                 "0.05"]),
+    ("increment", ["--algo", "increment", "--maxiter", "6", "--learnrate",
+                   "0.002"]),
+    ("bpr", ["--algo", "bpr", "--mf_method", "train", "--maxiter", "2",
+             "--learnrate", "0.1", "--ureg", "0.001", "--ireg", "0.001",
+             "--batchsize", "65536"]),
+)
+# the least relative drop of val RMSE, init to best, a run is held to
+# beyond "improves"
+CLI_MIN_DROP = {"mf_headwt densesgd": 0.01}
+# the one run that writes its text checkpoints (a bias model's factors,
+# biases and mu) and times them; the others pass an empty --prefix, which
+# writes nothing (tests/test_torch_cli.py holds the files to JAX's)
+CLI_CKPT_RUN = "tmf_bias"
+
+
+class _Recorded:
+    """Wraps the front door's train_model and each engine's epoch for one
+    CLI run: what train_model was given and returned, each epoch's CUDA
+    events, and the last epoch call (to replay it under the profiler)."""
+
+    EPOCHS = ((SGDSolver, "epoch"), (BlockSGDSolver, "epoch"),
+              (BPRSolver, "epoch"), (inc_mod, "increment_epoch"))
+    SAVES = ("save_facs", "save_full", "save_state", "save_invalid")
+
+    def __enter__(self):
+        self.calls, self.events, self.last = [], [], None
+        self.saves, self.save_s, self.depth = 0, 0.0, 0
+        real = loop_mod.train_model
+
+        def train(data, params, **kw):
+            out = real(data, params, **kw)
+            self.calls.append((data, params, kw, out))
+            return out
+
+        self.saved = [(loop_mod, "train_model", real)]
+        loop_mod.train_model = train
+        for owner, name in self.EPOCHS:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(fn))
+        for name in self.SAVES:
+            fn = getattr(ckpt_mod, name)
+            self.saved.append((ckpt_mod, name, fn))
+            setattr(ckpt_mod, name, self._host_timed(fn))
+        return self
+
+    def _host_timed(self, fn):
+        # outermost calls only: save_full calls save_facs
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            self.depth += 1
+            out = fn(*args, **kw)
+            self.depth -= 1
+            if not self.depth:
+                self.saves += 1
+                self.save_s += time.perf_counter() - t0
+            return out
+        return call
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            self.last = lambda: fn(*args, **kw)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def epoch_ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _cli_run(tag: str, argv: list) -> dict:
+    """One in-process ``cli.main(argv)`` with the kernel counts zeroed just
+    before and read just after; its printed lines logged. Returns what the
+    run recorded, its counts, output, wall seconds, peak memory and its
+    checkpoint writes (count, seconds)."""
+    drk.dense_rows_epoch.launches = 0
+    tk.topk_catalog.launches = 0
+    _zero_block_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _Recorded() as rec, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(stripe=drk.dense_rows_epoch.launches,
+                  topk=tk.topk_catalog.launches,
+                  diag=bsk.block_sgd_diag_epoch.launches,
+                  row=bsk.block_sgd_epoch.launches,
+                  cell=sk.fused_cell_update.launches)
+    out = buf.getvalue().splitlines()
+    dump = set(cli.params_from_args(
+        cli.build_parser().parse_args(argv)).display().splitlines())
+    for line in out:
+        if line.strip() and line not in dump:   # all but the Params dump
+            log(f"(u) {tag} | {line}")
+    assert rc == 0 and len(rec.calls) == 1, (rc, len(rec.calls))
+    data, params, kw, (rep, model, ev, inval) = rec.calls[0]
+    resolved = [s.split("'")[1] for s in out if "resolved to" in s]
+    return dict(data=data, params=params, rep=rep, model=model, ev=ev,
+                inval=inval, counts=counts, out=out, wall=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                epoch_ms=rec.epoch_ms(), replay=rec.last,
+                resolved=resolved[0] if resolved else None,
+                saves=(rec.saves, rec.save_s))
+
+
+def phase_cli(data: Data, dev="cuda") -> dict:
+    """(u): (d)'s splits written once through the port's write_csr (the val
+    split also as --graphmat), then ``cli.main`` in process for each of
+    CLI_RUNS: the stripe kernel (mf_headwt densesgd, bf16 W of 0.8 ->
+    0.80078125), the one-hot kernel (mf_headwt auto -> blocksgd), the
+    scatter engine's othersrc models, the mf_freq curriculum (5 stages of
+    1 epoch), ModelIncrement (6 epochs, a growth check at epoch 5) and BPR
+    (the top-N kernel, fused for val and test HR@10, radix for test ARHR).
+    Per run: the report's lines, epoch ms (CUDA events), the idle share of
+    a replayed epoch (torch.profiler), peak memory, the resolved method,
+    the val metric at init and at its best (must improve and be finite),
+    the kernel launches against the plan; CLI_CKPT_RUN alone writes (and
+    times) its checkpoints; then one stripe epoch, one
+    one-hot epoch and one top-N pass of these runs held against their
+    plain versions. Returns {kernel: (launches, max abs error)}."""
+    t_phase = time.perf_counter()
+    d = os.path.join(RUN_DIR, "cli")
+    os.makedirs(d, exist_ok=True)
+    paths = {}
+    for name, mat in (("train", data.train_mat), ("test", data.test_mat),
+                      ("val", data.val_mat)):
+        paths[name] = os.path.join(d, f"{name}.csr")
+        t0 = time.perf_counter()
+        mfio.write_csr(mat, paths[name])
+        log(f"(u) write_csr {name}: {mat.nnz} ratings, "
+            f"{os.path.getsize(paths[name]) / 1e6:.1f} MB in "
+            f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    back = mfio.read_csr(paths["train"])
+    read_s = time.perf_counter() - t0
+    # "%g" keeps 6 significant digits: a relative error up to 5e-6
+    same = (np.array_equal(back.indptr, data.train_mat.indptr)
+            and np.array_equal(back.indices, data.train_mat.indices)
+            and np.allclose(back.values, data.train_mat.values, rtol=1e-5,
+                            atol=0))
+    log(f"(u) read_csr train: {read_s:.2f} s; the same matrix (values to "
+        f"the text's 6 digits) {same}")
+    assert same, "read_csr did not read back what write_csr wrote"
+    files = ["--trainmat", paths["train"], "--testmat", paths["test"],
+             "--valmat", paths["val"], "--graphmat", paths["val"]]
+    out = {"stripe": [0, 0.0], "diag": [0, 0.0], "fused": [0, 0.0],
+           "radix": [0, 0.0]}
+    for tag, flags in CLI_RUNS:
+        prefix = (os.path.join(d, tag.replace(" ", "_"))
+                  if tag == CLI_CKPT_RUN else "")
+        argv = files + CLI_FLAGS + flags + ["--prefix", prefix]
+        r = _cli_run(tag, argv)
+        rep, model, ev, params, c = (r["rep"], r["model"], r["ev"],
+                                     r["params"], r["counts"])
+        cd = r["data"]
+        solver = rep.solver
+        n, m = cd.n_users, cd.n_items
+        s0 = init_state(params, n, m, device=dev)
+        ranking = getattr(model, "is_ranking", False)
+        if ranking:
+            before = ev.hit_rate(model.eval_view(s0), cd.val_mat, 10)
+            improved = rep.best_metric > before
+        else:
+            m0 = (inc_mod.ModelIncrement(params, n, m) if tag == "increment"
+                  else model)
+            before = ev.rmse(m0.eval_view(m0.transform_init_state(s0)),
+                             "val")
+            improved = rep.best_metric < before * (
+                1 - CLI_MIN_DROP.get(tag, 0.0))
+        ok = improved and np.isfinite(rep.best_metric)
+        ms = r["epoch_ms"]
+        rep_ms = _cuda_ms(r["replay"])
+        busy, top = _device_profile(r["replay"])
+        idle = (f"{1 - busy / rep_ms:.3f}" if busy else
+                "not measured (no device event in the trace)")
+        log(f"(u) {tag}: {type(solver).__name__ if solver else 'no solver'}"
+            f"{' (auto -> ' + r['resolved'] + ')' if r['resolved'] else ''}"
+            f"; {len(ms)} epochs, epoch ms (CUDA events) "
+            f"{[round(x, 3) for x in ms]}; a replayed epoch {rep_ms:.3f} ms, "
+            f"device busy {busy:.3f} ms, idle share {idle}"
+            f"; peak memory {r['peak_gb']:.2f} GB; cli.main wall "
+            f"{r['wall']:.1f} s, {r['saves'][0]} checkpoint writes in "
+            f"{r['saves'][1]:.2f} s; launches {c}; val "
+            f"{'HR@10' if ranking else 'RMSE'} at init {before!r}, best "
+            f"{rep.best_metric!r} (epoch {rep.best_iter}) "
+            f"{'ok' if ok else 'FAIL'}; top device ops {top}")
+        if not ok:
+            raise AssertionError(f"(u) {tag}: the val metric did not "
+                                 "improve (by CLI_MIN_DROP) or is not "
+                                 "finite")
+        assert (r["saves"][0] > 0) == (tag == CLI_CKPT_RUN), r["saves"]
+        assert any(s.startswith("stop: ") for s in r["out"]), r["out"]
+        for t in (rep.best_state.u_fac, rep.best_state.i_fac):
+            assert bool(torch.isfinite(t).all())
+        if tag == "mf_headwt auto":
+            assert r["resolved"] == "blocksgd" and isinstance(
+                solver, BlockSGDSolver) and solver.schedule == "diag"
+            assert (c["diag"], c["row"], c["cell"], c["stripe"]) == \
+                (params.max_iter, 0, 0, 0), c
+            sched = bsk.diag_schedule(torch.Generator().manual_seed(1),
+                                      solver.NU, solver.NI,
+                                      solver.S // solver.bs)
+            err, k_ms, p_ms = _replay("u", solver, s0, params.learn_rate,
+                                      sched)
+            log(f"(u) {tag}: one-hot diag epoch (float weights) kernel "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
+            out["diag"] = [c["diag"], err]
+        elif tag == "mf_headwt densesgd":
+            assert solver.engine == "dense" and \
+                solver.W_rows.dtype == torch.bfloat16, solver.W_rows.dtype
+            w = torch.unique(solver.W_rows[0]).float().tolist()
+            log(f"(u) {tag}: bf16 R {solver.R_rows.dtype}, weights of "
+                f"stripe 0 {w}")
+            assert 0.80078125 in w and 1.0 in w, w
+            want = params.max_iter * drk.epoch_launches(
+                solver.NU, params.fac_dim, solver.mm_bf16)
+            assert c["stripe"] == want and c["diag"] == 0, (c, want)
+            err, k_ms, p_ms = _check_and_time("u", solver, s0,
+                                              params.learn_rate)
+            log(f"(u) {tag}: stripe epoch (bf16 W) kernel {k_ms:.3f} ms, "
+                f"plain {p_ms:.3f} ms")
+            out["stripe"] = [c["stripe"], err]
+        elif ranking:
+            p10 = tk.pass_launches(n, m, 10)
+            p1k = tk.pass_launches(n, m, 1000)
+            # val HR@10 at init and after each epoch, test HR@10: fused;
+            # test ARHR: radix
+            assert tk.fused_plan(n, m, 10)["route"] == "fused" and \
+                tk.fused_plan(n, m, 1000)["route"] == "radix"
+            want = (params.max_iter + 2) * p10 + p1k
+            assert c["topk"] == want, (c, want)
+            view = model.eval_view(rep.best_state)
+            args = dict(u_fac=view.u_fac, i_fac=view.i_fac,
+                        i_bias=view.i_bias, u_bias=view.u_bias, mu=view.mu,
+                        invalid=ev.invalid_items_dev, indptr=ev.indptr,
+                        indices=ev.indices, users=ev._all_users)
+            errs = []
+            for nn in (10, 1000):
+                ok_n, e_n, held = topk_agree(tk.topk_catalog(**args, n=nn),
+                                             tk.topk_plain(**args, n=nn),
+                                             False)
+                log(f"(u) {tag}: top-{nn} of all {n} users on the best "
+                    f"view, kernel vs plain: max_abs {e_n:.3e}, ids held "
+                    f"at {held:.4f} of slots {'ok' if ok_n else 'FAIL'}")
+                if not ok_n:
+                    raise AssertionError(f"(u) top-{nn} kernel vs plain")
+                errs.append(e_n)
+            tk.topk_catalog.launches = 0
+            report = quartile_ranking_report(view, cd, ev, *r["inval"])
+            for line in report.splitlines():
+                log(f"(u) {tag} quartile_ranking_report | {line}")
+            assert tk.topk_catalog.launches == p10 + p1k
+            out["fused"] = [(params.max_iter + 2) * p10, errs[0]]
+            out["radix"] = [p1k, errs[1]]
+        else:
+            assert c["stripe"] == c["diag"] == c["topk"] == 0, c
+        if tag == "mf_freq":
+            stages = [s for s in r["out"] if "mf_freq stage" in s]
+            assert len(stages) == 5 and len(rep.history) == 5, stages
+        if tag == "increment":
+            inc = rep.increment
+            assert [h[0] for h in inc.history] == [5], inc.history
+            log(f"(u) increment: growth {inc.history}, ranks users "
+                f"{np.bincount(inc.rank_u).nonzero()[0].tolist()} items "
+                f"{np.bincount(inc.rank_i).nonzero()[0].tolist()}")
+        if tag == "dropoutmf_ordered":
+            assert tuple(model.eval_view(s0).u_fac.shape) == (n, 128)
+        del r, rep, model, ev, solver
+        torch.cuda.empty_cache()
+    log(f"(u) phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 # (p), (q): the coordinate family, plain PyTorch (no hand kernel)
 # ----------------------------------------------------------------------
 
@@ -2724,34 +3067,63 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; nothing to run",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    laps = []
+
+    def lap(tag: str) -> None:
+        """Seconds since the previous lap, for the budget of the script."""
+        laps.append((tag, round(time.perf_counter() - t_start
+                                - sum(t for _, t in laps), 1)))
+
     smi = phase_env()
     phase_build()
+    lap("a, b")
     worst = phase_kernel_vs_plain()
     exact = phase_bf16_rounding()
     phase_codes_vs_float()
     masked = phase_masked_vs_plain()
+    lap("c")
     data_d = bench_data(**CELLS["d"][0])
     d = run_cell("d", data_d)
+    lap("d")
     e = run_cell("e")
+    lap("e")
     err_f = phase_topk_vs_plain()
+    lap("f")
     data_g = bench_data(**BPR_CELL[0])
     g = phase_ranking(data_g)
+    lap("g")
     hyb = phase_hybrid(data_g)
+    lap("r")
     dbpr = phase_dense_bpr(data_g)
+    lap("s")
     del data_g
     block = phase_block_vs_plain()
+    lap("h")
     (n_i, err_i, k_i, p_i, bound_i), cell, ev, inval, s0 = \
         phase_blocksgd(data_d)
+    lap("i")
     err_j = phase_longtail(data_d)
+    lap("j")
     n_k, err_k, k_k, p_k, bound_k = phase_rows(data_d, ev, inval, s0)
+    lap("k")
     del ev
     l_ = run_cell("l", data_d)
+    lap("l")
     n = phase_longtail_dense(data_d)
+    lap("n")
     phase_scatter(data_d)
+    lap("o")
     phase_als(data_d)
+    lap("p")
     phase_ccd(data_d)
+    lap("q")
     phase_sgdparsvd(data_d)
+    lap("t")
+    cli_k = phase_cli(data_d)
+    lap("u")
     probes = phase_probes()
+    lap("m")
 
     float_err = max(max(worst[t], exact[t]) for t in TILE_KINDS
                     if t != "codes")
@@ -2768,8 +3140,10 @@ def main() -> int:
 
     kernels = [
         entry("dense_rows<f32|bf16 R; int8|bf16|f32 W>", SOURCE,
-              "matfac_tpu/ops/dense_row_kernel.py:108", d["launches"],
-              max(float_err, d["max_abs_err"], l_["max_abs_err"]), d["ms"],
+              "matfac_tpu/ops/dense_row_kernel.py:108",
+              d["launches"] + cli_k["stripe"][0],
+              max(float_err, d["max_abs_err"], l_["max_abs_err"],
+                  cli_k["stripe"][1]), d["ms"],
               d["plain_ms"], (d["bound_ms"], d["bound_by"]),
               d["library_ms"], stripe_lib),
         entry("dense_rows<int8 codes>", SOURCE,
@@ -2784,15 +3158,20 @@ def main() -> int:
               n["library_ms"], stripe_lib),
         entry("topk_catalog<fused>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118",
-              g["fused"][0] + hyb["launches"] + dbpr["launches"],
-              max(err_f, g["fused"][1], hyb["max_abs_err"]),
-              *g["fused"][2:]),
+              g["fused"][0] + hyb["launches"] + dbpr["launches"]
+              + cli_k["fused"][0],
+              max(err_f, g["fused"][1], hyb["max_abs_err"],
+                  cli_k["fused"][1]), *g["fused"][2:]),
         entry("topk_catalog<radix>", TOPK_SOURCE,
-              "matfac_tpu/ops/topk_kernel.py:118", g["radix"][0],
-              max(err_f, g["radix"][1]), *g["radix"][2:]),
+              "matfac_tpu/ops/topk_kernel.py:118",
+              g["radix"][0] + cli_k["radix"][0],
+              max(err_f, g["radix"][1], cli_k["radix"][1]),
+              *g["radix"][2:]),
         entry("block_sgd<diag>", BLOCK_SOURCE,
-              "matfac_tpu/ops/block_sgd_kernel.py:148", n_i,
-              max(block["diag"], err_i, err_j), k_i, p_i, bound_i),
+              "matfac_tpu/ops/block_sgd_kernel.py:148",
+              n_i + cli_k["diag"][0],
+              max(block["diag"], err_i, err_j, cli_k["diag"][1]), k_i, p_i,
+              bound_i),
         entry("block_sgd<row>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148", n_k,
               max(block["row"], err_k), k_k, p_k, bound_k),
@@ -2802,6 +3181,8 @@ def main() -> int:
     ] + [entry(f"probe<{name}>", PROBE_SOURCE,
                f"scripts/tpu_pallas_bisect.py:{PROBE_LINES[name]}", *res)
          for name, res in probes.items()]
+    log(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s; "
+        f"seconds by phase {laps}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,14 @@ full-catalog top-N runs as a hand-written CUDA kernel
 computes with XLA and the port with plain PyTorch: ALS (``solvers/als.py``:
 bucketed, iALS++ subspace and dense masked-Gram solvers, ``mf_method``
 "als", "ialspp", "alsdense", and "auto" for plain MF) and CCD / CCD++
-(``solvers/ccd.py``: "ccd", "ccd++", "ccdpp", "ccd++freqadap"). Each
-kernel runs on a CUDA tensor, its plain PyTorch version on a CPU tensor.
+(``solvers/ccd.py``: "ccd", "ccd++", "ccdpp", "ccd++freqadap"); the rest
+of the main-directory trainers (the BPR x TMF+Poisson hybrid, the
+dense-stripe BPR engine, "sgdparsvd"); and the othersrc models ("tmf_bias",
+"mf_headwt", "mf_loc", "dropoutmf*", the "mf_freq" curriculum and
+"increment", ``models/increment.py``) behind the reference's front door,
+``python -m matfac_tpu_torch.cli`` in train mode, with its quartile
+reports (``eval/quartile.py``). Each kernel runs on a CUDA tensor, its
+plain PyTorch version on a CPU tensor.
 """
 
 from matfac_tpu_torch.config import Params

@@ -53,6 +53,26 @@ def read_csr(path: str, with_values: bool = True,
                         vals.astype(np.float32), ncols)
 
 
+def write_csr(mat: RatingMatrix, path: str, with_values: bool = True) -> None:
+    """Write GKlib-text CSR (gk_csr_Write analog): the bytes of the JAX
+    package's writer, with each value formatted once (``_fmt``) and each row
+    joined from slices of one list."""
+    cols = mat.indices.tolist()
+    if with_values:
+        toks = [f"{c} {_fmt(v)}" for c, v in zip(cols, mat.values.tolist())]
+    else:
+        toks = [str(c) for c in cols]
+    ptr = mat.indptr.tolist()
+    with open(path, "w") as f:
+        f.write("".join(" ".join(toks[a:b]) + "\n"
+                        for a, b in zip(ptr[:-1], ptr[1:])))
+
+
+def _fmt(v: float) -> str:
+    fv = float(v)
+    return str(int(fv)) if fv == int(fv) else f"{fv:g}"
+
+
 # ----------------------------------------------------------------------
 # factor matrices (text parity with reference readMat/writeMat,
 # io.cpp:48-156: whitespace-separated floats, one row per line)
@@ -68,6 +88,11 @@ def read_factor_mat(path: str, nrows: int, ncols: int) -> np.ndarray:
 
 def write_factor_mat(mat: np.ndarray, path: str) -> None:
     np.savetxt(path, np.asarray(mat), fmt="%.7g")
+
+
+def write_vector(vec: np.ndarray, path: str) -> None:
+    """writeVector analog (io.cpp:369-388): one value per line."""
+    np.savetxt(path, np.asarray(vec).reshape(-1), fmt="%.7g")
 
 
 # ----------------------------------------------------------------------

@@ -44,7 +44,10 @@ class SGDSolver:
     scalar rates. ``collision_norm`` (None: ``params.sgd_collision_norm``):
     scale each example's gradient by 1 / the count of its entity within its
     batch, so a hot entity takes the mean of its colliding gradients; the
-    counts are static (batch contents never change) and staged once."""
+    counts are static (batch contents never change) and staged once.
+    ``seed`` (None: ``params.seed``) seeds the batch-order and rank-mask
+    generators; the static shuffle of the stream always uses
+    ``params.seed``, as the JAX engine's does."""
 
     def __init__(self, model, params: Params, train_mat,
                  invalid_users: np.ndarray, invalid_items: np.ndarray,
@@ -53,7 +56,7 @@ class SGDSolver:
                  collision_norm: Optional[bool] = None,
                  reg_scale_u: Optional[np.ndarray] = None,
                  reg_scale_i: Optional[np.ndarray] = None,
-                 device="cuda"):
+                 seed: Optional[int] = None, device="cuda"):
         self.model = model
         self.params = params
         self.device = torch.device(device)
@@ -89,10 +92,11 @@ class SGDSolver:
                 0.0).astype(np.float32)).to(self.device)
             self.inv_nu = inv(rn, model.n_users)
             self.inv_ni = inv(cn, model.n_items)
-        self._order_gen = torch.Generator().manual_seed(params.seed + 43)
+        self.seed = params.seed if seed is None else seed
+        self._order_gen = torch.Generator().manual_seed(self.seed + 43)
         # sampled ranks are drawn where the indices live
         self._mask_gen = torch.Generator(device=self.device).manual_seed(
-            params.seed + 47)
+            self.seed + 47)
 
     # ------------------------------------------------------------------
     def batch_order(self) -> torch.Tensor:

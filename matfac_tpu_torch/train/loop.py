@@ -1,8 +1,10 @@
 """The training loops and their front door (port of matfac_tpu/train/loop.py
 for plain MF, MF with biases, IFWMF, TMF and TMF+Dropout on the scatter,
 one-hot cell and row-dense engines, plain MF on the coordinate family (ALS,
-CCD, CCD++) and SVD-initialised SGD, and BPR and the BPR x TMF+Poisson
-hybrid on the stream and dense-stripe pairwise engines).
+CCD, CCD++) and SVD-initialised SGD, BPR and the BPR x TMF+Poisson hybrid
+on the stream and dense-stripe pairwise engines, and the othersrc models:
+TMF with biases, head-item weights, rank locality, adaptive-rank dropout,
+the mf_freq curriculum and incremental rank).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -36,9 +38,14 @@ from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import (MFState, ModelMF, ModelMFBias,
                                           init_state)
 from matfac_tpu_torch.models.bpr import ModelBPRPoissonDropout, ModelMFBPR
-from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
-                                              ModelInvPopMF,
-                                              ModelPoissonDropout)
+from matfac_tpu_torch.models.increment import train_increment
+from matfac_tpu_torch.models.longtail import (ModelAdaptiveDropoutMF,
+                                              ModelDropoutSigmoid,
+                                              ModelDropoutSigmoidBias,
+                                              ModelHeadWeightedMF,
+                                              ModelInvPopMF, ModelLocalityMF,
+                                              ModelPoissonDropout,
+                                              ModelSideGatedMF)
 from matfac_tpu_torch.solvers.als import (ALSSolver, DenseALSSolver,
                                           SubspaceALSSolver)
 from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
@@ -203,7 +210,7 @@ class TrainLoop:
 
                 if self.prefix and (it % p.save_iter == 0
                                     or it == p.max_iter - 1):
-                    ckpt.save_facs(best_state, self.prefix, sig)
+                    self._save_text(best_state, sig)
                     solver_extra = {}
                     if hasattr(self.solver, "internal_state"):
                         solver_extra = {
@@ -222,12 +229,21 @@ class TrainLoop:
                     break
 
         if self.prefix:
-            ckpt.save_facs(best_state, self.prefix, sig)
+            self._save_text(best_state, sig)
             if self.invalid_users is not None:
                 ckpt.save_invalid(self.prefix, self.invalid_users,
                                   self.invalid_items)
         return TrainReport(state, best_state, best_val, best_iter, stop,
                            history)
+
+    def _save_text(self, best_state: MFState, sig: str) -> None:
+        """Text checkpoint of the best snapshot: a bias model's biases and
+        mu beside its factors (Model::save, model.cpp:31-58), the factors
+        alone otherwise (saveFacs)."""
+        if getattr(self.model, "use_bias", False):
+            ckpt.save_full(best_state, self.prefix, sig)
+        else:
+            ckpt.save_facs(best_state, self.prefix, sig)
 
 
 class TrainLoopHR:
@@ -370,10 +386,12 @@ _SGD = ("sgd", "sgdpar", "sgdu", "hogsgd")
 _SOLVERS = ("auto",) + _SGD + ("sgdparsvd", "blocksgd", "densesgd", "als",
                                 "ialspp", "alsdense", "ccd", "ccd++",
                                 "ccdpp", "ccd++freqadap")
-# othersrc model variants, and their spellings, not yet in the port
-_OTHERSRC = ("tmf_bias", "increment", "mf_freq", "mffreq", "mf_headwt", "mfwt",
-             "dropoutmf", "dropoutmf_prob", "dropoutmf_ordered",
-             "dropoutmf_onlyordered", "mf_loc", "mfloc")
+_COORD = ("als", "ialspp", "alsdense", "ccd", "ccd++", "ccdpp",
+          "ccd++freqadap")
+# the dropoutmf spellings and the training-rank rule each selects
+_DROPOUT_MODES = {"dropoutmf": "prob", "dropoutmf_prob": "prob",
+                  "dropoutmf_ordered": "ordered",
+                  "dropoutmf_onlyordered": "onlyordered"}
 
 
 def _auto_method(algo: str, data, params: Params) -> str:
@@ -431,8 +449,16 @@ def train_model(data, params: Params, algo: str = "mf",
     """Build model and solver from the reference's names and train; the
     JAX package's front door for the slices ported so far.
 
-    algo: "mf", "mf_bias", "ifwmf", "tmf", "tmfdropout" (main.cpp --algo),
-    or the ranking models "bpr" and the BPR x TMF+Poisson hybrid
+    algo: "mf", "mf_bias", "ifwmf", "tmf", "tmfdropout" (main.cpp --algo);
+    the othersrc models "tmf_bias" (TMF with biases, no global mean),
+    "mf_headwt" / "mfwt" (head items of the 0.5 rating-mass head weighted
+    0.8), "mf_loc" / "mfloc" (entities outside the 0.8 rating-mass heads
+    confined to k/2 dims), "dropoutmf" / "dropoutmf_prob" /
+    "dropoutmf_ordered" / "dropoutmf_onlyordered" (adaptive-rank dropout,
+    soft three-tier prediction), "mf_freq" / "mffreq" (the five-stage
+    head-first curriculum, sgd only) and "increment" (incremental rank,
+    probe set ``data.graph_mat``; its report carries ``.increment``); or
+    the ranking models "bpr" and the BPR x TMF+Poisson hybrid
     "bpr_poisson" / "bprpoissondropout" (model selection on val HR@10, or
     NDCG for hog / posneg). mf_method for the pointwise models: "sgd" and
     its spellings "sgdpar", "sgdu", "hogsgd" (the scatter engine, JAX's
@@ -449,19 +475,15 @@ def train_model(data, params: Params, algo: str = "mf",
     deterministic ranks), "hog", or "hogposneg" / "posneg" (posneg mode);
     ``params.bpr_engine="dense"`` trains stream mode on the dense-stripe
     engine, falling back to the stream engine for the hybrid's rank masks
-    or a mask over budget. What is not ported (the othersrc algos, mesh
-    training) raises NotImplementedError naming its ROADMAP item; what JAX
-    refuses raises JAX's ValueError.
+    or a mask over budget. Mesh training is not ported and raises
+    NotImplementedError naming its ROADMAP item; what JAX refuses raises
+    JAX's ValueError.
     Returns (report, model, evaluator or scorer, (invalid_users,
     invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is ROADMAP queue 1, item 13")
-    if a in _OTHERSRC:
-        raise NotImplementedError(
-            f"algo={algo!r}: the othersrc model variants are ROADMAP queue "
-            "1, item 14")
     inval_u, inval_i = ufreq.invalid_users_items(
         data.train_mat, data.n_users, data.n_items)
     user_freq, item_freq = ufreq.row_col_freq(data.train_mat)
@@ -477,20 +499,54 @@ def train_model(data, params: Params, algo: str = "mf",
         return _train_ranking(data, params, a, m, log_fn,
                               init_state_override, inval_u, inval_i,
                               user_freq, item_freq, prefix, resume, device)
-    models = {"mf": ModelMF, "mf_bias": ModelMFBias, "ifwmf": ModelInvPopMF,
-              "tmf": ModelDropoutSigmoid, "tmfdropout": ModelPoissonDropout}
-    if a not in models:
-        raise ValueError(f"unknown algo {algo!r}")
-    cls = models[a]
-    if cls is ModelInvPopMF:
-        model = cls(params, data.n_users, data.n_items, user_freq=user_freq,
-                    item_freq=item_freq, invalid_users=inval_u,
-                    invalid_items=inval_i)
-    elif cls in (ModelDropoutSigmoid, ModelPoissonDropout):
-        model = cls(params, data.n_users, data.n_items, user_freq=user_freq,
-                    item_freq=item_freq)
+    if a == "increment":
+        # ModelIncrement (main.cpp:1325-1370); its probe matrix is
+        # --graphmat (modelIncrement.cpp:251-316)
+        inc, model = train_increment(data, params, inval_u, inval_i,
+                                     log_fn=log_fn, device=device)
+        ev = Evaluator(data, inval_u, inval_i, params, device)
+        val = ev.rmse(model.eval_view(inc.state), "val")
+        report = TrainReport(inc.state, inc.state, val, params.max_iter - 1,
+                             "max_iter", [])
+        report.increment = inc   # rank tables and growth history
+        return report, model, ev, (inval_u, inval_i)
+    if a in ("mf_freq", "mffreq"):
+        # othersrc ModelMFFreq's head-first curriculum
+        # (othersrc/modelMFFreq.cpp:200-278)
+        return _train_mf_freq(data, params, m, log_fn, init_state_override,
+                              inval_u, inval_i, user_freq, item_freq, prefix,
+                              resume, device)
+    n, n_i = data.n_users, data.n_items
+    if a in ("mf_headwt", "mfwt"):
+        # othersrc ModelMFWt, head_pc and lambda0 at the reference's
+        # constants (othersrc/modelMFWt.cpp:118-120)
+        a = "mf_headwt"
+        model = ModelHeadWeightedMF(
+            params, n, n_i, ufreq.head_items_from_freq(item_freq, 0.5),
+            lambda0=0.8)
+    elif a in _DROPOUT_MODES:
+        model = ModelAdaptiveDropoutMF(params, n, n_i, user_freq, item_freq,
+                                       mode=_DROPOUT_MODES[a])
+        a = "dropoutmf"
+    elif a in ("mf_loc", "mfloc"):
+        # othersrc ModelMFLoc, head sets at the 0.8 rating-mass cut of
+        # ModelMFFreq (othersrc/modelMFFreq.cpp:211-212)
+        a = "mf_loc"
+        model = ModelLocalityMF(params, n, n_i,
+                                ufreq.head_items_from_freq(user_freq, 0.8),
+                                ufreq.head_items_from_freq(item_freq, 0.8))
+    elif a == "ifwmf":
+        model = ModelInvPopMF(params, n, n_i, user_freq=user_freq,
+                              item_freq=item_freq, invalid_users=inval_u,
+                              invalid_items=inval_i)
+    elif a in ("tmf", "tmfdropout", "tmf_bias"):
+        cls = {"tmf": ModelDropoutSigmoid, "tmfdropout": ModelPoissonDropout,
+               "tmf_bias": ModelDropoutSigmoidBias}[a]
+        model = cls(params, n, n_i, user_freq=user_freq, item_freq=item_freq)
+    elif a in ("mf", "mf_bias"):
+        model = (ModelMF if a == "mf" else ModelMFBias)(params, n, n_i)
     else:
-        model = cls(params, data.n_users, data.n_items)
+        raise ValueError(f"unknown algo {algo!r}")
     if m == "auto":
         m = _auto_method(a, data, params)
         log_fn(f"mf_method=auto resolved to '{m}' (the JAX package's "
@@ -506,12 +562,13 @@ def train_model(data, params: Params, algo: str = "mf",
         raise ValueError(
             f"{model.name} carries per-side update gates that '{m}' does "
             "not honor — use mf_method=sgd on a single device")
-    if m in ("als", "ialspp", "alsdense", "ccd", "ccd++", "ccdpp",
-             "ccd++freqadap"):
+    if m in _COORD:
         weighted = (type(model).example_weight
                     is not ModelMF.example_weight)
         masked = (hasattr(model, "pair_rank")
-                  or hasattr(model, "pair_lambda"))
+                  or hasattr(model, "pair_lambda")
+                  or type(model).update_side_masks
+                  is not ModelMF.update_side_masks)
         if weighted or masked:
             raise ValueError(
                 f"{model.name} carries per-example weights/rank masks "
@@ -608,6 +665,77 @@ def train_model(data, params: Params, algo: str = "mf",
             model.eval_view(st), st, sing_vals)
     report = loop.run(state, resume=resume)
     report.solver = solver
+    return report, model, ev, (inval_u, inval_i)
+
+
+def _train_mf_freq(data, params: Params, m: str, log_fn, init_state_override,
+                   inval_u, inval_i, user_freq, item_freq, prefix, resume,
+                   device):
+    """ModelMFFreq's head-first curriculum (othersrc/modelMFFreq.cpp:200-278):
+    five stages over ONE factor state, each a full max_iter TrainLoop with
+    the learn rate reset, gating which SIDE of each example updates:
+
+      1. all valid entities            (warm-up)
+      2. head users x head items       (the 0.8 rating-mass heads)
+      3. tail items only               (users frozen)
+      4. tail users only               (items frozen)
+      5. all valid entities            (final polish)
+
+    Each stage continues from the current state; the best snapshot is the
+    best val-RMSE state of ALL stages, and the epochs of stage s are
+    numbered from s * max_iter. Stage s draws its batch orders from the
+    seed ``params.seed + s``, as the JAX loop's key of that stage."""
+    if resume:
+        raise ValueError("resume is not supported for the mf_freq "
+                         "curriculum — restart the stage sequence")
+    if m == "auto":
+        m = "sgd"
+        log_fn("mf_method=auto resolved to 'sgd' (curriculum stages)")
+    if m not in _SGD:
+        raise ValueError(
+            f"mf_freq trains through the SGD engine, not '{m}'")
+    head_u = ufreq.head_items_from_freq(user_freq, 0.8)
+    head_i = ufreq.head_items_from_freq(item_freq, 0.8)
+    valid_u, valid_i = ~inval_u, ~inval_i
+    none_u = np.zeros(data.n_users, bool)
+    none_i = np.zeros(data.n_items, bool)
+    stages = [
+        ("full", valid_u, valid_i),
+        ("head-only", head_u & valid_u, head_i & valid_i),
+        ("tail-items", none_u, ~head_i & valid_i),
+        ("tail-users", ~head_u & valid_u, none_i),
+        ("full", valid_u, valid_i),
+    ]
+    ev = Evaluator(data, inval_u, inval_i, params, device)
+    state = init_state_override or init_state(
+        params, data.n_users, data.n_items, device=device)
+    best_state, best_metric, best_iter = None, float("inf"), -1
+    history: List[EpochLog] = []
+    epoch_off = 0
+    model = solver = None
+    stop = "max_iter"
+    for si, (tag, gu, gi) in enumerate(stages):
+        log_fn(f"mf_freq stage {si + 1}/5 ({tag}): "
+               f"{int(gu.sum())} users x {int(gi.sum())} items trainable")
+        model = ModelSideGatedMF(params, data.n_users, data.n_items, gu, gi)
+        solver = SGDSolver(model, params, data.train_mat, inval_u, inval_i,
+                           seed=params.seed + si, device=device)
+        loop = TrainLoop(model, solver, ev, params, prefix=prefix,
+                         invalid_users=inval_u, invalid_items=inval_i,
+                         log_fn=log_fn)
+        rep = loop.run(state)
+        state = rep.state
+        for el in rep.history:
+            el.epoch += epoch_off
+            history.append(el)
+        if rep.best_metric < best_metric:
+            best_metric = rep.best_metric
+            best_state = _snapshot(rep.best_state)
+            best_iter = rep.best_iter + epoch_off
+        epoch_off += params.max_iter
+        stop = rep.stop_reason
+    report = TrainReport(state, best_state, best_metric, best_iter, stop,
+                         history, solver)
     return report, model, ev, (inval_u, inval_i)
 
 

@@ -187,3 +187,85 @@ def test_freq_helpers_match(dims):
     for a, b in zip(tfreq.invalid_users_items(mat, nu, ni),
                     jfreq.invalid_users_items(mat, nu, ni)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("with_values", [True, False])
+@pytest.mark.parametrize("kind", ["continuous", "half_stars", "empty_rows",
+                                  "no_rows"])
+def test_write_csr_writes_jax_bytes(tmp_path, kind, with_values):
+    """The port's writer (each value formatted once, rows joined from one
+    list) writes the JAX writer's bytes, and both readers read them back
+    as the same matrix."""
+    r, c, v, n, m = _coo(seed=6)
+    if kind == "half_stars":
+        v = np.round(v * 2) / 2
+    if kind == "empty_rows":
+        keep = r % 3 != 0
+        r, c, v, n = r[keep], c[keep], v[keep], n + 4
+    if kind == "no_rows":
+        r, c, v, n = r[:0], c[:0], v[:0], 0
+    mat = jcsr.RatingMatrix.from_coo(r, c, v.astype(np.float32), n, m)
+    tpath, jpath = str(tmp_path / "t.csr"), str(tmp_path / "j.csr")
+    tio.write_csr(mat, tpath, with_values)
+    jio.write_csr(mat, jpath, with_values)
+    with open(tpath, "rb") as ft, open(jpath, "rb") as fj:
+        assert ft.read() == fj.read()
+    if n:
+        _same_mat(tio.read_csr(tpath, with_values),
+                  jio.read_csr(jpath, with_values))
+
+
+@pytest.mark.parametrize("text", [
+    "0 1.5 3 4\n\n2 5\n",                 # a blank row
+    "0 1.5 3 4\n2 5",                     # no final newline
+    "0 1.5 3 4\n2 5\n ",                  # a last line of blanks
+    "  0\t1.5   3 4  \n\t2 5\n",         # tabs, runs of spaces
+    "0 1e-05 3 -4.25\n1 2.5E+1\n",        # exponents and signs
+    "0 1.5 3 4\r\n2 5\r\n",               # CRLF
+    "\n\n\n",                             # rows without entries
+    ""])
+def test_read_csr_parses_text_as_jax_does(tmp_path, text):
+    """The port's reader reads what the JAX reader reads, row for row."""
+    path = tmp_path / "m.csr"
+    path.write_bytes(text.encode())
+    if not text.strip():
+        for mod in (tio, jio):
+            assert mod.read_csr(str(path)).nnz == 0
+        return
+    _same_mat(tio.read_csr(str(path)), jio.read_csr(str(path)))
+    _same_mat(tio.read_csr(str(path), ncols=9),
+              jio.read_csr(str(path), ncols=9))
+
+
+@pytest.mark.parametrize("text,line", [("0 1\n2\n", 2), ("0 1 2 3\n\n4\n", 3),
+                                       ("0 1\r\n2\r\n", 2)])
+def test_read_csr_names_the_line_of_odd_tokens(tmp_path, text, line):
+    path = tmp_path / "bad.csr"
+    path.write_bytes(text.encode())
+    for mod in (tio, jio):
+        with pytest.raises(ValueError, match=f":{line}: odd token count"):
+            mod.read_csr(str(path))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_head_and_quartile_helpers_match(seed):
+    """head_items, head_items_from_freq and quartile_assignments: the
+    copies give the originals' masks and buckets (ties in id order)."""
+    r, c, v, n, m = _coo(seed=seed, n=50, m=30)
+    mat = jcsr.RatingMatrix.from_coo(r, c, v, n, m)
+    for pc in (0.0, 0.5, 0.8, 1.0):
+        np.testing.assert_array_equal(tfreq.head_items(mat, pc),
+                                      jfreq.head_items(mat, pc))
+    uf, if_ = jfreq.row_col_freq(mat)
+    for f in (uf, if_, np.pad(if_, (0, 7)), np.zeros(6),
+              np.array([2.0, 2.0, 1.0, 2.0])):
+        for pc in (0.0, 0.3, 0.5, 0.8, 1.0):
+            np.testing.assert_array_equal(
+                tfreq.head_items_from_freq(f, pc),
+                jfreq.head_items_from_freq(f, pc))
+        valid = np.arange(len(f)) % 5 != 0
+        for nq in (1, 4, 9):
+            got = tfreq.quartile_assignments(f, valid, nq)
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(
+                got, jfreq.quartile_assignments(f, valid, nq))

@@ -49,7 +49,9 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.solvers.als",
             "matfac_tpu_torch.solvers.ccd",
             "matfac_tpu_torch.solvers.bpr_dense",
-            "matfac_tpu_torch.ops.svd_init"} <= set(MODULES)
+            "matfac_tpu_torch.ops.svd_init", "matfac_tpu_torch.cli",
+            "matfac_tpu_torch.models.increment",
+            "matfac_tpu_torch.eval.quartile"} <= set(MODULES)
     assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
     proc = _import_all_then(
         "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -359,14 +359,13 @@ def test_resume_survives_missing_best_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="tmf_bias"), "item 14"),
-    (dict(algo="mf_loc", mf_method="blocksgd"), "item 14"),
     (dict(mesh=object()), "item 13")])
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    """Mesh training and the othersrc models are not ported. The paths
-    that train (the default sgd, TMF and TMF+Dropout on densesgd, 'auto'
-    for every model, ALS, CCD, sgdparsvd, and BPR and its hybrid on both
-    pairwise engines) are cases of the parity tests."""
+    """Mesh training is not ported. The paths that train (the default sgd,
+    TMF and TMF+Dropout on densesgd, 'auto' for every model, ALS, CCD,
+    sgdparsvd, BPR and its hybrid on both pairwise engines, and the
+    othersrc models, tests/test_torch_othersrc.py) are cases of the parity
+    tests."""
     data, p = _data()
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
@@ -380,12 +379,32 @@ def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
     (dict(algo="ifwmf", mf_method="ccd"), "coordinate family"),
     (dict(algo="tmf", mf_method="densesgd",
           params=dict(reg_exponent=0.5)), "reg_exponent"),
-    (dict(mf_method="nope"), "unknown mf_method")])
+    (dict(mf_method="nope"), "unknown mf_method"),
+    (dict(algo="mf_loc", mf_method="blocksgd"), "per-side"),
+    (dict(algo="mfloc", mf_method="densesgd"), "per-side"),
+    (dict(algo="mf_loc", mf_method="als"), "per-side"),
+    (dict(algo="dropoutmf", mf_method="blocksgd"), "static per-pair ranks"),
+    (dict(algo="dropoutmf_ordered", mf_method="als"), "coordinate family"),
+    (dict(algo="mf_headwt", mf_method="ccd++"), "coordinate family"),
+    (dict(algo="mfwt", mf_method="ialspp"), "coordinate family"),
+    (dict(algo="tmf_bias", mf_method="blocksgd"), "factor-only"),
+    (dict(algo="tmf_bias", mf_method="sgdparsvd"), "factor-only"),
+    (dict(algo="tmf_bias", mf_method="alsdense"), "coordinate family"),
+    (dict(algo="mf_headwt", mf_method="densesgd",
+          params=dict(reg_exponent=0.5)), "reg_exponent"),
+    (dict(algo="mf_freq", mf_method="als"), "through the SGD engine"),
+    (dict(algo="mffreq", mf_method="blocksgd"), "through the SGD engine"),
+    (dict(algo="mf_freq", resume=True), "resume is not supported"),
+    (dict(algo="increment"), "probe matrix")])
 def test_refusals_match_jax(kw, match):
     """What JAX refuses, the port refuses with JAX's ValueError: sampled
     ranks on the one-hot engine, weighted or rank-masked models on the
-    coordinate family, reg_exponent off the sgd engine, unknown methods."""
+    coordinate family, reg_exponent off the sgd engine, unknown methods;
+    per-side gates off the sgd engine, biases on the factor-only engines,
+    the mf_freq curriculum off the sgd engine or resumed, and incremental
+    rank without a probe matrix (``data.graph_mat``)."""
     data, p = _data()
+    assert data.graph_mat is None
     kw = dict(kw)
     p = p.replace(**kw.pop("params", {}))
     for fn, extra in ((j_train_model, {}), (train_model, dict(device="cpu"))):
