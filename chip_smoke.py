@@ -114,6 +114,19 @@ Phases, in order; any failure raises and the script exits non-zero:
       epoch, one one-hot epoch and the top-10 / top-1000 passes of these
       runs held against their plain versions, and the ranking run's
       quartile_ranking_report;
+  (v) analyze mode at (d)'s width: ``cli.main([..., "--mode", "analyze"])``
+      in process on (u)'s splits, tmf_bias's text checkpoint as the trained
+      factors and the generator's k = 8 factors, zero-padded to k = 64, as
+      the ground truth; no --graphmat, so the 20,000-item cosine graph is
+      built on the card. The report's lines present and finite; each
+      step's host seconds, the wall, peak memory, the idle share of the
+      graph build and of PPR; card against CPU (the port with
+      device="cpu"): 1,024 rows of the cosine graph (the same edges, values
+      at rtol 1e-6), user_ppr of 16 sampled users (rtol 1e-4, atol 1e-6),
+      one catalog_sq_err block (rtol 1e-5), top_n_rec's test-item ranks
+      and per_user_bucket_rmses on 256 users; the card's user_ppr of the
+      200 sampled users twice, bit-identical. No hand kernel (JAX uses XLA
+      and numpy);
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -150,9 +163,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -246,7 +261,8 @@ CELL_ALGO = {"d": "mf", "e": "mf", "l": "ifwmf"}
 TILE_KINDS = ("f32+W", "bf16+W", "codes", "f32+fW", "bf16+bfW")
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12,
+              "f64": 67e12}
 
 
 def log(msg: str) -> None:
@@ -775,15 +791,17 @@ def phase_main_path(tag: str, data: Data, params: Params, tiles: str,
 
 
 def bench_data(n_users, n_items, density, noise, power_law, stars, val_pc):
+    """The cell's splits, with the generator's factors as ground truth."""
     t0 = time.perf_counter()
-    mat, _, _ = low_rank_ratings(n_users, n_items, k=8, density=density,
-                                 seed=0, noise=noise, power_law=power_law,
-                                 nonneg=True)
+    mat, uf, vf = low_rank_ratings(n_users, n_items, k=8, density=density,
+                                   seed=0, noise=noise, power_law=power_law,
+                                   nonneg=True)
     if stars:
         mat.values[:] = (np.clip(np.round(mat.values / 0.5), 1, 10)
                          * 0.5).astype(np.float32)
     tr, te, va = split_train_test_val(mat, 0.1, val_pc, seed=1)
-    data = Data(train_mat=tr, test_mat=te, val_mat=va)
+    data = Data(train_mat=tr, test_mat=te, val_mat=va, orig_u_fac=uf,
+                orig_i_fac=vf)
     log(f"data {data} made in {time.perf_counter() - t0:.1f} s")
     return data
 
@@ -2578,6 +2596,297 @@ def phase_cli(data: Data, dev="cuda") -> dict:
 
 
 # ----------------------------------------------------------------------
+# (v): analyze mode, python -m matfac_tpu_torch.cli --mode analyze, at (d)
+# ----------------------------------------------------------------------
+
+# the analysis's card-against-CPU checks: float64 cosines rounded to
+# float32; PPR's float32 power iteration (sums in another order); float32
+# catalog products (card and CPU sum k = 64 terms in other orders: an
+# error ~1e-6 in a score, 2 |d| 1e-6 in d^2, so d^2 is held to 1e-5 of the
+# block's largest value besides rtol 1e-5); bucket RMSEs of one ordering
+COS_RTOL = 1e-6
+PPR_TOL = (1e-4, 1e-6)
+SQ_ERR_RTOL = 1e-5
+ANALYZE_ROWS, ANALYZE_PPR_USERS, ANALYZE_TOPN_USERS = 1024, 16, 256
+
+
+class _Steps:
+    """Host seconds of named calls inside one ``cli.main`` run, the device
+    synchronized before and after each, with each call's arguments and
+    result kept (the last call of a name)."""
+
+    def __init__(self, targets):
+        self.targets = targets           # [(name, owner, attribute)]
+
+    def __enter__(self):
+        self.seconds, self.last, self.saved = {}, {}, []
+        for name, owner, attr in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(name, []).append(
+                time.perf_counter() - t0)
+            self.last[name] = (args, kw, out)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+
+
+def _busy_idle(fn):
+    """(CUDA-event ms of one call of fn, device busy ms of another by
+    torch.profiler, idle share, the second call's result); fn is warm."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ms = _cuda_ms(fn)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    return ms, busy, 1.0 - busy / ms, out
+
+
+def analysis_bounds(train, graph, n_users_ppr: int, iters: int, k: int):
+    """Bounds of (v)'s device steps: the cosine graph (the two-hop walk's
+    float64 products, sum over users of degree^2, at the FP64 tensor-core
+    peak; both views of the train matrix read, the graph written once),
+    one PPR call (iters steps of a multiply-add an edge a column, float32;
+    the graph and restart read once, the iterate written once) and one
+    catalog_sq_err block of n_users_ppr users (two [B, k] x [k, n_items]
+    float32 products; the factors read once, d^2 written once)."""
+    deg_u = train.row_degrees().astype(np.float64)
+    n_items, nnz = train.ncols, train.nnz
+    cos = _bound(2 * (12 * nnz + 8 * (train.nrows + n_items))
+                 + 8 * graph.nnz, 2.0 * float((deg_u ** 2).sum()), "f64")
+    ppr = _bound(12 * graph.nnz + 8 * n_items * n_users_ppr,
+                 2.0 * iters * graph.nnz * n_users_ppr, "f32")
+    sq = _bound(4 * k * 2 * (n_items + n_users_ppr)
+                + 4 * n_users_ppr * n_items,
+                4.0 * n_users_ppr * n_items * k, "f32")
+    return dict(cosine=cos, ppr=ppr, sq_err=sq)
+
+
+def _pad_cols(a: np.ndarray, k: int) -> np.ndarray:
+    return np.pad(a, ((0, 0), (0, k - a.shape[1])))
+
+
+def _finite_numbers(line: str):
+    return [float(x) for x in re.findall(r"-?\d+\.\d+|nan|inf", line)]
+
+
+def phase_analyze(data: Data, dev="cuda") -> dict:
+    """(v): ``cli.main(["--mode", "analyze", ...])`` in process at (d)'s
+    width on (u)'s text splits, the factors of (u)'s tmf_bias checkpoint
+    (--initufac / --initifac) and the generator's k = 8 factors written
+    zero-padded to k = 64 (the product unchanged) as --origufac /
+    --origifac; no --graphmat, so the 50-neighbour cosine graph of the
+    20,000 items is built on the card. Each step's host seconds (the
+    device synchronized around it), the wall, peak memory, the idle share
+    of the graph build and of PPR (replays, torch.profiler); the report's
+    lines present and finite; then card against CPU through the port
+    (device="cpu"): the graph's rows of ANALYZE_ROWS items, user_ppr of
+    ANALYZE_PPR_USERS sampled users, one catalog_sq_err block, top_n_rec's
+    ranks and per_user_bucket_rmses on ANALYZE_TOPN_USERS users; the card's
+    user_ppr of the sample twice, bit-identical. Returns the bounds and
+    times of the XLA-path rows."""
+    from matfac_tpu_torch.analysis import confidence as conf_mod
+    from matfac_tpu_torch.analysis import drivers as drv
+    from matfac_tpu_torch.analysis import topn as topn_mod
+    from matfac_tpu_torch.analysis.batch import catalog_sq_err
+    from matfac_tpu_torch.analysis.top_bucket import sample_users
+    from matfac_tpu_torch.eval.metrics import Evaluator
+    from matfac_tpu_torch.ops import svd_init as svd_mod
+    from matfac_tpu_torch.ops.ppr import PPREngine
+    t_phase = time.perf_counter()
+    d = os.path.join(RUN_DIR, "cli")
+    (ufac,), (ifac,) = (glob.glob(os.path.join(d, f"{CLI_CKPT_RUN}_{s}_*"))
+                        for s in ("uFac", "iFac"))
+    k = 64
+    t0 = time.perf_counter()
+    truth = []
+    for name, f in (("u", data.orig_u_fac), ("i", data.orig_i_fac)):
+        truth.append(os.path.join(d, f"truth_{name}.mat"))
+        mfio.write_factor_mat(_pad_cols(f, k), truth[-1])
+    log(f"(v) ground truth (k {data.orig_u_fac.shape[1]} padded to {k}) "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    argv = ["--trainmat", os.path.join(d, "train.csr"), "--testmat",
+            os.path.join(d, "test.csr"), "--valmat",
+            os.path.join(d, "val.csr"), "--mode", "analyze", "--facdim",
+            str(k), "--svdfacdim", str(k), "--seed", "0", "--initufac", ufac,
+            "--initifac", ifac, "--origufac", truth[0], "--origifac",
+            truth[1], "--prefix", ""] + (["--cpu"] if dev == "cpu" else [])
+    targets = [("read_csr", mfio, "read_csr"),
+               ("read_factor_mat", mfio, "read_factor_mat"),
+               ("Evaluator", Evaluator, "__init__"),
+               ("fullLowRankErr", Evaluator, "full_low_rank_err"),
+               ("svd_init", svd_mod, "svd_init"),
+               ("graph", mfio, "item_cosine_sim"),
+               ("ppr", PPREngine, "ppr"),
+               ("freq_rmse_sweep", drv, "freq_rmse_sweep"),
+               ("bucket curves", drv, "pred_samp_users_rmse"),
+               ("analysis", drv, "sample_top_n_analysis"),
+               ("ppr_vs_gpr", drv, "compare_ppr_gpr")]
+    iters = []
+    real_ppr = PPREngine.ppr
+
+    def counted(self, *a, **kw):
+        out = real_ppr(self, *a, **kw)
+        iters.append(self.iterations)
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    PPREngine.ppr = counted
+    try:
+        with _Steps(targets) as steps, contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        PPREngine.ppr = real_ppr
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = buf.getvalue().splitlines()
+    report = out[next(i for i, line in enumerate(out)
+                      if line.startswith("Loaded model")):]
+    for line in report:
+        log(f"(v) analyze | {line}")
+    assert rc == 0
+    heads = ("Loaded model: Train RMSE", "fullLowRankErr vs ground truth:",
+             "Freq-RMSE sweep", "  top 10%", "  top 25%", "  top 50%",
+             "  top 75%", "  top 100%", "Per-user bucket RMSE curves",
+             "  freq:", "  svd:", "  ppr:", "PPR-vs-GPR top-100 mean")
+    ok = (len(report) == len(heads)
+          and all(a.startswith(h) for a, h in zip(report, heads))
+          and all(np.isfinite(_finite_numbers(a)).all() for a in report)
+          and all(len(_finite_numbers(a)) == 10 for a in report[9:12]))
+    log(f"(v) the report's {len(report)} lines present and finite "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(v) analyze mode's report")
+    sec = {name: (len(v), sum(v)) for name, v in steps.seconds.items()}
+    (n_ppr, ppr_s) = sec["ppr"]
+    log(f"(v) cli.main wall {wall:.2f} s, peak memory {peak:.2f} GB; host "
+        f"seconds by step (count, s; the device synchronized around each): "
+        + ", ".join(f"{n} ({c}, {t:.3f})" for n, (c, t) in sec.items())
+        + f"; PPR iterations by call {iters}")
+
+    # the card's objects of the run
+    args, _, _ = steps.last["analysis"]
+    full, orig, ev, cd, inval_u, inval_i = args[:6]
+    eng = steps.last["analysis"][1]["ppr_engine"]
+    train = cd.train_mat
+    (gargs, gkw, graph) = steps.last["graph"]
+    assert gkw.get("device") == dev and eng.device.type == dev
+    users = sample_users(inval_u, train.nrows, min(200, cd.n_users), 0)
+
+    # idle shares of the graph build and of PPR; PPR twice, bit-identical
+    g_ms, g_busy, g_idle, _ = _busy_idle(
+        lambda: mfio.item_cosine_sim(train, top_k=50, device=dev))
+    p_ms, p_busy, p_idle, pr1 = _busy_idle(
+        lambda: eng.user_ppr(train, users))
+    pr2 = eng.user_ppr(train, users)
+    same = np.array_equal(pr1, pr2)
+    log(f"(v) graph build: {graph.nnz} edges, {g_ms:.3f} ms (CUDA events), "
+        f"device busy {g_busy:.3f} ms, idle share {g_idle:.3f}; user_ppr "
+        f"of {len(users)} users: {eng.iterations} iterations, {p_ms:.3f} "
+        f"ms, busy {p_busy:.3f} ms, idle share {p_idle:.3f}; two runs "
+        f"bit-identical {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("(v) two runs of user_ppr differ")
+
+    # card against CPU, through the port with device="cpu"
+    rows = np.unique(np.linspace(0, train.ncols - 1, ANALYZE_ROWS).astype(
+        np.int64))
+    t0 = time.perf_counter()
+    r, c, v = mfio.cosine_topk_rows(train, rows, top_k=50, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    bad = 0
+    err = 0.0
+    for i in rows:
+        gc, gv = graph.row(int(i))
+        order = np.argsort(c[r == i], kind="stable")
+        wc, wv = c[r == i][order], v[r == i][order]
+        if not np.array_equal(gc, wc):
+            bad += 1
+            continue
+        err = max(err, float(np.max(np.abs(gv - wv) / wv, initial=0.0)))
+    ok = bad == 0 and err <= COS_RTOL
+    log(f"(v) item_cosine_sim, {len(rows)} rows, card vs CPU ({cpu_s:.1f}"
+        f" s): rows with other edges {bad}, max rel err {err:.3e} (rtol "
+        f"{COS_RTOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(v) the card's cosine graph vs the CPU's")
+    cpu_eng = PPREngine(graph, device="cpu")
+    few = users[:ANALYZE_PPR_USERS]
+    _held("v", f"user_ppr of {len(few)} sampled users",
+          torch.from_numpy(eng.user_ppr(train, few)),
+          torch.from_numpy(cpu_eng.user_ppr(train, few)), PPR_TOL)
+    cpu_view = lambda vw: type(vw)(*(t.cpu() for t in vw))
+    full_c, orig_c = cpu_view(full), cpu_view(orig)
+    (_, d2), = catalog_sq_err(orig, full, users, block=len(users))
+    (_, d2c), = catalog_sq_err(orig_c, full_c, users, block=len(users))
+    _held("v", f"catalog_sq_err block [{len(users)}, {train.ncols}]",
+          torch.from_numpy(d2), torch.from_numpy(d2c),
+          (SQ_ERR_RTOL, SQ_ERR_RTOL * float(np.abs(d2c).max())))
+    rank_args = lambda vw: (vw, train, cd.test_mat, inval_u, inval_i, 0.5,
+                            ANALYZE_TOPN_USERS, 1000, 0, None, None)
+    (ranks, head), (ranks_c, head_c) = (topn_mod._topn_ranks(*rank_args(vw))
+                                        for vw in (full, full_c))
+    moved = ranks["model"] != ranks_c["model"]
+    steps_moved = np.abs(ranks["model"] - ranks_c["model"])[moved]
+    rep = topn_mod._report(ranks, head, 10)
+    rep_c = topn_mod._report(ranks_c, head_c, 10)
+    diff = abs(rep.recall["model"] - rep_c.recall["model"]) * len(head)
+    ok = (np.array_equal(head, head_c) and moved.mean() <= 1e-3
+          and (steps_moved <= 1).all() and diff <= moved.sum())
+    log(f"(v) top_n_rec of {ANALYZE_TOPN_USERS} users ({len(head)} test "
+        f"items, 1000 negatives each), card vs CPU: recall@10 {rep.recall} "
+        f"vs {rep_c.recall}; test-item ranks moved by a near-tie "
+        f"{int(moved.sum())} (at most 1 position each, at most 0.1%) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(v) top_n_rec card vs CPU")
+    some = users[:ANALYZE_TOPN_USERS]
+    scores = eng.user_ppr(train, some)[:, :cd.n_items]
+    mask = ~inval_i[:cd.n_items]
+    got = conf_mod.per_user_bucket_rmses(orig, full, scores, some, mask)
+    want = conf_mod.per_user_bucket_rmses(orig_c, full_c, scores, some,
+                                          mask)
+    _held("v", "per_user_bucket_rmses (PPR ordering)",
+          torch.from_numpy(got[0]), torch.from_numpy(want[0]),
+          (SQ_ERR_RTOL, 0.0))
+    assert np.array_equal(got[1], want[1])
+
+    b = analysis_bounds(train, graph, len(users), eng.iterations, k)
+    # the host loop's card yardstick: the d^2 block and three score rows
+    # per user read once (sorting is comparisons, not counted)
+    host_bound = _bound(4 * 4 * len(users) * train.ncols, 0.0, "f32")
+    lap_ms = lambda name: 1e3 * sec[name][1] / sec[name][0]
+    out = dict(
+        graph=(lap_ms("graph"), b["cosine"], 1),
+        ppr=(1e3 * steps.seconds["ppr"][0], b["ppr"], n_ppr),
+        sq_err=(_cuda_ms(lambda: next(catalog_sq_err(
+            orig, full, users, block=len(users)))), b["sq_err"], 1),
+        curves=(lap_ms("bucket curves"), host_bound, 1))
+    log(f"(v) XLA-path rows (ms, bound ms and what bounds it, main-path "
+        f"calls): {out}")
+    log(f"(v) phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 # (p), (q): the coordinate family, plain PyTorch (no hand kernel)
 # ----------------------------------------------------------------------
 
@@ -3122,6 +3431,8 @@ def main() -> int:
     lap("t")
     cli_k = phase_cli(data_d)
     lap("u")
+    phase_analyze(data_d)
+    lap("v")
     probes = phase_probes()
     lap("m")
 

@@ -12,7 +12,11 @@ It trains on the CUDA device, and refuses to start without one unless
 RMSE and the quartile breakdowns (main.cpp:1377-1413) of a pointwise model,
 or val HR@10, test HR@10 and test ARHR of a ranking model, then the stop
 reason and the best epoch: the lines of ``python -m matfac_tpu.cli``.
-``--mode analyze`` is not ported (ROADMAP queue 1, item 15).
+``--mode analyze`` analyses saved factors (--initufac/--initifac) and prints
+the JAX CLI's analysis report: train and test RMSE, the low-rank recovery
+error against --origufac/--origifac, the freq-RMSE sweep, the per-user
+bucket RMSE curves under the freq / SVD / PPR orderings, and the PPR-vs-GPR
+overlap.
 """
 
 from __future__ import annotations
@@ -122,6 +126,74 @@ def params_from_args(args) -> Params:
         ccd_group_dims=args.ccdgroup)
 
 
+def _run_analyze(args, params, data, device) -> int:
+    """Offline analysis (computeSampTopNFrmFullModel, main.cpp:75-396):
+    load trained factors (--initufac/--initifac), optional ground truth
+    (--origufac/--origifac), run freq-RMSE sweeps, top-bucket curves and
+    the PPR/GPR comparison on ``device``; the JAX CLI's lines."""
+    import numpy as np
+
+    from matfac_tpu_torch.analysis.drivers import (compare_ppr_gpr,
+                                                   sample_top_n_analysis)
+    from matfac_tpu_torch.data.io import item_cosine_sim, read_factor_mat
+    from matfac_tpu_torch.eval.metrics import Evaluator
+    from matfac_tpu_torch.models.base import EvalView
+    from matfac_tpu_torch.ops.ppr import PPREngine
+    from matfac_tpu_torch.ops.svd_init import svd_init
+    from matfac_tpu_torch.utils import freq as ufreq
+
+    if not (args.initufac and args.initifac):
+        raise SystemExit("--mode analyze needs --initufac/--initifac "
+                         "(the trained factors)")
+    inval_u, inval_i = ufreq.invalid_users_items(
+        data.train_mat, data.n_users, data.n_items)
+    ev = Evaluator(data, inval_u, inval_i, params, device=device)
+
+    def view_of(u, i):
+        f32 = dict(dtype=torch.float32, device=device)
+        return EvalView(torch.as_tensor(u, **f32), torch.as_tensor(i, **f32),
+                        torch.zeros(data.n_users, **f32),
+                        torch.zeros(data.n_items, **f32),
+                        torch.zeros((), **f32))
+
+    full = view_of(read_factor_mat(args.initufac, data.n_users,
+                                   params.fac_dim),
+                   read_factor_mat(args.initifac, data.n_items,
+                                   params.fac_dim))
+    print(f"Loaded model: Train RMSE {ev.rmse(full, 'train'):.6f} "
+          f"Test RMSE {ev.rmse(full, 'test'):.6f}")
+
+    orig = full
+    if data.orig_u_fac is not None and data.orig_i_fac is not None:
+        orig = view_of(data.orig_u_fac, data.orig_i_fac)
+        print(f"fullLowRankErr vs ground truth: "
+              f"{ev.full_low_rank_err(full, data.orig_u_fac, data.orig_i_fac):.6f}")
+
+    su, sv, _ = svd_init(data.train_mat, params.svd_fac_dim,
+                         sparsity_only=True, device=device)
+    svd_view = view_of(su, sv)
+    if data.graph_mat is not None:
+        eng = PPREngine(data.graph_mat, device=device)
+    else:
+        eng = PPREngine(item_cosine_sim(data.train_mat, top_k=50,
+                                        device=device), device=device)
+    rep = sample_top_n_analysis(full, orig, ev, data, inval_u, inval_i,
+                                svd_view=svd_view, ppr_engine=eng,
+                                n_users=min(200, data.n_users),
+                                seed=params.seed)
+    print("Freq-RMSE sweep (top-p items): ")
+    for p, (cnt, rmse) in rep["freq_rmse_sweep"].items():
+        print(f"  top {p:.0%}: n={cnt} rmse={rmse:.6f}")
+    print("Per-user bucket RMSE curves (bucket 0 = top-scored):")
+    for name, curve in rep["bucket_curves"].items():
+        print(f"  {name}: " + " ".join(f"{x:.4f}" for x in curve))
+    users = np.random.default_rng(params.seed).choice(
+        data.n_users, size=min(50, data.n_users), replace=False)
+    ov = compare_ppr_gpr(eng, data.train_mat, users)
+    print(f"PPR-vs-GPR top-100 mean overlap: {ov['mean_overlap']:.4f}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cpu:
@@ -133,10 +205,6 @@ def main(argv=None) -> int:
                            "card, or on the CPU with --cpu")
     params = params_from_args(args)
     print(params.display())
-    if args.mode == "analyze":
-        raise NotImplementedError(
-            "--mode analyze (the analysis stack, analysis/*, ops/ppr.py, "
-            "tools.py) is ROADMAP queue 1, item 15")
 
     from matfac_tpu_torch.data.dataset import Data
     from matfac_tpu_torch.data.io import read_factor_mat
@@ -146,6 +214,9 @@ def main(argv=None) -> int:
 
     data = Data(params)
     print(data)
+
+    if args.mode == "analyze":
+        return _run_analyze(args, params, data, device)
 
     init_override = None
     if (args.initufac and args.initifac) or args.svdinit:

@@ -1,5 +1,9 @@
 """Matrix and factor IO: the parts of matfac_tpu/data/io.py that the port
-calls, copied (tests/test_torch_data.py holds them to the originals).
+calls, copied where they are numpy (tests/test_torch_data.py holds them to
+the originals).
+
+The item-item similarity graphs (cosine and Jaccard top-k) are computed
+on the device.
 
 GKlib text CSR format (as read by ``gk_csr_Read(..., GK_CSR_FMT_CSR,
 GK_CSR_IS_VAL, 0)``, datastruct.cpp:16): line ``i`` holds row ``i`` as
@@ -10,9 +14,11 @@ the port keeps the numpy parser, which reads the same matrix.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from matfac_tpu_torch.data.csr import RatingMatrix
 
@@ -126,3 +132,200 @@ def split_train_test_val(mat: RatingMatrix, test_pc: float, val_pc: float,
         out.append(RatingMatrix.from_coo(r[m], c[m], v[m],
                                          mat.nrows, mat.ncols))
     return out[0], out[1], out[2]
+
+
+# ----------------------------------------------------------------------
+# item-item similarity graphs (io.cpp:943-1060 writeItemSimMat /
+# writeItemJaccSimMat / *Par): cosine or Jaccard over item columns, as a
+# CSR adjacency with values, top-k sparsified. The item x item products
+# run on the device in blocks of item rows, each a sparse x sparse
+# product: the block's [B, n_users] item rows times the [n_users, n_items]
+# user rows, whose work is the two-hop walk's (a product per item a block
+# item's users rated), then densified to [B, n_items] for the top-k.
+# ----------------------------------------------------------------------
+
+# A row whose k-th and (k+1)-th device similarities are closer than this
+# (relative) is settled on the host with the native rule; further apart,
+# float64 summation order cannot swap them, nor can their float32 roundings
+# meet.
+_TIE_RTOL = 1e-6
+
+
+def _segments(ptr: np.ndarray, ids: np.ndarray):
+    """(positions, lengths) of the entries of segments ``ids`` of a pointer
+    array, concatenated in the order of ``ids``."""
+    lens = (ptr[ids + 1] - ptr[ids]).astype(np.int64)
+    pos = (np.repeat(ptr[ids] - np.cumsum(lens) + lens, lens)
+           + np.arange(lens.sum()))
+    return pos, lens
+
+
+def _sparse_csr(ptr, idx, vals, shape, dev) -> torch.Tensor:
+    """A float64 CSR tensor made on ``dev`` (its invariants checked)."""
+    as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(
+        a.astype(dt))).to(dev)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Sparse CSR tensor "
+                                "support is in beta state")
+        return torch.sparse_csr_tensor(
+            as_t(ptr, np.int64), as_t(idx, np.int64),
+            as_t(vals, np.float64), shape, check_invariants=True)
+
+
+class _Products:
+    """Float64 dot products of item columns on ``dev``: ``rows(ids)`` is the
+    dense [len(ids), n_items] block of items ``ids`` against every item.
+    ``ones`` takes every rating as 1 (support-set intersections)."""
+
+    def __init__(self, mat: RatingMatrix, dev, ones: bool = False):
+        self.mat, self.dev = mat, dev
+        self.colptr, self.rowind, colval = mat.csc()
+        self.colval = np.ones_like(colval) if ones else colval
+        # the sparse product wants each row's columns sorted
+        srt = mat if mat.is_sorted() else mat.sort_rows()
+        self.user_rows = _sparse_csr(
+            srt.indptr, srt.indices,
+            np.ones_like(srt.values) if ones else srt.values,
+            (mat.nrows, mat.ncols), dev)
+
+    def rows(self, ids: np.ndarray) -> torch.Tensor:
+        pos, lens = _segments(self.colptr, ids)
+        block = _sparse_csr(np.concatenate([[0], np.cumsum(lens)]),
+                            self.rowind[pos], self.colval[pos],
+                            (len(ids), self.mat.nrows), self.dev)
+        return (block @ self.user_rows).to_dense()
+
+
+def _native_cosine_row(mat: RatingMatrix, norms: np.ndarray, i: int,
+                       top_k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Row i of the native library's cosine top-k (matfac_native.cpp:
+    164-233), its arithmetic and tie rule reproduced: the two-hop walk
+    (item i's users in CSC order, each user's items in row order) sums
+    each neighbour's products in float64 in walk order; a neighbour enters
+    the running list before the first slot whose float32 value its float64
+    similarity exceeds. So the list is ordered by float32 value, and within
+    a float32 value the neighbours whose float64 value exceeds it come
+    first, the last touched first, then the rest in touch order. Returns
+    (cols, float32 values) of the kept slots (value > 0)."""
+    colptr, rowind, colval = mat.csc()
+    users = rowind[colptr[i]:colptr[i + 1]]
+    vi = colval[colptr[i]:colptr[i + 1]].astype(np.float64)
+    pos, lens = _segments(mat.indptr, users.astype(np.int64))
+    js = mat.indices[pos].astype(np.int64)
+    prods = np.repeat(vi, lens) * mat.values[pos].astype(np.float64)
+    keep = js != i
+    js, prods = js[keep], prods[keep]
+    if len(js) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32)
+    # bincount adds its weights in input order: the walk's float64 sums
+    acc = np.bincount(js, weights=prods, minlength=mat.ncols)
+    touched, first = np.unique(js, return_index=True)
+    sim = acc[touched] / (norms[i] * norms[touched])
+    f = sim.astype(np.float32)
+    up = sim > f.astype(np.float64)
+    order = np.lexsort((np.where(up, -first, first), ~up, -f))[:top_k]
+    cols, vals = touched[order], f[order]
+    return cols[vals > 0], vals[vals > 0]
+
+
+def cosine_topk_rows(mat: RatingMatrix, items: np.ndarray, top_k: int = 50,
+                     block: int = 1024, device="cuda"
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The cosine top-k neighbours of ``items`` as COO (rows, cols, float32
+    values), the edges of the native library's item_cosine_topk: float64
+    products on ``device`` a block of rows at a time, each row's top k + 1
+    by value, and the rows where the (k+1)-th value comes within _TIE_RTOL
+    of the k-th (or, with negative ratings, a row with fewer than k + 1
+    positive values, where a product sum near zero may keep its sign only
+    in the native's order) recomputed on the host by the native rule
+    (_native_cosine_row). Cosine of zero-norm items is taken with norm 1,
+    no self edges, only values > 0 kept."""
+    dev = torch.device(device)
+    items = np.asarray(items, np.int64)
+    colptr, _, colval = mat.csc()
+    n_items = mat.ncols
+    # bincount adds in CSC order, the native's order for the norms
+    sq = np.bincount(np.repeat(np.arange(n_items), np.diff(colptr)),
+                     weights=colval.astype(np.float64) ** 2,
+                     minlength=n_items)
+    norms = np.where(sq > 0, np.sqrt(sq), 1.0)
+    products = _Products(mat, dev)
+    norms_t = torch.from_numpy(norms).to(dev)
+    mixed_sign = bool((colval < 0).any())
+    kk = min(top_k + 1, n_items)
+    rows_out, cols_out, vals_out, settle = [], [], [], []
+    for s in range(0, len(items), block):
+        ids = items[s:s + block]
+        ids_t = torch.from_numpy(ids).to(dev)
+        acc = products.rows(ids)                        # [B, n_items]
+        sim = acc / (norms_t[ids_t][:, None] * norms_t[None, :])
+        sim[torch.arange(len(ids), device=dev), ids_t] = 0.0
+        v, c = torch.topk(sim, kk, dim=1)
+        v, c = v.cpu().numpy(), c.cpu().numpy()
+        if kk > top_k:
+            vk, vk1 = v[:, top_k - 1], v[:, top_k]
+            amb = (vk1 > 0) & (vk - vk1 <= _TIE_RTOL * np.abs(vk))
+            if mixed_sign:
+                amb |= vk1 <= 0
+        else:
+            amb = np.full(len(ids), mixed_sign)
+        v, c = v[:, :top_k], c[:, :top_k]
+        clear = ~amb[:, None] & (v.astype(np.float32) > 0)
+        rows_out.append(np.broadcast_to(ids[:, None], v.shape)[clear])
+        cols_out.append(c[clear])
+        vals_out.append(v[clear].astype(np.float32))
+        settle.extend(ids[amb].tolist())
+    for i in settle:
+        c, v = _native_cosine_row(mat, norms, i, top_k)
+        rows_out.append(np.full(len(c), i, np.int64))
+        cols_out.append(c)
+        vals_out.append(v)
+    cat = lambda xs, dt: (np.concatenate(xs).astype(dt) if xs
+                          else np.zeros(0, dt))
+    return (cat(rows_out, np.int64), cat(cols_out, np.int64),
+            cat(vals_out, np.float32))
+
+
+def item_cosine_sim(mat: RatingMatrix, top_k: int = 50, block: int = 1024,
+                    device="cuda") -> RatingMatrix:
+    """writeItemSimMatPar analog: the n_items x n_items cosine top-k graph,
+    the edges and float32 values of the JAX package's native path
+    (cosine_topk_rows over every item)."""
+    r, c, v = cosine_topk_rows(mat, np.arange(mat.ncols), top_k, block,
+                               device)
+    return RatingMatrix.from_coo(r, c, v, mat.ncols, mat.ncols)
+
+
+def item_jaccard_sim(mat: RatingMatrix, top_k: int = 50, block: int = 1024,
+                     device="cuda") -> RatingMatrix:
+    """writeItemJaccSimMatPar analog (io.cpp:1027): |A∩B| / |A∪B| over the
+    rating-support sets of item pairs, top-k per item row, no self edges,
+    only values > 0 kept. The intersections are exact counts (float64
+    products of 0/1 entries); the ratio is divided in float32, as the JAX
+    package divides its float32 counts. Among equal values the kept
+    neighbours are not defined (the JAX package's argpartition)."""
+    dev = torch.device(device)
+    n_items = mat.ncols
+    k = min(top_k, n_items - 1)
+    products = _Products(mat, dev, ones=True)
+    sizes = torch.from_numpy(np.diff(mat.csc()[0]).astype(np.float32)).to(
+        dev)
+    rows_out, cols_out, vals_out = [], [], []
+    for s in range(0, n_items, block):
+        e = min(s + block, n_items)
+        inter = products.rows(np.arange(s, e)).float()  # [B, n_items]
+        union = sizes[s:e, None] + sizes[None, :] - inter
+        union[union == 0] = 1.0
+        sim = inter / union
+        sim[torch.arange(e - s, device=dev),
+            torch.arange(s, e, device=dev)] = 0.0
+        v, c = torch.topk(sim, k, dim=1)
+        v, c = v.cpu().numpy(), c.cpu().numpy()
+        keep = v > 0
+        rows_out.append(np.broadcast_to(np.arange(s, e)[:, None],
+                                        v.shape)[keep])
+        cols_out.append(c[keep])
+        vals_out.append(v[keep])
+    return RatingMatrix.from_coo(
+        np.concatenate(rows_out), np.concatenate(cols_out),
+        np.concatenate(vals_out), n_items, n_items)

@@ -2,8 +2,9 @@
 (matfac_tpu.cli): the parser flag for flag and the Params it builds, an
 in-process ``main([..., "--cpu"])`` of every single-device algo on the JAX
 CLI tests' fixture printing JAX's report lines, the printed numbers from
-the same factors, the init overrides, and the refusals (analyze mode; no
-CUDA device without --cpu)."""
+the same factors, the init overrides, analyze mode's report against JAX's
+(with and without --graphmat), and the refusals (no CUDA device without
+--cpu; analyze mode without the trained factors)."""
 
 import dataclasses
 import os
@@ -285,9 +286,79 @@ def test_init_overrides(how, files, monkeypatch):
     assert st.u_bias.shape == (data.n_users,)
 
 
-def test_analyze_mode_names_its_roadmap_item(files):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcli.main(_argv(files, "--mode", "analyze"))
+# ----------------------------------------------------------------------
+# analyze mode
+# ----------------------------------------------------------------------
+
+def _jax_svd_omega(monkeypatch):
+    """The port's svd_init with the test matrix JAX draws (the random
+    draws of the two packages differ; tests/test_torch_svd_init.py)."""
+    import jax
+    from matfac_tpu_torch.ops import svd_init as tsvd
+    real = tsvd.svd_init
+
+    def svd_init(mat, rank, seed=0, oversample=8, **kw):
+        rr = min(rank + oversample, min(mat.nrows, mat.ncols))
+        omega = np.asarray(jax.random.normal(jax.random.PRNGKey(seed),
+                                             (mat.ncols, rr)))
+        return real(mat, rank, seed=seed, oversample=oversample,
+                    omega=omega, **kw)
+    monkeypatch.setattr(tsvd, "svd_init", svd_init)
+
+
+def _analyze_lines(out: str):
+    """The report's lines from 'Loaded model' on."""
+    lines = out.splitlines()
+    return lines[next(i for i, s in enumerate(lines)
+                      if s.startswith("Loaded model")):]
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["cosine", "graphmat"])
+def test_analyze_prints_jax_report(graph, files, capsys, monkeypatch,
+                                   tmp_path):
+    """--mode analyze --cpu in both packages on the same files (a trained
+    model = the ground truth plus noise, the ground truth, and with
+    --graphmat an item graph written as text): the same lines; RMSE,
+    fullLowRankErr and the sweep's RMSEs to rtol 1e-5 (printed to 6
+    decimals), the sweep's counts and the PPR-vs-GPR overlap exactly, the
+    bucket curves to 1e-4 (printed to 4 decimals: one unit of the last
+    digit). Without --graphmat the 50-neighbour cosine graph is built by
+    each package (JAX: its native library)."""
+    _jax_svd_omega(monkeypatch)
+    gu = mfio.read_factor_mat(files["gu"], 60, 3)
+    noise = np.random.default_rng(3).normal(0, 0.1, gu.shape)
+    mfio.write_factor_mat((gu + noise).astype(np.float32),
+                          str(tmp_path / "tu.mat"))
+    extra = ["--mode", "analyze", "--facdim", "3", "--svdfacdim", "3",
+             "--initufac", str(tmp_path / "tu.mat"), "--initifac",
+             files["gi"], "--origufac", files["gu"], "--origifac",
+             files["gi"]]
+    if graph:
+        g = mfio.item_cosine_sim(mfio.read_csr(files["train"]), top_k=8)
+        mfio.write_csr(g, str(tmp_path / "g.csr"))
+        extra += ["--graphmat", str(tmp_path / "g.csr")]
+    outs = []
+    for mod in (jcli, tcli):
+        assert mod.main(_argv(files, *extra)) == 0
+        outs.append(_analyze_lines(capsys.readouterr().out))
+    want, got = outs
+    assert _shape(got, counts=True) == _shape(want, counts=True)
+    assert len(got) == 13 and got[-1] == want[-1]
+    assert got[-1].startswith("PPR-vs-GPR top-100 mean overlap: ")
+    curves = [i for i, s in enumerate(want) if s.startswith(
+        ("  freq:", "  svd:", "  ppr:"))]
+    assert len(curves) == 3
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = dict(rtol=1e-4, atol=1.0001e-4) if i in curves else \
+            dict(rtol=1e-5, atol=0)
+        np.testing.assert_allclose(_numbers([a]), _numbers([b]), **tol)
+    assert np.all(np.isfinite(_numbers(got)))
+
+
+def test_analyze_needs_the_trained_factors(files):
+    for mod in (jcli, tcli):
+        with pytest.raises(SystemExit, match="initufac"):
+            mod.main(_argv(files, "--mode", "analyze"))
 
 
 def test_refuses_to_start_without_a_cuda_device(files, monkeypatch):

@@ -269,3 +269,32 @@ def test_head_and_quartile_helpers_match(seed):
             assert got.dtype == np.int32
             np.testing.assert_array_equal(
                 got, jfreq.quartile_assignments(f, valid, nq))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rank_scale_corr_and_gen_stats_match(seed):
+    """percentile_rank_map, freq_scale_stats, pearson_corr, gen_stats and
+    format_gen_stats: the copies give the originals' values and lines."""
+    r, c, v, n, m = _coo(seed=seed, n=50, m=30)
+    mat = jcsr.RatingMatrix.from_coo(r, c, v, n, m)
+    uf, if_ = jfreq.row_col_freq(mat)
+    for f in (uf, if_, np.zeros(4)):
+        for valid in (f > 0, np.arange(len(f)) % 3 != 0,
+                      np.zeros(len(f), bool)):
+            np.testing.assert_array_equal(
+                tfreq.percentile_rank_map(f, valid),
+                jfreq.percentile_rank_map(f, valid))
+    assert tfreq.freq_scale_stats(uf, if_) == jfreq.freq_scale_stats(uf,
+                                                                     if_)
+    rng = np.random.default_rng(seed)
+    for a, b in ((uf[:30], if_), (np.ones(5), rng.random(5)),
+                 (np.ones(1), np.ones(1)), (rng.random(9), rng.random(9))):
+        assert tfreq.pearson_corr(a, b) == jfreq.pearson_corr(a, b)
+    tm = tcsr.RatingMatrix(mat.indptr, mat.indices, mat.values, mat.ncols)
+    for ignore in (None, (r[::3], c[::3]), (np.array([n + 5]),
+                                            np.array([0]))):
+        got = tfreq.gen_stats(tm, ignore)
+        assert got == jfreq.gen_stats(mat, ignore)
+        for sfx in ("", "run1"):
+            assert tfreq.format_gen_stats(got, sfx) == \
+                jfreq.format_gen_stats(got, sfx)

@@ -51,7 +51,18 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.solvers.bpr_dense",
             "matfac_tpu_torch.ops.svd_init", "matfac_tpu_torch.cli",
             "matfac_tpu_torch.models.increment",
-            "matfac_tpu_torch.eval.quartile"} <= set(MODULES)
+            "matfac_tpu_torch.eval.quartile",
+            "matfac_tpu_torch.analysis",
+            "matfac_tpu_torch.analysis.batch",
+            "matfac_tpu_torch.analysis.compare",
+            "matfac_tpu_torch.analysis.conf_compat",
+            "matfac_tpu_torch.analysis.confidence",
+            "matfac_tpu_torch.analysis.drivers",
+            "matfac_tpu_torch.analysis.top_bucket",
+            "matfac_tpu_torch.analysis.topn",
+            "matfac_tpu_torch.ops.ppr", "matfac_tpu_torch.tools",
+            "matfac_tpu_torch.train.profiler",
+            "matfac_tpu_torch.data.movielens"} <= set(MODULES)
     assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
     proc = _import_all_then(
         "bad = sorted(m for m in sys.modules if m == 'jax' "
