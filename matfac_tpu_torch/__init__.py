@@ -28,8 +28,11 @@ dense-stripe BPR engine, "sgdparsvd"); and the othersrc models ("tmf_bias",
 "mf_headwt", "mf_loc", "dropoutmf*", the "mf_freq" curriculum and
 "increment", ``models/increment.py``) behind the reference's front door,
 ``python -m matfac_tpu_torch.cli`` in train mode, with its quartile
-reports (``eval/quartile.py``). Each kernel runs on a CUDA tensor, its
-plain PyTorch version on a CPU tensor.
+reports (``eval/quartile.py``); the dense engine's diag cell grid
+(``BlockSGDSolver(engine="dense", bi=<below the catalog>)``, a cell-grid
+entry of ``csrc/dense_rows.cu``); both halves of the checkpoint and io
+modules and JAX's synthetic generators. Each kernel runs on a CUDA
+tensor, its plain PyTorch version on a CPU tensor.
 """
 
 from matfac_tpu_torch.config import Params

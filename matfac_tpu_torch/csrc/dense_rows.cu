@@ -107,6 +107,28 @@
 // bounds the masked epoch. At full rank the masked instantiation gives the
 // unmasked factors bit for bit (sgd_value).
 //
+// The cell-grid entry (dense_cells_epoch) replaces the diag cell grid of
+// the JAX dense engine (matfac_tpu/ops/dense_block_kernel.py:110
+// dense_sweep_diag, which XLA computes there): tiles [NU * NI + 1, bu,
+// bi], cell c = ub * NI + l, the dummy cell last. Each DSGD round gives
+// lane l (item block l) a user block ub_idx[t][l]; the epoch walks
+// (round, lane) in order and runs the same panel and step kernels on the
+// cell, with the item block's rows as I and ni_pad = bi. The cells of one
+// round are disjoint in users and in items, so running them one after
+// another equals running them together; a dummy lane (ub = NU, the
+// all-invalid dummy cell) leaves both tables as they are and is skipped.
+// Under this schedule a user block is visited NI times an epoch, so the
+// bf16 copy of U made at the epoch's start would go stale after the first
+// visit: the step kernel rewrites the block's bf16 rows from the f32 rows
+// it has just stepped (the same rounding the copy kernel does). A cell's
+// validity counts are staged once per cell, and the fixed-point bound
+// comes from the cell's geometry (panels of bi, chunks of bu), so the
+// epoch is bit-reproducible and codes equal float tiles as on the stripe.
+// Bound: the tile read, as for the stripe (the same slots over the
+// epoch); a cell of 2560 x 512 (the JAX package's measured grid at 100k x
+// 20k) is a grid of 160 CTAs on 132 SMs, launch after launch: putting a
+// round's cells into one launch is later work.
+//
 // The ablation entry (dense_rows_ablate) runs the tensor-core kernel on
 // int8 codes truncated after a stage: tile loads only, + P, + E, + item
 // step, full (scripts/torch_stripe_ablate.py).
@@ -235,7 +257,9 @@ __device__ __forceinline__ int first_above(const int* q, int k, int d) {
 // B. Step the item rows and the stripe's user rows from their summed
 // gradients, the counts and the old rows, and leave both sums zeroed for
 // the next stripe. Threads take four values of a row each when k % 4 == 0,
-// else one (the other lanes are padding). MASK: entity e of lambda L[e]
+// else one (the other lanes are padding). ub_rows (the cell grid, tensor
+// cores): the block's rows of the bf16 copy of U, [bu_pad, kp], rewritten
+// from the new rows. MASK: entity e of lambda L[e]
 // has rank r = qrow[L[e] - 1] at this visit; a value at d >= r is left as
 // it is (m = 0), and below it the regularization counts the valid partners
 // of rank > d, hist[e][first_above(qrow, d)] (the stripe's suffix
@@ -250,7 +274,8 @@ stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
                    const int* __restrict__ li, const int* __restrict__ lu,
                    const int* __restrict__ qrow,
                    const int16_t* __restrict__ hist_i,
-                   const int* __restrict__ hist_u) {
+                   const int* __restrict__ hist_u,
+                   __nv_bfloat16* __restrict__ ub_rows, int kp) {
   const int per = (k & 3) == 0 ? 4 : 1;
   const size_t n_i = static_cast<size_t>(ni_pad) * k / per;
   const size_t n_u = static_cast<size_t>(bu) * k / per;
@@ -301,6 +326,11 @@ stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
     *reinterpret_cast<float4*>(x) = make_float4(xs[0], xs[1], xs[2], xs[3]);
   else
     *x = xs[0];
+  if (ub_rows != nullptr && !item) {
+    // the cell grid: the block's bf16 operand rows follow its f32 rows
+    __nv_bfloat16* b = ub_rows + e * kp + d0;
+    for (int j = 0; j < per; ++j) b[j] = __float2bfloat16_rn(xs[j]);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -893,6 +923,9 @@ struct Epoch {
   cudaStream_t stream;
   long long* failed;
   long long* launched;
+  // 0: order holds stripes. The cell grid: order holds the rounds' user
+  // blocks lane by lane, lane b of `lanes` is item block b
+  int lanes = 0;
 };
 
 Epoch make_epoch(void* u3, void* i_tab, const void* R, const void* W,
@@ -933,16 +966,28 @@ cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
                  int kp, bool step, float lim) {
   const size_t bp = static_cast<size_t>(tc::bu_pad(e.bu));
   for (int i = 0; i < e.n_order; ++i) {
+    // the visit's user block s, item block b and tile t: a stripe is
+    // (s, 0, s); a cell is (s, lane, s * lanes + lane), and a dummy lane
+    // (s = NU) is skipped
     const long long s = e.order[i];
-    const size_t tile = static_cast<size_t>(s) * e.bu * e.ni_pad;
+    const int b = e.lanes ? i % e.lanes : 0;
+    const long long t = e.lanes ? s * e.lanes + b : s;
+    if (s < 0 || s > e.n_stripes || (s == e.n_stripes && !e.lanes)) {
+      *e.failed = t;
+      return cudaErrorInvalidValue;
+    }
+    if (s == e.n_stripes) continue;
+    const size_t tile = static_cast<size_t>(t) * e.bu * e.ni_pad;
     float* U = e.u3 + static_cast<size_t>(s) * e.bu * e.k;
+    float* I = e.I + static_cast<size_t>(b) * e.ni_pad * e.k;
+    __nv_bfloat16* Ub = e.ub + static_cast<size_t>(s) * bp * kp;
     const RT* R = static_cast<const RT*>(e.R) + tile;
     const WT* W = e.W ? static_cast<const WT*>(e.W) + tile : nullptr;
     const int* lu = MASK ? e.lu + static_cast<size_t>(s) * e.bu : nullptr;
     const int* qrow = MASK ? e.qs + static_cast<size_t>(s) * e.k : nullptr;
     kernel<<<grid, kThreads, smem, e.stream>>>(
-        U, e.ub + static_cast<size_t>(s) * bp * kp, e.I, R, W, e.gu, e.gi,
-        e.bu, e.ni_pad, e.k, e.vec, e.r_scale, lim, e.li, lu, qrow);
+        U, Ub, I, R, W, e.gu, e.gi, e.bu, e.ni_pad, e.k, e.vec, e.r_scale,
+        lim, e.li, lu, qrow);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++*e.launched;
     if (err == cudaSuccess && step) {
@@ -950,16 +995,17 @@ cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
       const size_t hk = static_cast<size_t>(s) * e.k;
       stripe_step_kernel<MASK><<<blocks_for(e.k % 4 ? n : n / 4), kThreads,
                                  0, e.stream>>>(
-          e.I, e.gi, e.cnt_i + static_cast<size_t>(s) * e.ni_pad, e.ni_pad,
-          U, e.gu, e.cnt_u + static_cast<size_t>(s) * e.bu, e.bu, e.k, e.lr,
+          I, e.gi, e.cnt_i + static_cast<size_t>(t) * e.ni_pad, e.ni_pad,
+          U, e.gu, e.cnt_u + static_cast<size_t>(t) * e.bu, e.bu, e.k, e.lr,
           e.i_reg, e.u_reg, e.collision_norm, e.li, lu, qrow,
           MASK ? e.hist_i + hk * e.ni_pad : nullptr,
-          MASK ? e.hist_u + hk * e.bu : nullptr);
+          MASK ? e.hist_u + hk * e.bu : nullptr,
+          e.lanes && kp ? Ub : nullptr, kp);
       err = cudaGetLastError();
       if (err == cudaSuccess) ++*e.launched;
     }
     if (err != cudaSuccess) {
-      *e.failed = s;
+      *e.failed = t;
       return err;
     }
   }
@@ -1130,6 +1176,43 @@ int dense_rows_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
     case kRCodes:
       return n_masks ? run_rw<int8_t, int8_t, true, true>(e, mm_bf16)
                      : run_rw<int8_t, int8_t, true, false>(e, mm_bf16);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One epoch of the diag cell grid on `stream`: with the tensor cores the
+// bf16 copy of U, then for each (round, lane) of ub_idx[n_rounds][n_lanes]
+// (a host array; user block n_ublocks marks a dummy lane, skipped) the
+// panel and step kernels on cell ub * n_lanes + lane. Tiles are [n_ublocks
+// * n_lanes + 1, bu, bi] (types as dense_rows_epoch; no rank masks), u3
+// [n_ublocks, bu, k], i3 [n_lanes, bi, k], cnt_u [n_cells + 1, bu] and
+// cnt_i [n_cells + 1, bi] the cells' f32 validity counts, `scratch` holds
+// dense_rows_scratch_bytes(n_ublocks, bu, bi, k, mm_bf16) zeroed bytes.
+// Returns as dense_rows_epoch, the failing cell in *failed_cell.
+int dense_cells_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
+                      void* u3, void* i3, const void* R, const void* W,
+                      const void* cnt_u, const void* cnt_i, void* scratch,
+                      const long long* ub_idx, int n_rounds, int n_lanes,
+                      int n_ublocks, int bu, int bi, int k, float lr,
+                      float r_scale, float u_reg, float i_reg, void* stream,
+                      long long* failed_cell, long long* launched) {
+  if (bu <= 0 || bi <= 0 || k <= 0 || n_rounds < 0 || n_lanes <= 0 ||
+      n_ublocks <= 0 || 1LL * n_rounds * n_lanes > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if ((rtype == kRCodes) != (W == nullptr)) return cudaErrorInvalidValue;
+  const int rb = rtype_bytes(rtype), wb = W ? wtype_bytes(wtype) : 1;
+  Epoch e = make_epoch(u3, i3, R, W, cnt_u, cnt_i, scratch, ub_idx,
+                       n_rounds * n_lanes, n_ublocks, bu, bi, k,
+                       collision_norm, lr, r_scale, u_reg, i_reg, stream,
+                       failed_cell, launched);
+  e.lanes = n_lanes;
+  e.vec = (static_cast<size_t>(bi) * rb) % 16 == 0 &&
+          (static_cast<size_t>(bi) * wb) % 16 == 0 && aligned16(R) &&
+          (W == nullptr || aligned16(W));
+  switch (rtype) {
+    case kRF32: return run_w<float>(e, wtype, mm_bf16);
+    case kRBF16: return run_w<__nv_bfloat16>(e, wtype, mm_bf16);
+    case kRCodes: return run_rw<int8_t, int8_t, true, false>(e, mm_bf16);
     default: return cudaErrorInvalidValue;
   }
 }

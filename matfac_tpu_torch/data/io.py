@@ -1,6 +1,7 @@
-"""Matrix and factor IO: the parts of matfac_tpu/data/io.py that the port
-calls, copied where they are numpy (tests/test_torch_data.py holds them to
-the originals).
+"""Matrix, vector and factor IO: matfac_tpu/data/io.py's numpy code,
+copied with its semantics (tests/test_torch_io.py and
+tests/test_torch_data.py hold it to the originals: the same arrays, the
+same draws, byte-identical files).
 
 The item-item similarity graphs (cosine and Jaccard top-k) are computed
 on the device.
@@ -96,13 +97,38 @@ def write_factor_mat(mat: np.ndarray, path: str) -> None:
     np.savetxt(path, np.asarray(mat), fmt="%.7g")
 
 
+def read_factor_mat_bin(path: str, nrows: Optional[int] = None,
+                        ncols: Optional[int] = None) -> np.ndarray:
+    """readMatBin analog (io.cpp:273-303): a headerless row-major stream
+    of little-endian float64, nrows*ncols values — bit-compatible with
+    files written by the reference binary. With nrows/ncols omitted the
+    flat vector is returned (caller reshapes)."""
+    raw = np.fromfile(path, dtype="<f8")
+    if nrows is None or ncols is None:
+        return raw.astype(np.float32)
+    if raw.size < nrows * ncols:
+        raise ValueError(f"{path}: {raw.size} values < {nrows}x{ncols}")
+    return raw[: nrows * ncols].reshape(nrows, ncols).astype(np.float32)
+
+
+def write_factor_mat_bin(mat: np.ndarray, path: str) -> None:
+    """writeMatBin analog (io.cpp:157-184): raw little-endian float64
+    row-major stream, no header — readable by the reference."""
+    np.asarray(mat, dtype="<f8").tofile(path)
+
+
+def read_vector(path: str) -> np.ndarray:
+    """readVector analog (io.h): one float per line."""
+    return np.loadtxt(path, dtype=np.float64).reshape(-1)
+
+
 def write_vector(vec: np.ndarray, path: str) -> None:
     """writeVector analog (io.cpp:369-388): one value per line."""
     np.savetxt(path, np.asarray(vec).reshape(-1), fmt="%.7g")
 
 
 # ----------------------------------------------------------------------
-# splits
+# splits / transforms
 # ----------------------------------------------------------------------
 
 def split_train_test_val(mat: RatingMatrix, test_pc: float, val_pc: float,
@@ -132,6 +158,86 @@ def split_train_test_val(mat: RatingMatrix, test_pc: float, val_pc: float,
         out.append(RatingMatrix.from_coo(r[m], c[m], v[m],
                                          mat.nrows, mat.ncols))
     return out[0], out[1], out[2]
+
+
+def binarize(mat: RatingMatrix, thresh: float) -> RatingMatrix:
+    """writeBinarizedTrainValTest analog (io.cpp:187): keep entries with
+    value >= thresh at value 1, drop the rest."""
+    r, c, v = mat.to_coo()
+    m = v >= thresh
+    return RatingMatrix.from_coo(r[m], c[m], np.ones(m.sum(), np.float32),
+                                 mat.nrows, mat.ncols)
+
+
+def subsample(mat: RatingMatrix, keep_pc: float, seed: int) -> RatingMatrix:
+    """Random nnz subsample (writeSubSampledMat analog)."""
+    rng = np.random.default_rng(seed)
+    r, c, v = mat.to_coo()
+    m = rng.random(mat.nnz) < keep_pc
+    return RatingMatrix.from_coo(r[m], c[m], v[m], mat.nrows, mat.ncols)
+
+
+def write_triplets(mat: RatingMatrix, path: str) -> None:
+    """writeTriplets analog (io.cpp:1183-1191): ``u i r`` per line."""
+    r, c, v = mat.to_coo()
+    with open(path, "w") as f:
+        f.write("".join(f"{u} {i} {_fmt(val)}\n"
+                        for u, i, val in zip(r.tolist(), c.tolist(),
+                                             v.tolist())))
+
+
+def read_triplets(path: str, nrows: Optional[int] = None,
+                  ncols: Optional[int] = None) -> RatingMatrix:
+    data = np.loadtxt(path, dtype=np.float64)
+    data = np.atleast_2d(data)
+    r = data[:, 0].astype(np.int64)
+    c = data[:, 1].astype(np.int64)
+    v = data[:, 2].astype(np.float32)
+    if nrows is None:
+        nrows = int(r.max()) + 1 if len(r) else 0
+    if ncols is None:
+        ncols = int(c.max()) + 1 if len(c) else 0
+    return RatingMatrix.from_coo(r, c, v, nrows, ncols)
+
+
+def write_csr_with_model_values(mat: RatingMatrix, u_fac: np.ndarray,
+                                i_fac: np.ndarray, path: str,
+                                with_values: bool = True) -> None:
+    """writeCSRWSparsityStructure analog (io.cpp:690-714): same sparsity
+    pattern, values replaced by a factor model's predictions (float32
+    numpy arrays; a caller holding tensors passes ``.cpu().numpy()``)."""
+    r, c, _ = mat.to_coo()
+    vals = np.einsum("ek,ek->e", u_fac[r], i_fac[c]).astype(np.float32)
+    out = RatingMatrix.from_coo(r, c, vals, mat.nrows, mat.ncols)
+    write_csr(out, path, with_values)
+
+
+def tail_test_mat(mat: RatingMatrix, head_mask: np.ndarray,
+                  max_ratings: int = 5000) -> RatingMatrix:
+    """writeTailTestMat analog (io.cpp:~500): keep only tail-item test
+    entries, capped at ``max_ratings`` total."""
+    r, c, v = mat.to_coo()
+    keep = ~head_mask[c]
+    r, c, v = r[keep], c[keep], v[keep]
+    if len(r) > max_ratings:
+        r, c, v = r[:max_ratings], c[:max_ratings], v[:max_ratings]
+    return RatingMatrix.from_coo(r, c, v, mat.nrows, mat.ncols)
+
+
+def split_in_half(mat: RatingMatrix, seed: int
+                  ) -> Tuple[RatingMatrix, RatingMatrix]:
+    """splitValMat analog (main.cpp:1203-1231): random exact-half nnz
+    split, both halves keeping the full shape."""
+    rng = np.random.default_rng(seed)
+    nnz = mat.nnz
+    color = np.zeros(nnz, np.int8)
+    color[rng.permutation(nnz)[: nnz // 2]] = 1
+    r, c, v = mat.to_coo()
+    a = RatingMatrix.from_coo(r[color == 0], c[color == 0], v[color == 0],
+                              mat.nrows, mat.ncols)
+    b = RatingMatrix.from_coo(r[color == 1], c[color == 1], v[color == 1],
+                              mat.nrows, mat.ncols)
+    return a, b
 
 
 # ----------------------------------------------------------------------

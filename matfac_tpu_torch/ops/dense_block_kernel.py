@@ -1,8 +1,8 @@
-"""Dense stripe SGD math in plain PyTorch (port of
-matfac_tpu/ops/dense_block_kernel.py, row layout only).
+"""Dense stripe and cell SGD math in plain PyTorch (port of
+matfac_tpu/ops/dense_block_kernel.py).
 
-One stripe step is a full-batch masked-residual GD step on a dense
-[bu, ni_pad] tile of ratings R and validity/weights W:
+One stripe (or cell) step is a full-batch masked-residual GD step on a
+dense [bu, ni_pad] (or [bu, bi]) tile of ratings R and validity/weights W:
 
     P  = U I^T                    E  = W * (R - P)
     gu = -2 E I   + 2 u_reg cnt_u U
@@ -22,8 +22,9 @@ cntm_u = (vm @ Mi) o Mu and cntm_i = (vm^T @ Mu) o Mi. TMF+Dropout's
 ranks are drawn per stripe visit t from a table of Poisson quantiles,
 Q[t, lam - 1] = clip(#{m : C[lam - 1, m] < U_t}, 1, k)
 (``visit_quantiles``), and an entity's rank is Q[t, L_e - 1] of its
-lambda L_e. The diag cell grid (``dense_sweep_diag``) is not ported: the
-solver's default is the row layout.
+lambda L_e. The diag cell grid (``dense_sweep_diag``) runs the same step
+on [bu, bi] cells, DSGD rounds of cells disjoint in users and items; it
+carries no rank masks (the JAX solver refuses masked models there).
 """
 
 from __future__ import annotations
@@ -158,6 +159,43 @@ def dense_sweep_rows(u3: torch.Tensor, i_tab: torch.Tensor,
         u3[s] = U
         i_tab.copy_(I)
     return u3, i_tab
+
+
+def dense_sweep_diag(u3: torch.Tensor, i3: torch.Tensor,
+                     ub_idx: torch.Tensor, lr, R_cells: torch.Tensor,
+                     W_cells: Optional[torch.Tensor], u_reg: float,
+                     i_reg: float, collision_norm: bool,
+                     mm_bf16: bool = True, r_scale: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Diagonal-scheduled dense epoch (JAX ``dense_sweep_diag``: Gemulla
+    DSGD rounds with identity item lanes, modelMF.cpp:154-350 /
+    util.cpp:1077-1107 semantics).
+
+    u3 [NU, bu, k], i3 [NI, bi, k] f32; ub_idx [R, G = NI] the user block of
+    each (round, lane), lane l owning item block l, NU marking a dummy lane;
+    R_cells / W_cells [NU * NI + 1, bu, bi] in cell-major order (cell =
+    ub * NI + l, the last an all-invalid dummy; W_cells=None with int8
+    codes and ``r_scale``). In each round lane l runs ``cell_dense_update``
+    on (ub_idx[t, l], l). JAX reads every lane of a round from the round's
+    old tables; the lanes' cells are disjoint in users and items, so they
+    run here one after another, and a dummy lane (JAX: the zero dummy
+    block on the all-invalid dummy cell, which leaves both tables as they
+    are) is skipped. The JAX tables' dummy row NU is not kept. Updates u3
+    and i3 IN PLACE and returns them."""
+    NU, NI = u3.shape[0], i3.shape[0]
+    lr = float(lr)
+    for row in ub_idx.tolist():
+        for lane, ub in enumerate(row):
+            if ub == NU:
+                continue
+            c = ub * NI + lane
+            U, I = cell_dense_update(
+                u3[ub], i3[lane], R_cells[c],
+                None if W_cells is None else W_cells[c], lr, u_reg, i_reg,
+                collision_norm, mm_bf16, r_scale=r_scale)
+            u3[ub] = U
+            i3[lane] = I
+    return u3, i3
 
 
 def densify_rows(cell: np.ndarray, u_loc: np.ndarray, i_loc: np.ndarray,

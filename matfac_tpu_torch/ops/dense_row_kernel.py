@@ -30,6 +30,13 @@ masked regularization counts from suffix histograms of the tiles'
 lambdas, ``rank_hists``, which the solver stages once beside the counts.
 The masks are instantiated for int8 codes and int8 validity W only, the
 tiles of the 0/1-weight models that carry them.
+
+``dense_cells_epoch`` is the same kernel's cell-grid entry, the port of
+the JAX dense engine's diag cell grid (``dense_sweep_diag``, which XLA
+computes there): DSGD rounds of [bu, bi] cells, one (panel, step) pair a
+cell (the step also refreshes the block's bf16 U rows), plus the bf16
+copy of U once an epoch on the tensor-core route; the same launch count as
+``epoch_launches`` of the cells visited. No rank masks, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from typing import Optional, Tuple
 import torch
 
 from matfac_tpu_torch.ops import _build
-from matfac_tpu_torch.ops.dense_block_kernel import dense_sweep_rows
+from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_diag,
+                                                    dense_sweep_rows)
 
 Ranks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -60,6 +68,14 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rtype,
         _P, _P, _P, _P,                     # wtype, mm, cn; u3, i_tab, R, W
         _P, _P, _P, _P, _P] + _EPOCH_TAIL),  # lu, li, qs, hist_u, hist_i
+    "dense_cells_epoch": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rtype,
+        _P, _P, _P, _P,                     # wtype, mm, cn; u3, i3, R, W
+        _P, _P, _P,                         # cnt_u, cnt_i, scratch
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ub_idx, R, G, NU
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,      # bu, bi, k
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,  # lr, r_scale, u_reg
+        ctypes.c_float, _P, _P, _P]),        # i_reg, stream, failed, launched
     "dense_rows_ablate": (ctypes.c_int, [
         ctypes.c_int, _P, _P, _P] + _EPOCH_TAIL),   # stage; u3, i_tab, R
     "dense_rows_scratch_bytes": (ctypes.c_size_t, [ctypes.c_int] * 5),
@@ -75,15 +91,16 @@ def library() -> ctypes.CDLL:
 
 
 def epoch_launches(n_stripes: int, k: int, mm_bf16: bool) -> int:
-    """Kernel launches of one epoch on the card."""
+    """Kernel launches of one epoch on the card (``n_stripes`` stripes, or
+    the cells a cell-grid epoch visits)."""
     return library().dense_rows_epoch_launches(n_stripes, k, int(mm_bf16))
 
 
 def stripe_counts(R_rows: torch.Tensor, W_rows: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 validity counts of every stripe, (cnt_u [NU, bu], cnt_i [NU,
-    ni_pad]): W > 0, or code != 0 for int8 codes (W_rows=None), one stripe
-    at a time on the tiles' device."""
+    """f32 validity counts of every stripe (or cell), (cnt_u [NU, bu],
+    cnt_i [NU, ni_pad]): W > 0, or code != 0 for int8 codes (W_rows=None),
+    one tile at a time on the tiles' device."""
     tiles = R_rows if W_rows is None else W_rows
     NU, bu, ni = tiles.shape
     cnt_u = torch.empty((NU, bu), dtype=torch.float32, device=tiles.device)
@@ -143,6 +160,50 @@ def _check_ranks(ranks, NU, bu, ni_pad, k, dev):
                          "row of Q must be nondecreasing")
 
 
+def _check_tiles(R, W, r_scale, tabs):
+    if W is None:
+        if R.dtype != torch.int8 or r_scale is None:
+            raise ValueError("W=None means int8 rating codes in R with an "
+                             "r_scale")
+    elif W.shape != R.shape:
+        raise ValueError("W tiles must have R's shape")
+    tabs = tabs + [R] + ([] if W is None else [W])
+    if any(t.device != tabs[0].device for t in tabs):
+        raise ValueError("factor tables and tiles must share a device")
+    if any(not t.is_contiguous() for t in tabs):
+        raise ValueError("factor tables and tiles must be contiguous")
+    if tabs[0].dtype != torch.float32 or tabs[1].dtype != torch.float32:
+        raise ValueError("factor tables must be float32")
+
+
+def _check_kernel_tiles(R, W, dev):
+    """The tile types the CUDA kernel is instantiated for; (rtype, wtype)."""
+    if dev.type != "cuda":
+        raise ValueError(f"no route for device {dev}")
+    if R.dtype not in _RTYPES or (
+            W is not None and (W.dtype not in _WTYPES
+                               or R.dtype == torch.int8)):
+        raise ValueError("the CUDA kernel takes f32/bf16 R with int8, bf16 "
+                         "or f32 W, or int8 codes without W")
+    return _RTYPES[R.dtype], 0 if W is None else _WTYPES[W.dtype]
+
+
+def _check_counts(counts, shapes, dev):
+    if tuple(tuple(c.shape) for c in counts) != shapes or any(
+            c.dtype != torch.float32 or c.device != dev
+            or not c.is_contiguous() for c in counts):
+        raise ValueError(f"counts must be contiguous f32 {shapes[0]} and "
+                         f"{shapes[1]} on {dev}")
+
+
+def _raise_failed(lib, what, err, failed, rtype, wtype, k, mm_bf16):
+    msg = lib.dense_rows_error_string(err).decode()
+    smem = lib.dense_rows_smem_bytes(rtype, wtype, k, int(mm_bf16))
+    raise RuntimeError(
+        f"dense_rows kernel launch failed on {what} {failed}: {msg} "
+        f"(cudaError {err}; {smem} B shared memory per block)")
+
+
 def _check(u3, i_tab, row_order, R_rows, W_rows, r_scale):
     if u3.dim() != 3 or i_tab.dim() != 2 or R_rows.dim() != 3:
         raise ValueError("want u3 [NU, bu, k], i_tab [ni_pad, k], "
@@ -153,19 +214,7 @@ def _check(u3, i_tab, row_order, R_rows, W_rows, r_scale):
         raise ValueError(f"shape mismatch: u3 {tuple(u3.shape)}, i_tab "
                          f"{tuple(i_tab.shape)}, R_rows "
                          f"{tuple(R_rows.shape)}")
-    if W_rows is None:
-        if R_rows.dtype != torch.int8 or r_scale is None:
-            raise ValueError("W_rows=None means int8 rating codes in "
-                             "R_rows with an r_scale")
-    elif W_rows.shape != R_rows.shape:
-        raise ValueError("W_rows must have R_rows' shape")
-    tabs = [u3, i_tab, R_rows] + ([] if W_rows is None else [W_rows])
-    if any(t.device != u3.device for t in tabs):
-        raise ValueError("u3, i_tab, R_rows and W_rows must share a device")
-    if any(not t.is_contiguous() for t in tabs):
-        raise ValueError("u3, i_tab, R_rows and W_rows must be contiguous")
-    if u3.dtype != torch.float32 or i_tab.dtype != torch.float32:
-        raise ValueError("factor tables must be float32")
+    _check_tiles(R_rows, W_rows, r_scale, [u3, i_tab])
     if row_order.dim() != 1 or row_order.numel() != NU or \
             row_order.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"row_order must be [{NU}] integer stripe ids")
@@ -205,29 +254,17 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
         return dense_sweep_rows(u3, i_tab, row_order, lr, R_rows, W_rows,
                                 u_reg, i_reg, collision_norm, mm_bf16,
                                 r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
-    if u3.device.type != "cuda":
-        raise ValueError(f"no route for device {u3.device}")
-    if R_rows.dtype not in _RTYPES or (
-            W_rows is not None and (W_rows.dtype not in _WTYPES
-                                    or R_rows.dtype == torch.int8)):
-        raise ValueError("the CUDA kernel takes f32/bf16 R with int8, bf16 "
-                         "or f32 W, or int8 codes without W")
+    rtype, wtype = _check_kernel_tiles(R_rows, W_rows, u3.device)
     if ranks is not None and W_rows is not None and \
             W_rows.dtype != torch.int8:
         raise ValueError(f"rank masks are instantiated for int8 codes and "
                          f"int8 W tiles, not {R_rows.dtype} R with "
                          f"{W_rows.dtype} W")
     lib = library()
-    rtype = _RTYPES[R_rows.dtype]
-    wtype = 0 if W_rows is None else _WTYPES[W_rows.dtype]
     if counts is None:
         counts = stripe_counts(R_rows, W_rows)
+    _check_counts(counts, ((NU, bu), (NU, ni_pad)), u3.device)
     cnt_u, cnt_i = counts
-    if (tuple(cnt_u.shape), tuple(cnt_i.shape)) != ((NU, bu), (NU, ni_pad)) \
-            or any(c.dtype != torch.float32 or c.device != u3.device
-                   or not c.is_contiguous() for c in counts):
-        raise ValueError(f"counts must be contiguous f32 [{NU}, {bu}] and "
-                         f"[{NU}, {ni_pad}] on {u3.device}")
     masks = [None] * 5
     if ranks is not None:
         Lu, Li, Q = ranks
@@ -266,12 +303,95 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
             ctypes.byref(launched))
     dense_rows_epoch.launches += launched.value
     if err != 0:
-        msg = lib.dense_rows_error_string(err).decode()
-        smem = lib.dense_rows_smem_bytes(rtype, wtype, k, int(mm_bf16))
-        raise RuntimeError(
-            f"dense_rows kernel launch failed on stripe {failed.value}: "
-            f"{msg} (cudaError {err}; {smem} B shared memory per block)")
+        _raise_failed(lib, "stripe", err, failed.value, rtype, wtype, k,
+                      mm_bf16)
     return u3, i_tab
 
 
 dense_rows_epoch.launches = 0
+
+
+def _check_cells(u3, i3, ub_idx, R_cells, W_cells, r_scale):
+    if u3.dim() != 3 or i3.dim() != 3 or R_cells.dim() != 3:
+        raise ValueError("want u3 [NU, bu, k], i3 [NI, bi, k], R_cells "
+                         "[NU * NI + 1, bu, bi]")
+    NU, bu, k = u3.shape
+    NI, bi = i3.shape[:2]
+    if i3.shape[2] != k or tuple(R_cells.shape) != (NU * NI + 1, bu, bi):
+        raise ValueError(f"shape mismatch: u3 {tuple(u3.shape)}, i3 "
+                         f"{tuple(i3.shape)}, R_cells "
+                         f"{tuple(R_cells.shape)}")
+    _check_tiles(R_cells, W_cells, r_scale, [u3, i3])
+    if ub_idx.dim() != 2 or ub_idx.shape[1] != NI or \
+            ub_idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ub_idx must be [rounds, {NI}] integer user "
+                         "blocks")
+    idx = ub_idx.cpu().to(torch.int64)
+    if bool(((idx < 0) | (idx > NU)).any()):
+        raise ValueError(f"ub_idx must lie in [0, {NU}] ({NU}: a dummy "
+                         "lane)")
+    # the lanes of a round run one after another, which equals JAX's
+    # round (every lane from the round's old tables) only when no user
+    # block appears twice in a round
+    real = torch.where(idx < NU, idx, -1 - torch.arange(NI))
+    if bool((real.sort(dim=1).values.diff(dim=1) == 0).any()):
+        raise ValueError("a user block appears twice in one round of "
+                         "ub_idx")
+
+
+def dense_cells_epoch(u3: torch.Tensor, i3: torch.Tensor,
+                      ub_idx: torch.Tensor, lr, R_cells: torch.Tensor,
+                      W_cells: Optional[torch.Tensor],
+                      r_scale: Optional[float], u_reg: float, i_reg: float,
+                      collision_norm: bool, mm_bf16: bool,
+                      counts: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                      = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One diag cell-grid dense epoch over the rounds of ``ub_idx``.
+
+    u3 [NU, bu, k] f32, i3 [NI, bi, k] f32, ub_idx [R, NI] (lane l owns
+    item block l; NU marks a dummy lane; no user block twice in a round),
+    R_cells [NU * NI + 1, bu, bi] in cell-major order (cell ub * NI + l,
+    the dummy cell last; f32/bf16 ratings with int8, bf16 or f32 weights
+    W_cells, or int8 codes with W_cells=None and r_scale). ``counts``: the
+    cells' ``stripe_counts``, computed here when not given. A CPU tensor
+    runs the plain ``dense_sweep_diag``, a CUDA tensor the kernel. Updates
+    u3 and i3 IN PLACE and returns them."""
+    _check_cells(u3, i3, ub_idx, R_cells, W_cells, r_scale)
+    NU, bu, k = u3.shape
+    NI, bi = i3.shape[:2]
+    if u3.device.type == "cpu":
+        return dense_sweep_diag(u3, i3, ub_idx, lr, R_cells, W_cells, u_reg,
+                                i_reg, collision_norm, mm_bf16,
+                                r_scale=r_scale)
+    rtype, wtype = _check_kernel_tiles(R_cells, W_cells, u3.device)
+    lib = library()
+    if counts is None:
+        counts = stripe_counts(R_cells, W_cells)
+    n_cells = NU * NI + 1
+    _check_counts(counts, ((n_cells, bu), (n_cells, bi)), u3.device)
+    cnt_u, cnt_i = counts
+    # the cell's gradients (the kernels leave them zeroed) and the bf16
+    # copy of U
+    scratch = torch.zeros(lib.dense_rows_scratch_bytes(NU, bu, bi, k,
+                                                       int(mm_bf16)),
+                          dtype=torch.uint8, device=u3.device)
+    idx = ub_idx.to(device="cpu", dtype=torch.int64).contiguous()
+    failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
+    with torch.cuda.device(u3.device):
+        err = lib.dense_cells_epoch(
+            rtype, wtype, int(mm_bf16), int(collision_norm), u3.data_ptr(),
+            i3.data_ptr(), R_cells.data_ptr(),
+            None if W_cells is None else W_cells.data_ptr(),
+            cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
+            idx.data_ptr(), idx.shape[0], NI, NU, bu, bi, k, float(lr),
+            float(r_scale or 0.0), float(u_reg), float(i_reg),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(failed),
+            ctypes.byref(launched))
+    dense_cells_epoch.launches += launched.value
+    if err != 0:
+        _raise_failed(lib, "cell", err, failed.value, rtype, wtype, k,
+                      mm_bf16)
+    return u3, i3
+
+
+dense_cells_epoch.launches = 0

@@ -1,5 +1,6 @@
 """Cell-blocked SGD solver (port of matfac_tpu/solvers/block_sgd.py): the
-one-hot cell engines and the row-dense stripe engine.
+one-hot cell engines and the dense engine (row stripes or the diag cell
+grid).
 
 Staging shared by both, as in the JAX solver: users and items are
 relabeled round-robin over descending train frequency (``_balance_perm``),
@@ -18,13 +19,19 @@ the streams staged once with them (``slices``), and the plain PyTorch
 version on the CPU. Poisson-sampled ranks, bias models and per-side gates
 are refused, as in JAX.
 
-Dense engine (``engine="dense"``, the row layout only): the train matrix
-is densified into [NU, bu, ni_pad] stripe tiles by the ladder of
-``_stage_dense`` (int8 rating codes when the ratings are exactly
+Dense engine (``engine="dense"``): the train matrix is densified by the
+ladder of ``_stage_dense`` (int8 rating codes when the ratings are exactly
 code * scale, else int8 validity with f32/bf16 ratings, else float
-weights); each epoch visits the stripes in a random order, one
-full-catalog masked-residual GD step per stripe
-(ops/dense_row_kernel.dense_rows_epoch). Rank-masked models stage
+weights). In the row layout (``bi`` the padded catalog width, the
+default) into [NU, bu, ni_pad] stripe tiles: each epoch visits the stripes
+in a random order, one full-catalog masked-residual GD step per stripe
+(ops/dense_row_kernel.dense_rows_epoch). With ``bi`` below the catalog,
+the diag cell grid: cell-major [NU * NI + 1, bu, bi] tiles (cell = ub *
+NI + ib, an all-invalid dummy cell last), each epoch the DSGD rounds of
+``diag_schedule`` (the one-hot diag engine's generator, so both engines
+visit the same cells for the same draw), one GD step per cell
+(ops/dense_row_kernel.dense_cells_epoch); rank-masked models are refused
+there, as in JAX. In the row layout, rank-masked models stage
 per-entity tables in the relabeled order, pad entities at rank k: TMF its
 static ranks, TMF+Dropout its lambdas, whose ranks are redrawn at every
 stripe visit from one uniform a visit (the common-random-number Poisson
@@ -33,7 +40,7 @@ the kernel reads its masked counts from are staged once with the tiles,
 and their bytes count toward ``dense_budget_bytes``.
 
 Left out of the port, as TPU workarounds: the dummy factor block NU (the
-diag schedule's pad lanes are skipped), the panel-major relayout (a DMA
+diag schedules' pad lanes are skipped), the panel-major relayout (a DMA
 fix), ``pad_k`` (MXU lane filling; accepted, not applied) and the VMEM
 guards. ``dense_budget_bytes`` and the auto-codes threshold keep the JAX
 values, so the port stages the same tiles; re-deriving them for an 80 GB
@@ -57,7 +64,8 @@ from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
 from matfac_tpu_torch.ops.dense_block_kernel import (densify_rows,
                                                     identity_quantiles,
                                                     visit_quantiles)
-from matfac_tpu_torch.ops.dense_row_kernel import (dense_rows_epoch,
+from matfac_tpu_torch.ops.dense_row_kernel import (dense_cells_epoch,
+                                                   dense_rows_epoch,
                                                    rank_hists,
                                                    stripe_counts)
 
@@ -147,11 +155,12 @@ class BlockSGDSolver:
 
         ``engine``: "xla" or "pallas" (both the one-hot cell engine: the
         CUDA kernel on a CUDA device, the plain version on the CPU) or
-        "dense" (the row-dense stripe engine; pass ``bu=None, bi=None`` for
-        its auto sizing, as ``train_model`` does). ``schedule`` (one-hot
-        engines): "row" (user-block rows in a random order, each sweeping
-        its cells in a random order) or "diag" (DSGD rounds of cells
-        disjoint in both axes; engine "xla" only, as in JAX).
+        "dense" (the dense engine: row stripes for ``bi=None``, the catalog
+        width, as ``train_model`` passes; the diag cell grid for a ``bi``
+        below it; ``bu=None`` sizes the blocks as JAX does). ``schedule``
+        (one-hot engines): "row" (user-block rows in a random order, each
+        sweeping its cells in a random order) or "diag" (DSGD rounds of
+        cells disjoint in both axes; engine "xla" only, as in JAX).
         ``batch_size=None`` sizes the minibatch from the largest cell
         (``auto_batch_size``), which changes which ratings share a step.
         ``pad_k`` is accepted and checked but not applied: zero columns
@@ -169,11 +178,8 @@ class BlockSGDSolver:
             raise ValueError(f"unknown engine {engine!r}")
         if schedule not in ("row", "diag"):
             raise ValueError(f"unknown schedule {schedule!r}")
-        if engine == "dense":
-            schedule = "row"   # the ported dense layout: one item block
-        elif schedule == "diag" and engine != "xla":
+        if engine == "pallas" and schedule == "diag":
             raise ValueError("schedule='diag' requires engine='xla'")
-        self.schedule = schedule
         self.engine = engine
         if model.use_bias or not model.use_factors:
             raise ValueError("BlockSGDSolver is factor-only")
@@ -216,17 +222,12 @@ class BlockSGDSolver:
                 raise ValueError(f"unknown dense_codes {dense_codes!r}")
             if bi is None:
                 bi = _cdiv(n_items, 128) * 128
-            if _cdiv(n_items, bi) != 1:
-                raise NotImplementedError(
-                    "only the row layout (bi=None, one full-catalog item "
-                    "block) is ported; the diag cell grid is ROADMAP queue "
-                    "1, item 2")
             if bu is None:
-                # >= 8 stripes keeps the epoch SGD-like; 2560 caps a
-                # stripe's [bu, ni_pad] f32 intermediates of the plain
-                # version. A 256-row quantum, falling to 8 rows when 256
-                # would leave fewer than 8 stripes (the JAX rule)
-                target = _cdiv(n_users, 8)
+                # >= 8 stripes a cell column keeps the epoch SGD-like;
+                # 2560 caps a stripe's [bu, ni_pad] f32 intermediates of
+                # the plain version. A 256-row quantum, falling to 8 rows
+                # when 256 would leave fewer than 8 stripes (the JAX rule)
+                target = _cdiv(n_users, 8 * _cdiv(n_items, bi))
                 bu = min(2560, max(_cdiv(target, 256) * 256, 256))
                 if _cdiv(n_users, bu) < 8:
                     bu = min(2560, max(_cdiv(target, 8) * 8, 8))
@@ -237,6 +238,16 @@ class BlockSGDSolver:
         self.bu, self.bi = bu, bi
         self.NU = _cdiv(n_users, bu)
         self.NI = _cdiv(n_items, bi)
+        if engine == "dense":
+            # one item block: row stripes; more: the diag cell grid
+            schedule = "row" if self.NI == 1 else "diag"
+            if self.NI != 1 and self._pois:
+                raise ValueError("Poisson-resampled dense needs the row "
+                                 "layout (bi=None)")
+            if self.NI != 1 and hasattr(model, "pair_rank"):
+                raise ValueError("rank-masked dense needs the row layout "
+                                 "(bi=None)")
+        self.schedule = schedule
         self.n_users_pad = self.NU * bu
         self.n_items_pad = self.NI * bi
         self.r_scale = None
@@ -282,11 +293,17 @@ class BlockSGDSolver:
             # the kernel's histograms: int32 [NU, bu, k], int16 [NU, ni, k]
             hist_bytes = (self.NU * k * (4 * bu + 2 * self.n_items_pad)
                           if masked and self.device.type == "cuda" else 0)
-            self._stage_dense(r // bu, (r % bu).astype(np.int32),
-                              c.astype(np.int32), v.astype(np.float32), w,
-                              self.NU, dense_budget_bytes - hist_bytes)
-            # the tiles' validity counts, which the stripe kernel reads
-            self.counts = stripe_counts(self.R_rows, self.W_rows)
+            R, W = self._stage_dense(
+                (r // bu) * self.NI + c // bi, (r % bu).astype(np.int32),
+                (c % bi).astype(np.int32), v.astype(np.float32), w,
+                self.NU * self.NI, dense_budget_bytes - hist_bytes)
+            # the tiles' validity counts, which the kernel reads
+            self.counts = stripe_counts(R, W)
+            if self.schedule == "diag":
+                self.R_cells, self.W_cells = R, W
+                self._sched_rng = np.random.default_rng(params.seed + 41)
+                return
+            self.R_rows, self.W_rows = R, W
             self.rank_tabs = self.hists = self.pois_cdf = None
             if masked:
                 self._stage_ranks(model)
@@ -391,12 +408,15 @@ class BlockSGDSolver:
                                     *self.rank_tabs, k)
 
     def _stage_dense(self, cell, u_loc, i_loc, vals, wts, n_cells, budget):
-        """Dense [bu, ni_pad] tiles per stripe. Ladder, best first: int8
+        """Dense [bu, bi] tiles, (R, W): one per stripe in the row layout
+        ([NU, bu, ni_pad]), one per cell plus the all-invalid dummy cell in
+        the diag layout ([NU * NI + 1, bu, bi]). Ladder, best first: int8
         rating CODES (validity = code != 0; exact for star-grid data,
         lossy on request) when the weights are uniform 0/1; else int8
         validity W with f32/bf16 R; else f32/bf16 W by budget (IFWMF).
-        ``slots`` counts one dummy stripe, as the JAX solver's layout
-        does, so both packages pick the same dtypes at a budget edge."""
+        ``slots`` counts one dummy tile in both layouts, as the JAX
+        solver's does, so both packages pick the same dtypes at a budget
+        edge."""
         uniform01 = bool(np.all((wts == 0.0) | (wts == 1.0)))
         slots = (n_cells + 1) * self.bu * self.bi
         use_codes = uniform01 and self.dense_codes != "off"
@@ -404,8 +424,9 @@ class BlockSGDSolver:
             # codes only for traffic-bound grids or over-budget floats
             if slots < int(1.5e9) and slots * 3 <= budget:
                 use_codes = False
+        n_tiles = n_cells + (self.schedule == "diag")
         stage = lambda v, dtype: densify_rows(
-            cell, u_loc, i_loc, v, n_cells_pad=n_cells, bu=self.bu,
+            cell, u_loc, i_loc, v, n_cells_pad=n_tiles, bu=self.bu,
             bi=self.bi, dtype=dtype, device=self.device)
         if use_codes:
             g = rating_code_scale(vals)
@@ -434,9 +455,7 @@ class BlockSGDSolver:
                         f"dense code tiles need {slots / 2**30:.1f} GiB > "
                         f"dense_budget {budget / 2**30:.1f} GiB")
                 self.r_scale = float(g)
-                self.R_rows = stage(codes.astype(np.int8), torch.int8)
-                self.W_rows = None
-                return
+                return stage(codes.astype(np.int8), torch.int8), None
         if uniform01:
             wdtype, wbytes = torch.int8, 1
         elif slots * 8 <= budget:
@@ -451,8 +470,7 @@ class BlockSGDSolver:
             raise ValueError(
                 f"dense tiles need {slots * (2 + wbytes) / 2**30:.1f} GiB "
                 f"> dense_budget {budget / 2**30:.1f} GiB")
-        self.R_rows = stage(vals, vdtype)
-        self.W_rows = stage(wts.astype(np.float32), wdtype)
+        return stage(vals, vdtype), stage(wts.astype(np.float32), wdtype)
 
     # ------------------------------------------------------------------
     def _stripe_order(self) -> torch.Tensor:
@@ -488,9 +506,15 @@ class BlockSGDSolver:
         """This epoch's schedule for ``epoch_with``: (row_of, ib_seq, boff)
         or, for the diag schedule, (ub_idx, ib_idx, boff) from a
         ``torch.Generator`` seeded by one draw of the numpy schedule rng,
-        the draw the JAX solver makes for its PRNG key. Dense engine:
+        the draw the JAX solver makes for its PRNG key. Dense engine, diag
+        cell grid: that ub_idx alone (one batch a cell), the rounds the
+        one-hot diag engine draws from the same rng state; row stripes:
         (stripe order, round uniforms), the uniforms [NU] drawn after the
         order from the same generator for TMF+Dropout, else None."""
+        if self.engine == "dense" and self.schedule == "diag":
+            seed = int(self._sched_rng.integers(2**31))
+            return diag_schedule(torch.Generator().manual_seed(seed),
+                                 self.NU, self.NI, 1)[0]
         if self.engine == "dense":
             order = self._stripe_order()
             return order, (torch.rand(self.NU, generator=self._order_gen)
@@ -503,7 +527,7 @@ class BlockSGDSolver:
 
     def internal_state(self) -> dict:
         """What an exact resume needs besides the factor tables."""
-        if self.engine == "dense":
+        if self.engine == "dense" and self.schedule == "row":
             return {"order_gen": self._order_gen.get_state().numpy()}
         return {"sched_rng": np.asarray(json.dumps(
             self._sched_rng.bit_generator.state))}
@@ -519,13 +543,16 @@ class BlockSGDSolver:
     def stage_factors(self, state: MFState):
         """Fresh f32 tables in the relabeled, padded layout,
         staged[new] = logical[inv[new]]: (u3 [NU, bu, k], i_tab
-        [ni_pad, k]) for the dense engine, (u_tab [NU*bu, k], i_tab
-        [NI*bi, k]) for the one-hot engines."""
+        [ni_pad, k]) for the dense row stripes, (u3, i3 [NI, bi, k]) for
+        the dense cell grid, (u_tab [NU*bu, k], i_tab [NI*bi, k]) for the
+        one-hot engines."""
         k = state.u_fac.shape[1]
         u = state.u_fac[self.u_perm_inv_dev].to(torch.float32)
         i = state.i_fac[self.i_perm_inv_dev].to(torch.float32)
         if self.engine == "dense":
             u = u.reshape(self.NU, self.bu, k)
+            if self.schedule == "diag":
+                i = i.reshape(self.NI, self.bi, k)
         return u.contiguous(), i.contiguous()
 
     def _tables(self, state: MFState):
@@ -540,7 +567,7 @@ class BlockSGDSolver:
         k = u_tab.shape[-1]
         # logical[old] = staged[perm[old]]
         u_view = u_tab.reshape(self.n_users_pad, k)[self.u_perm_dev]
-        i_view = i_tab[self.i_perm_dev]
+        i_view = i_tab.reshape(self.n_items_pad, k)[self.i_perm_dev]
         # keep the POST-cast tensors: the identity check in _tables must
         # see exactly what the state holds
         u_ret = u_view.to(state.u_fac.dtype)
@@ -568,6 +595,13 @@ class BlockSGDSolver:
         """One epoch on the given schedule (``draw_schedule``'s form; the
         tests pass the JAX solver's own draws)."""
         u_tab, i_tab = self._tables(state)
+        if self.engine == "dense" and self.schedule == "diag":
+            dense_cells_epoch(u_tab, i_tab, schedule, lr, self.R_cells,
+                              self.W_cells, self.r_scale,
+                              float(self.params.u_reg),
+                              float(self.params.i_reg), self.collision_norm,
+                              self.mm_bf16, counts=self.counts)
+            return self._views(state, u_tab, i_tab)
         if self.engine == "dense":
             order, round_u = schedule
             dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,

@@ -1,14 +1,17 @@
-"""Checkpoint / resume (port of the text and npz paths of
+"""Checkpoint / resume (port of the text, binary and npz paths of
 matfac_tpu/train/checkpoint.py; sharded checkpoints are ROADMAP queue 1,
 item 13).
 
-The text files go through the JAX package's own numpy writers and readers
-(``matfac_tpu.data.io``), so a factor file written here is byte-identical
-to one the JAX package writes for the same values, and each package reads
+The files go through the port's copies of the JAX package's numpy writers
+and readers (``data/io.py``), so a file written here is byte-identical to
+one the JAX package writes for the same values, and each package reads
 the other's: ``{prefix}_uFac_{sig}.mat`` / ``_iFac_``, signature
 ``{nUsers}X{nItems}_{facDim}_{uReg}_{iReg}_{learnRate}``
-(modelSignature, model.cpp:11-19), a bias model's biases beside them
-(``save_full``), invalid sets as ``_invalUsers.txt`` / ``_invalItems.txt``.
+(modelSignature, model.cpp:11-19), a bias model's biases and mu beside
+them (``save_full`` / ``load_full``), the reference's float64 binaries
+(``save_bin_facs`` / ``load_bin_facs``), invalid sets as
+``_invalUsers.txt`` / ``_invalItems.txt``. Every reader returns tensors
+on the device of the ``state`` it is given.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import numpy as np
 import torch
 
 from matfac_tpu_torch.config import Params
-from matfac_tpu_torch.data.io import (read_factor_mat, write_factor_mat,
-                                      write_vector)
+from matfac_tpu_torch.data.io import (read_factor_mat, read_factor_mat_bin,
+                                      read_vector, write_factor_mat,
+                                      write_factor_mat_bin, write_vector)
 from matfac_tpu_torch.models.base import MFState, state_to_numpy
 
 _FIELDS = MFState._fields
@@ -62,16 +66,63 @@ def save_full(state: MFState, prefix: str, sig: str) -> None:
     write_vector(np.asarray([float(state.mu)]), gb)
 
 
+def _facs_on(state: MFState, u: np.ndarray, i: np.ndarray) -> MFState:
+    return state._replace(u_fac=torch.from_numpy(u).to(state.u_fac.device),
+                          i_fac=torch.from_numpy(i).to(state.i_fac.device))
+
+
 def load_facs(state: MFState, prefix: str, sig: str) -> Optional[MFState]:
     """loadFacs analog (model.cpp:104-128): None when a file is missing;
     the factors land on ``state``'s device."""
     up, ip = fac_paths(prefix, sig)
     if not (os.path.exists(up) and os.path.exists(ip)):
         return None
-    u = read_factor_mat(up, *state.u_fac.shape)
-    i = read_factor_mat(ip, *state.i_fac.shape)
-    return state._replace(u_fac=torch.from_numpy(u).to(state.u_fac.device),
-                          i_fac=torch.from_numpy(i).to(state.i_fac.device))
+    return _facs_on(state, read_factor_mat(up, *state.u_fac.shape),
+                    read_factor_mat(ip, *state.i_fac.shape))
+
+
+def load_full(state: MFState, prefix: str, sig: str) -> Optional[MFState]:
+    """Model::load analog (model.cpp:61-86): factors, biases and mu,
+    existence-checked as a set (a factors-only checkpoint loads through
+    ``load_facs``); float32 tensors on ``state``'s devices."""
+    st = load_facs(state, prefix, sig)
+    if st is None:
+        return None
+    ub, ib, gb = bias_paths(prefix, sig)
+    if not (os.path.exists(ub) and os.path.exists(ib)
+            and os.path.exists(gb)):
+        return None
+    as_f32 = lambda a, like: torch.from_numpy(
+        np.asarray(a, np.float32)).to(like.device)
+    return st._replace(u_bias=as_f32(read_vector(ub), state.u_bias),
+                       i_bias=as_f32(read_vector(ib), state.i_bias),
+                       mu=as_f32(read_vector(gb)[0], state.mu))
+
+
+def bin_fac_paths(prefix: str, sig: str) -> Tuple[str, str]:
+    return (f"{prefix}_uFac_{sig}.binmat", f"{prefix}_iFac_{sig}.binmat")
+
+
+def save_bin_facs(state: MFState, prefix: str, sig: str
+                  ) -> Tuple[str, str]:
+    """saveBinFacs analog (model.cpp:131-140): reference-bit-format
+    ``{prefix}_uFac_{sig}.binmat`` raw float64 streams."""
+    up, ip = bin_fac_paths(prefix, sig)
+    write_factor_mat_bin(state.u_fac.detach().cpu().numpy(), up)
+    write_factor_mat_bin(state.i_fac.detach().cpu().numpy(), ip)
+    return up, ip
+
+
+def load_bin_facs(state: MFState, prefix: str, sig: str
+                  ) -> Optional[MFState]:
+    """loadBinFacs analog (model.cpp:143-159): existence-checked; reads
+    binaries written by the reference (headerless f64 row-major) onto
+    ``state``'s device."""
+    up, ip = bin_fac_paths(prefix, sig)
+    if not (os.path.exists(up) and os.path.exists(ip)):
+        return None
+    return _facs_on(state, read_factor_mat_bin(up, *state.u_fac.shape),
+                    read_factor_mat_bin(ip, *state.i_fac.shape))
 
 
 def save_invalid(prefix: str, invalid_users: np.ndarray,

@@ -1071,3 +1071,163 @@ def test_block_kernel_raises_where_the_grid_cannot_be_co_resident():
     torch.cuda.synchronize()
     assert bool((u_tab == 1).all() and (i_tab == 1).all())
     assert int(cells) == 0
+
+
+# ----------------------------------------------------------------------
+# the cell-grid entry of csrc/dense_rows.cu (the dense diag cell grid)
+# ----------------------------------------------------------------------
+
+def _cell_args(mode, rng, dev, NU=4, NI=3, bu=100, bi=200, k=64,
+               scale=0.03, rounds=2):
+    """(u3, i3, ub_idx, R_cells, W_cells, r_scale): tiles [NU * NI + 1, bu,
+    bi] with the all-invalid dummy cell last, ``rounds`` epochs' worth of
+    the diag schedule (4 user blocks on 3 lanes: dummy lanes, and every
+    user block visited on every lane, NI times an epoch)."""
+    R, W, r_scale = _tiles(mode, rng, (NU * NI + 1, bu, bi), dev)
+    R[-1] = 0
+    if W is not None:
+        W[-1] = 0
+    gen = torch.Generator().manual_seed(int(rng.integers(2**31)))
+    ub_idx = torch.cat([tbsk.diag_schedule(gen, NU, NI, 1)[0]
+                        for _ in range(rounds)])
+    u3 = torch.from_numpy(scale * rng.normal(size=(NU, bu, k))).float()
+    i3 = torch.from_numpy(scale * rng.normal(size=(NI, bi, k))).float()
+    return u3.to(dev), i3.to(dev), ub_idx, R, W, r_scale
+
+
+def _cell_pair(args, mm_bf16, collision_norm=True, lr=LR):
+    u3, i3, ub_idx, R, W, r_scale = args
+    before = tdrk.dense_cells_epoch.launches
+    kern = tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, lr, R, W,
+                                  r_scale, U_REG, I_REG, collision_norm,
+                                  mm_bf16)
+    n_visits = int((ub_idx < u3.shape[0]).sum())
+    assert tdrk.dense_cells_epoch.launches - before == \
+        tdrk.epoch_launches(n_visits, u3.shape[2], mm_bf16)
+    plain = tdbk.dense_sweep_diag(u3.clone(), i3.clone(), ub_idx, lr, R, W,
+                                  U_REG, I_REG, collision_norm, mm_bf16,
+                                  r_scale=r_scale)
+    torch.cuda.synchronize()
+    return kern, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collision_norm", [True, False])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_cell_kernel_matches_plain(mode, mm_bf16, collision_norm):
+    """Two epochs of the diag grid at a ragged cell (100 users: a ragged
+    64-user chunk; 200 items: a ragged 128-item panel, int8 rows not whole
+    16-byte pieces), rtol 1e-3 / atol 1e-5 as for the stripe. Every user
+    block comes back three times an epoch, so a stale bf16 copy of U
+    would show."""
+    dev = _cuda()
+    args = _cell_args(mode, np.random.default_rng(41), dev,
+                      scale=0.03 if mm_bf16 else 0.3)
+    kern, plain = _cell_pair(args, mm_bf16, collision_norm,
+                             LR if collision_norm else LR / 20)
+    for g, w in zip(kern, plain):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 128, 160])
+@pytest.mark.parametrize("bi", [200, 384])
+@pytest.mark.parametrize("mode", ["codes", "bf16+W", "f32+fW"])
+def test_cell_kernel_padding_and_edges(mode, bi, k):
+    dev = _cuda()
+    args = _cell_args(mode, np.random.default_rng(42), dev, bu=130, bi=bi,
+                      k=k)
+    kern, plain = _cell_pair(args, True)
+    for g, w in zip(kern, plain):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 128])
+def test_cell_kernel_refreshes_a_revisited_user_block(k):
+    """User block 0 on every lane in turn, one lane a round: its second
+    and third visits must read the rows its first visit stepped. A kernel
+    that reused the epoch's first bf16 copy of U misses the plain version
+    by far more than the tolerance (checked: the plain epoch from the
+    stale rows is the control that must FAIL)."""
+    dev = _cuda()
+    rng = np.random.default_rng(43)
+    u3, i3, _, R, W, r_scale = _cell_args("bf16+W", rng, dev, NU=2, NI=3,
+                                          k=k)
+    ub_idx = torch.tensor([[0, 2, 2], [2, 0, 2], [2, 2, 0]])
+    kern, plain = _cell_pair((u3, i3, ub_idx, R, W, r_scale), True)
+    for g, w in zip(kern, plain):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+    # the control: each visit from the block's rows at the epoch's start
+    stale_u, stale_i = u3.clone(), i3.clone()
+    for lane in range(3):
+        U, I = tdbk.cell_dense_update(u3[0], stale_i[lane], R[lane],
+                                      W[lane], LR, U_REG, I_REG, True, True)
+        stale_i[lane] = I
+        stale_u[0] = U
+    assert not torch.allclose(kern[1], stale_i, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_cell_epoch_is_deterministic(mode, mm_bf16):
+    dev = _cuda()
+    args = _cell_args(mode, np.random.default_rng(44), dev, bu=300, bi=512,
+                      scale=0.1)
+    u3, i3, ub_idx, R, W, r_scale = args
+    run = lambda: tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, LR,
+                                         R, W, r_scale, U_REG, I_REG, True,
+                                         mm_bf16)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("rtype", [torch.float32, torch.bfloat16])
+def test_cell_codes_equal_float_tiles_bitwise(rtype, mm_bf16):
+    dev = _cuda()
+    rng = np.random.default_rng(45)
+    u3, i3, ub_idx, codes, _, _ = _cell_args("codes", rng, dev, bu=260,
+                                             bi=512, scale=0.1)
+    R = (codes.float() * 0.5).to(rtype)
+    W = (codes != 0).to(torch.int8)
+    run = lambda R_, W_, s: tdrk.dense_cells_epoch(
+        u3.clone(), i3.clone(), ub_idx, LR, R_, W_, s, U_REG, I_REG, True,
+        mm_bf16)
+    got, want = run(codes, None, 0.5), run(R, W, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+def test_dense_cell_grid_solver_on_the_card(mm_bf16):
+    """BlockSGDSolver(engine="dense", bi below the catalog) on the card
+    against the same solver on the CPU, the same rounds (its own draws)."""
+    from matfac_tpu_torch import Params, low_rank_ratings
+    from matfac_tpu_torch.models.base import ModelMF, init_state
+    from matfac_tpu_torch.solvers.block_sgd import BlockSGDSolver
+    from matfac_tpu_torch.utils import freq
+    _cuda()
+    mat, _, _ = low_rank_ratings(600, 500, 4, density=0.1, seed=2,
+                                 noise=0.1, nonneg=True)
+    p = Params(fac_dim=16, u_reg=0.01, i_reg=0.01, learn_rate=0.05, seed=1)
+    iu, ii = freq.invalid_users_items(mat, 600, 500)
+    mk = lambda dev: BlockSGDSolver(ModelMF(p, 600, 500), p, mat, iu, ii,
+                                    bu=128, bi=128, engine="dense",
+                                    mm_bf16=mm_bf16, device=dev)
+    card, cpu = mk("cuda"), mk("cpu")
+    assert card.schedule == "diag" and card.NI == 4
+    sc = init_state(p, 600, 500, torch.Generator().manual_seed(3), "cuda")
+    sp = init_state(p, 600, 500, torch.Generator().manual_seed(3), "cpu")
+    for _ in range(2):
+        sc = card.epoch(sc, p.learn_rate)
+        sp = cpu.epoch(sp, p.learn_rate)
+    torch.testing.assert_close(sc.u_fac.cpu(), sp.u_fac, rtol=1e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(sc.i_fac.cpu(), sp.i_fac, rtol=1e-3,
+                               atol=1e-5)

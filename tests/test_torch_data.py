@@ -298,3 +298,47 @@ def test_rank_scale_corr_and_gen_stats_match(seed):
         for sfx in ("", "run1"):
             assert tfreq.format_gen_stats(got, sfx) == \
                 jfreq.format_gen_stats(got, sfx)
+
+
+def _same_data(t, j):
+    for name in ("train_mat", "test_mat", "val_mat"):
+        _same_mat(getattr(t, name), getattr(j, name))
+    for name in ("orig_u_fac", "orig_i_fac"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert (t.n_users, t.n_items, t.fac_dim) == (j.n_users, j.n_items,
+                                                 j.fac_dim)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(n_users=90, n_items=70, k=4, seed=3, power_law=0.6,
+                 nonneg=True, fac_dim=6),
+    dict(n_users=120, n_items=50, stars=True, noise=0.35, test_pc=0.2,
+         val_pc=0.05)])
+def test_synthetic_data_matches_bit_for_bit(kw):
+    dt, ut, it = tsyn.synthetic_data(**kw)
+    dj, uj, ij = jsyn.synthetic_data(**kw)
+    _same_data(dt, dj)
+    np.testing.assert_array_equal(ut, uj)
+    np.testing.assert_array_equal(it, ij)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_users=200, n_items=150, density=0.08),
+    dict(n_users=160, n_items=120, k=8, tail_rank=2, head_pc=0.3,
+         power_law=1.3, seed=11, tail_boost=2.5, spectrum_pow=0.7)])
+def test_tail_lowrank_data_matches_bit_for_bit(kw):
+    dt, tail_t = tsyn.tail_lowrank_data(**kw)
+    dj, tail_j = jsyn.tail_lowrank_data(**kw)
+    _same_data(dt, dj)
+    np.testing.assert_array_equal(tail_t, tail_j)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(n_users=60, n_items=40, per_user=10, seed=5,
+                 structured=True, temp=0.5)])
+def test_leave_one_out_data_matches_bit_for_bit(kw):
+    _same_data(tsyn.leave_one_out_data(**kw), jsyn.leave_one_out_data(**kw))

@@ -197,21 +197,26 @@ def test_internal_state_round_trips_the_stripe_order():
 
 
 def test_unported_layouts_and_engines_raise():
-    """The one-hot engines are ported (tests/test_torch_block_sgd.py) and
-    the dense engine takes TMF's rank masks; the dense cell grid is not
-    ported, and sampled ranks on the one-hot engine raise JAX's error."""
+    """The one-hot engines are ported (tests/test_torch_block_sgd.py), the
+    dense engine takes TMF's rank masks in the row layout, and its diag
+    cell grid (bi below the catalog) is ported too
+    (tests/test_torch_dense_diag.py), where masked models raise JAX's
+    error; sampled ranks on the one-hot engine raise JAX's error."""
     from matfac_tpu_torch.models.longtail import (ModelDropoutSigmoid,
                                                   ModelPoissonDropout)
     mat, params, iu, ii = _setup()
     model = ModelMF(params, 60, 40)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tbs.BlockSGDSolver(model, params, mat, iu, ii, bu=None, bi=16,
-                           engine="dense", device="cpu")
+    grid = tbs.BlockSGDSolver(model, params, mat, iu, ii, bu=None, bi=16,
+                              engine="dense", device="cpu")
+    assert (grid.schedule, grid.NI) == ("diag", 3)
     uf, if_ = freq.row_col_freq(mat)
     tmf = ModelDropoutSigmoid(params, 60, 40, user_freq=uf, item_freq=if_)
     dense = tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=None,
                                engine="dense", device="cpu")
     assert dense.rank_tabs is not None and dense.pois_cdf is None
+    with pytest.raises(ValueError, match="rank-masked dense needs the row"):
+        tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=16,
+                           engine="dense", device="cpu")
     pois = ModelPoissonDropout(params, 60, 40, user_freq=uf, item_freq=if_)
     with pytest.raises(ValueError, match="static per-pair ranks"):
         tbs.BlockSGDSolver(pois, params, mat, iu, ii, device="cpu")
