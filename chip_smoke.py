@@ -649,13 +649,13 @@ def _cell_rounds(NU: int, NI: int, epochs: int, gen: torch.Generator):
 
 def _cell_pair(u3, i3, ub_idx, lr, R, W, r_scale, cn, mm):
     """(kernel result, plain result) of the cell grid on the same inputs;
-    the kernel's launches checked against epoch_launches."""
+    the kernel's launches checked against its plan (a panel and a step
+    launch a round with a live cell, + the bf16 copy of U)."""
     before = drk.dense_cells_epoch.launches
     kern = drk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, lr, R, W,
                                  r_scale, REG, REG, cn, mm)
-    visits = int((ub_idx < u3.shape[0]).sum())
     assert drk.dense_cells_epoch.launches - before == \
-        drk.epoch_launches(visits, u3.shape[2], mm)
+        drk.cells_plan(ub_idx, u3.shape[0], u3.shape[2], mm)["launches"]
     plain = dense_sweep_diag(u3.clone(), i3.clone(), ub_idx, lr, R, W, REG,
                              REG, cn, mm, r_scale=r_scale)
     return kern, plain
@@ -990,6 +990,10 @@ W_EPOCHS = 3
 # / ATOL). One round (every block once, as a stripe epoch) is held at
 # RTOL / ATOL, and the whole epoch in f32 products (3.6e-7) too.
 W_BF16_RTOL, W_BF16_ATOL = 5e-3, 5e-4
+# (w) with a panel and a step launch a cell, the entry's design before
+# one launch pair a round (NVIDIA H100 80GB HBM3 at 700 W): the numbers
+# (w) logs its own beside
+W_PER_CELL = dict(ms=62.591, launches=3201, idle=0.068, us_round=1564.8)
 
 
 def cells_bound(solver):
@@ -1024,7 +1028,8 @@ def _code_tiles(R, W, chunk: int = 100):
 def phase_cell_grid(data: Data, dev="cuda") -> dict:
     """(w): BlockSGDSolver(engine="dense", bu=2560, bi=512) on (d)'s data
     through TrainLoop for W_EPOCHS epochs, counts zeroed just before: every
-    epoch one cell-grid call (epoch_launches of the 1,600 cells), val RMSE
+    epoch one cell-grid call, a panel and a step launch for each of its 40
+    rounds and the bf16 copy of U (81), val RMSE
     finite and falling; then, from the initial state on the staged cells
     and with rounds from a fixed generator, kernel against plain: the
     epoch's first round at RTOL / ATOL, the whole epoch at W_BF16_RTOL /
@@ -1065,7 +1070,9 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
     wall = time.perf_counter() - t0
     launches = drk.dense_cells_epoch.launches
     visits = solver.NU * solver.NI
-    want = W_EPOCHS * drk.epoch_launches(visits, k, solver.mm_bf16)
+    rounds = -(-solver.NU // solver.NI) * solver.NI
+    want = W_EPOCHS * drk.epoch_launches(rounds, k, solver.mm_bf16)
+    assert want == W_EPOCHS * 81, want
     assert (launches, drk.dense_rows_epoch.launches) == (want, 0), \
         (launches, want)
     assert rep.stop_reason == "max_iter" and len(rep.history) == W_EPOCHS
@@ -1074,7 +1081,9 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
     loop_ms = [1e3 * h.seconds for h in rep.history]
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"(w) {W_EPOCHS} epochs in {wall:.1f} s; launches {launches} "
-        f"(= {want}); val RMSE at init {val0!r}, per epoch {vals!r}; epoch "
+        f"(= {want}: {want // W_EPOCHS} an epoch, {W_PER_CELL['launches']} "
+        f"with a launch pair a cell); val RMSE at init {val0!r}, per epoch "
+        f"{vals!r}; epoch "
         f"in the loop (host clock, synchronized) {loop_ms!r} ms; peak "
         f"memory {peak:.2f} GB")
     assert all(np.isfinite(vals)) and rep.best_metric < val0, (vals, val0)
@@ -1123,12 +1132,19 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
                              "bit for bit")
     k_ms, p_ms = _alternate(kernel, plain)
     ms, busy, idle, _ = _busy_idle(kernel)
+    by_kernel = _kernel_ms(kernel, ("panel_kernel", "step_kernel",
+                                    "u_bf16_kernel"))
     bound = cells_bound(solver)
     lib_ms = _three_products_ms(solver.bu, solver.bi, k, visits)
-    log(f"(w) cell-grid epoch alone (CUDA events): kernel {k_ms:.3f} ms = "
-        f"{solver.nnz / k_ms * 1e3:.4e} ratings/s, {launches // W_EPOCHS} "
-        f"launches, {k_ms / visits * 1e3:.2f} us a cell; device busy "
-        f"{busy:.3f} of {ms:.3f} ms, idle share {idle:.3f}; plain PyTorch "
+    log(f"(w) cell-grid epoch alone (CUDA events): kernel {k_ms:.3f} ms "
+        f"(a launch pair a cell: {W_PER_CELL['ms']}) = "
+        f"{solver.nnz / k_ms * 1e3:.4e} "
+        f"ratings/s, {launches // W_EPOCHS} launches, "
+        f"{k_ms / rounds * 1e3:.1f} us a round of {solver.NI} cells (a "
+        f"launch pair a cell: {W_PER_CELL['us_round']}); device busy "
+        f"{busy:.3f} of {ms:.3f} ms, idle share {idle:.3f} (a launch pair a "
+        f"cell: {W_PER_CELL['idle']}); device ms by "
+        f"kernel (torch.profiler) {by_kernel}; plain PyTorch "
         f"{p_ms:.3f} ms; bound {bound[0]:.3f} ms ({bound[1]}), kernel at "
         f"{bound[0] / k_ms:.3f} of it; the three products a cell as bf16 "
         f"cuBLAS calls {lib_ms:.3f} ms")
@@ -1234,8 +1250,10 @@ def phase_topk_vs_plain(dev="cuda") -> float:
     """Max abs score error over all (f) cases: 637 queried rows of a 3,001
     item catalog (the fused route splits the catalog, then merges) at n
     from 1 to 1000, around the fused route's limit FUSED_MAX_N and past it
-    (the radix route); then 20,000 queried rows, whose user tiles fill the
-    card (the fused route in one launch)."""
+    (the radix route), the radix route's first m slots against the fused
+    route's top-m bit for bit (m = 1, 10, FUSED_MAX_N); then 20,000 queried
+    rows, whose user tiles fill the card (the fused route in one
+    launch)."""
     gen = torch.Generator().manual_seed(3)
     N_F = tk.FUSED_MAX_N
     groups = [(600, (32, 64, 128), (1, 10, 100, N_F - 1, N_F, N_F + 1,
@@ -1247,10 +1265,11 @@ def phase_topk_vs_plain(dev="cuda") -> float:
             for k in ks:
                 case = topk_case(n_users, 3001, k, exact, gen, dev)
                 B = case["users"].numel()
+                outs = {}
                 for n in ns:
                     pl = tk.fused_plan(B, 3001, n)
                     before = tk.topk_catalog.launches
-                    got = tk.topk_catalog(**case, n=n)
+                    got = outs[n] = tk.topk_catalog(**case, n=n)
                     launched = tk.topk_catalog.launches - before
                     want = tk.topk_plain(**case, n=n)
                     torch.cuda.synchronize()
@@ -1267,6 +1286,17 @@ def phase_topk_vs_plain(dev="cuda") -> float:
                         f"neighbours {ties} {'ok' if ok else 'FAIL'}")
                     if not ok:
                         failures.append((B, exact, k, n))
+                if 1000 not in outs:
+                    continue
+                same = [m for m in (1, 10, N_F) if all(
+                    torch.equal(r[:, :m], f) for r, f in zip(outs[1000],
+                                                             outs[m]))]
+                ok = len(same) == 3
+                log(f"(f) {'exact' if exact else 'random'} B={B} k={k:3d} "
+                    f"radix top-1000's first m slots = fused top-m bit for "
+                    f"bit at m in {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append((B, exact, k, "radix vs fused"))
     if failures:
         raise AssertionError(f"top-N kernel disagrees with topk_plain "
                              f"(rtol {TOPK_RTOL}, atol {TOPK_ATOL}; exact "
@@ -1331,7 +1361,9 @@ def phase_ranking(data: Data, dev="cuda"):
     """(g): the main path (train with val HR@10 after each epoch, test ARHR
     at n=1000, Recommender answering 2,048 users) with the top-N counts
     zeroed just before and read after each step; then each route against
-    the plain version on the best view, and timed. Returns {route:
+    the plain version on the best view, the radix route's first m slots
+    against the fused route's top-m bit for bit, and both timed, the radix
+    route by stage beside torch.topk on its score scratch. Returns {route:
     (launches, max abs error, kernel ms, plain ms, bound)}."""
     params = Params(**BPR_CELL[1])
     n_users, n_items = data.n_users, data.n_items
@@ -1415,6 +1447,16 @@ def phase_ranking(data: Data, dev="cuda"):
     _held_metric("g", "test ARHR (n=1000)", arhr,
                  scorer.loo_credit(want1k[1], data.test_mat, True),
                  int((got1k[1] != want1k[1]).any(1).sum()), n_test)
+    same = [m for m, fused in ((1, tk.topk_catalog(**args, n=1)), (10, got),
+                               (tk.FUSED_MAX_N, tk.topk_catalog(
+                                   **args, n=tk.FUSED_MAX_N)))
+            if all(torch.equal(r[:, :m], f) for r, f in zip(got1k, fused))]
+    log(f"(g) the radix top-1000's first m slots = the fused top-m bit for "
+        f"bit, all {n_users} users, at m in {same} "
+        f"{'ok' if len(same) == 3 else 'FAIL'}")
+    if len(same) != 3:
+        raise AssertionError("(g) the radix route's prefix differs from the "
+                             "fused route's top-m")
     del got1k, want1k
 
     rv = rec.view
@@ -1460,10 +1502,17 @@ def phase_ranking(data: Data, dev="cuda"):
              for _ in range(2)]
     rec_r = [_cuda_ms(lambda: tk.topk_catalog(**rec_args, n=radix), 3)
              for _ in range(2)]
-    split10 = _kernel_ms(lambda: tk.topk_catalog(**args, n=radix),
-                         ("score_kernel", "select_kernel"))
-    split1k = _kernel_ms(lambda: tk.topk_catalog(**args, n=1000),
-                         ("score_kernel", "select_kernel"))
+    stages = ("radix_score_kernel", "radix_select_kernel")
+    split10 = _kernel_ms(lambda: tk.topk_catalog(**args, n=radix), stages)
+    split1k = _kernel_ms(lambda: tk.topk_catalog(**args, n=1000), stages)
+    # the select stage's yardstick (the port never calls it): torch.topk on
+    # the score stage's scratch of one chunk, scaled to the pass's users
+    chunk = tk.chunk_users(n_items)
+    S = tk.radix_scores(**dict(args, users=args["users"][:chunk]))
+    torch.topk(S, 1000, dim=1)
+    topk_ms = _cuda_ms(lambda: torch.topk(S, 1000, dim=1), 2) \
+        * n_users / S.shape[0]
+    del S
     fused10 = _kernel_ms(lambda: tk.topk_catalog(**args, n=10),
                          ("topk_fused_kernel",))
     log(f"(g) BPR epoch in the loop (host clock, synchronized): "
@@ -1475,8 +1524,14 @@ def phase_ranking(data: Data, dev="cuda"):
         f"kernel, LOO credit included) {hr_ms:.3f} ms")
     log(f"(g) device ms by kernel (torch.profiler, one pass): fused top-10 "
         f"{fused10}; radix top-{radix} {split10}; radix top-1000 {split1k}")
-    log(f"(g) top-1000 pass (radix route): kernel {k1k!r} ms, plain "
-        f"{p1k!r} ms")
+    log(f"(g) radix top-1000 by stage: score {split1k[stages[0]]:.3f} ms "
+        f"(a 4x4-tile score kernel: ~15), select {split1k[stages[1]]:.3f} ms "
+        f"(a select kernel reading the row six times: 25.7); "
+        f"torch.topk on the same excluded score scratch (a chunk of "
+        f"{chunk} users, scaled to {n_users}) {topk_ms:.3f} ms, a yardstick "
+        f"for the select stage only")
+    log(f"(g) top-1000 pass (radix route): kernel {k1k!r} ms (those two "
+        f"kernels: 40.690), plain {p1k!r} ms")
     log(f"(g) recommend's top-10 of 2,048 users (CUDA events, mean of 3): "
         f"fused ({plans['recommend']['splits']} slices + merge) {rec_f!r} "
         f"ms, radix route {rec_r!r} ms")

@@ -15,29 +15,34 @@
 // products sum in f32; the regularization terms use the unrounded f32
 // values.
 //
-// One C call runs a whole epoch on the caller's stream, which sequences the
-// stripes (the SGD semantics of README deviation #1). With the tensor cores
-// it first converts the epoch's U to a bf16 copy, k zero-padded to KP (one
-// launch: a stripe's U rows change only in its own user step, after its
-// panel kernel has read them). Then, for each stripe of the order array:
-//   A. the panel kernel. The stripe is cut into units of (128-item panel,
-//      64-user chunk); a persistent grid of a fixed number of CTAs an SM
-//      (ctas_per_sm) gives each CTA an equal run of units, panel-major, so
-//      every SM carries the same work whatever the panel count. A CTA keeps its
-//      current panel's OLD item rows in shared memory as bf16. Per unit, on
-//      bf16 tensor cores with f32 accumulation (mma.sync.m16n8k16 fed by
-//      ldmatrix):
+// One C call runs a whole epoch on the caller's stream, which sequences its
+// rounds (the SGD semantics of README deviation #1). A round is a set of
+// cells disjoint in users and in items, each cell a (lane, user block)
+// pair: a lane's item rows I_l [ni_pad, k] against a user block's rows
+// U_s [bu, k] through the tile of cell t = s * lanes + l. The stripe entry
+// runs one cell a round (lane 0, the whole catalog; the order array's
+// stripe), the cell-grid entry all of a DSGD round's live cells (below).
+// With the tensor cores the epoch first converts U to a bf16 copy, k
+// zero-padded to KP (one launch: a block's U rows change only in its own
+// user step, after the panel kernel has read them). Then, per round:
+//   A. the panel kernel. Each cell is cut into units of (128-item panel,
+//      64-user chunk), ordered (cell, panel, chunk); a persistent grid of a
+//      fixed number of CTAs an SM (ctas_per_sm) gives each CTA an equal run
+//      of the round's units, so every SM carries the same work whatever the
+//      cell and panel counts. A CTA keeps its current (cell, panel)'s OLD
+//      item rows in shared memory as bf16. Per unit, on bf16 tensor cores
+//      with f32 accumulation (mma.sync.m16n8k16 fed by ldmatrix):
 //        P  = U_c I_p^T    (64 x 128, K = k padded to KP, a multiple of 16)
 //        Gi += E_c^T U_c   (128 x KP, in registers while the CTA stays on
-//                           the panel, then added to the stripe's
+//                           the (cell, panel), then added to the lane's
 //                           [ni_pad, k] item gradient)
-//        Gu  = E_c I_p     (64 x KP, added to the stripe's [bu, k] user
+//        Gu  = E_c I_p     (64 x KP, added to the lane's [bu, k] user
 //                           gradient)
 //      P's accumulators never leave registers: the epilogue reads R and W
 //      for each pair of elements from shared memory, forms E and stores it
 //      once as bf16 to shared memory.
-//   B. the step kernel steps the item rows and the stripe's U rows from the
-//      summed gradients and leaves both sums zeroed for the next stripe. No
+//   B. the step kernel steps the round's item rows and user rows from the
+//      summed gradients and leaves both sums zeroed for the next round. No
 //      kernel writes I or U while A reads them, so "items step from the old
 //      U, users from the old I" holds.
 // The validity counts (W > 0 / code != 0) depend on the tiles alone; the
@@ -49,17 +54,27 @@
 // 2^-kFixBits, one scale for every epoch) and added with 64-bit integer
 // atomics: integer addition is associative, so the order in which CTAs
 // arrive no longer matters, and the step kernel turns each exact sum into
-// f32 once. The units a CTA sums depend on the grid alone, which is fixed
-// by k and the card (not by the tile type), so the same inputs give
+// f32 once. The units a CTA sums depend on the round's cell count, the
+// cells' geometry and the grid alone, which is fixed by k and the card
+// (not by the tile type or the run), so the same inputs give
 // bit-identical factors from run to run, and int8 codes give the same
 // factors as float tiles holding code * r_scale. The host bounds each
 // partial so that no sum leaves +-2^60: a partial beyond that bound, or not
 // finite, sets its element to kFixPoison instead, from which no sum of
 // in-range partials comes back within +-2^61, and the step kernel turns it into NaN, so a diverging
 // run goes non-finite as the f32 sum of the plain version does.
-// Rejected: a fixed-order scratch of per-panel partials reduced in index
-// order, [NP, bu, k] f32 for Gu (4.1 GB written and read an epoch at
-// 100k x 20k), which an earlier version of this kernel paid for.
+// A cell of at most kMaxGuSlots tensor-core panels (the cell grid's 512-item
+// lanes: 4) takes Gu another way: each unit stores its f32 partial once
+// in its panel's slot of a [panels, lanes, bu, k] scratch, and the step
+// kernel sums a value's slots in panel order. No atomics, no zeroing, and
+// the same determinism (fixed partials, fixed order). On the stripe (157
+// panels at 100k x 20k) the slots would be 4.1 GB written and read an
+// epoch, which an earlier version of this kernel paid for; its fixed-point
+// Gu sums stay in L2 (a stripe's [bu, k] is 1.3 MB). A round of the cell
+// grid sums 52 MB of Gu at 40 lanes of 2560 users, k 64, more than the
+// L2, and as 64-bit REDs its Gu stage and step took 8.5 + 6.4 ms an epoch
+// where the stripe's took 3.9 + 0.5 (scripts/torch_stripe_ablate.py); in
+// slots, 2.8-3.1 + 3.7.
 //
 // Tiles and bf16 U chunks arrive in a two-stage shared-memory ring by
 // cp.async 16-byte copies (zero-filled past the ragged stripe and catalog
@@ -77,9 +92,9 @@
 // wgmma's higher rate is not what this kernel needs first.
 //
 // mm_bf16=False (f32 products: TF32 would drop bits) and k > 128 run the
-// CUDA-core panel kernel (namespace cc): one CTA per 64-item panel walking
-// all the stripe's users, scalar f32 FMAs out of shared memory, the same
-// fixed-point user gradient, and the same step kernel.
+// CUDA-core panel kernel (namespace cc): one CTA per (cell, 64-item panel)
+// of the round walking all the cell's users, scalar f32 FMAs out of shared
+// memory, the same fixed-point user gradient, and the same step kernel.
 //
 // Rank masks (TMF, TMF+Dropout), instantiated for int8 codes and int8 W,
 // the tiles of those models' 0/1 weights. Ranks are prefixes, Mu[u, d] =
@@ -111,23 +126,26 @@
 // the JAX dense engine (matfac_tpu/ops/dense_block_kernel.py:110
 // dense_sweep_diag, which XLA computes there): tiles [NU * NI + 1, bu,
 // bi], cell c = ub * NI + l, the dummy cell last. Each DSGD round gives
-// lane l (item block l) a user block ub_idx[t][l]; the epoch walks
-// (round, lane) in order and runs the same panel and step kernels on the
-// cell, with the item block's rows as I and ni_pad = bi. The cells of one
-// round are disjoint in users and in items, so running them one after
-// another equals running them together; a dummy lane (ub = NU, the
-// all-invalid dummy cell) leaves both tables as they are and is skipped.
-// Under this schedule a user block is visited NI times an epoch, so the
-// bf16 copy of U made at the epoch's start would go stale after the first
-// visit: the step kernel rewrites the block's bf16 rows from the f32 rows
-// it has just stepped (the same rounding the copy kernel does). A cell's
-// validity counts are staged once per cell, and the fixed-point bound
-// comes from the cell's geometry (panels of bi, chunks of bu), so the
+// lane l (item block l) a user block ub_idx[t][l], with the item block's
+// rows as I_l and ni_pad = bi. The cells of one round are disjoint in
+// users and in items, so one panel launch takes all of the round's units
+// and one step launch all of its rows, from the round's old tables as JAX
+// runs it: 2 launches a round (81 an epoch at 40 x 40 cells with the bf16
+// copy). A dummy lane (ub = NU, the all-invalid dummy cell) leaves both
+// tables as they are and contributes no unit; a round without a live cell
+// launches nothing. The caller puts the epoch's live cells, (lane, ub)
+// round by round, on the device once an epoch, and passes each round's
+// count. The gradients are a slice a lane: Gu in per-panel slots [P, NI,
+// bu, k] (above), Gi in fixed point [NI, bi, k]. Under this schedule a
+// user block is visited NI
+// times an epoch, so the bf16 copy of U made at the epoch's start would go
+// stale after the first visit: the step kernel rewrites the block's bf16
+// rows from the f32 rows it has just stepped (the same rounding the copy
+// kernel does). A cell's validity counts are staged once per cell, and the
+// partition (so every partial), the Gi fixed-point bound and the Gu slot
+// order come from the cells' geometry and the round's cell count, so the
 // epoch is bit-reproducible and codes equal float tiles as on the stripe.
-// Bound: the tile read, as for the stripe (the same slots over the
-// epoch); a cell of 2560 x 512 (the JAX package's measured grid at 100k x
-// 20k) is a grid of 160 CTAs on 132 SMs, launch after launch: putting a
-// round's cells into one launch is later work.
+// Bound: the tile read, as for the stripe (the same slots over the epoch).
 //
 // The ablation entry (dense_rows_ablate) runs the tensor-core kernel on
 // int8 codes truncated after a stage: tile loads only, + P, + E, + item
@@ -254,82 +272,158 @@ __device__ __forceinline__ int first_above(const int* q, int k, int d) {
   return lo;
 }
 
-// B. Step the item rows and the stripe's user rows from their summed
-// gradients, the counts and the old rows, and leave both sums zeroed for
-// the next stripe. Threads take four values of a row each when k % 4 == 0,
-// else one (the other lanes are padding). ub_rows (the cell grid, tensor
-// cores): the block's rows of the bf16 copy of U, [bu_pad, kp], rewritten
-// from the new rows. MASK: entity e of lambda L[e]
-// has rank r = qrow[L[e] - 1] at this visit; a value at d >= r is left as
-// it is (m = 0), and below it the regularization counts the valid partners
-// of rank > d, hist[e][first_above(qrow, d)] (the stripe's suffix
-// histogram of partner lambdas, exact integers).
-template <bool MASK>
+constexpr int kChunkUsers = 64;   // users per unit of the tensor-core kernel
+constexpr int kPanelItems = 128;  // items per panel of the tensor-core kernel
+// A cell of at most this many tensor-core panels sums its user gradient in
+// per-panel f32 slots, not in 64-bit fixed point (Tabs, gu_slots)
+constexpr int kMaxGuSlots = 8;
+
+// The user gradient's per-panel slots: the cell's panel count where the
+// tensor cores run (kp > 0) and it is at most kMaxGuSlots, else 0.
+__host__ __device__ constexpr int gu_slots(int ni_pad, int kp) {
+  return kp > 0 && (ni_pad + kPanelItems - 1) / kPanelItems <= kMaxGuSlots
+             ? (ni_pad + kPanelItems - 1) / kPanelItems
+             : 0;
+}
+
+// Users of a block in the bf16 copy of U: whole chunks.
+__host__ __device__ constexpr int bu_pad(int bu) {
+  return (bu + kChunkUsers - 1) / kChunkUsers * kChunkUsers;
+}
+
+// The tables of an epoch, as the kernels of a round address them. A cell
+// (lane l, user block s) reads the item rows I + l * ni_pad * k, the user
+// rows U + s * bu * k, their bf16 copy Ub + s * bu_pad * kp and the tile
+// and counts of cell t = s * lanes + l; it sums into the lane's gradient
+// slices, gi + l * ni_pad * k and gu + l * bu * k. Rank masks (stripes
+// only, lane 0): lu [NU, bu] and li [ni_pad] lambdas, qs [NU, k] each
+// block's rank row, hist_u [NU, bu, k] and hist_i [NU, ni_pad, k].
+// The user gradient: with `slots` (a cell of few tensor-core panels), gup
+// [slots, lanes, bu, k] f32, one slot a panel, each unit's partial stored
+// once and the slots summed in panel order by the step kernel; else gu,
+// 64-bit fixed point as the item gradient.
+struct Tabs {
+  float* U;                  // [NU, bu, k]
+  float* I;                  // [lanes, ni_pad, k]
+  __nv_bfloat16* Ub;         // [NU, bu_pad, kp] (tensor cores) or null
+  long long* gu;             // [lanes, bu, k] fixed point (slots == 0)
+  float* gup;                // [slots, lanes, bu, k] (slots > 0)
+  long long* gi;             // [lanes, ni_pad, k] fixed point
+  const float* cnt_u;        // [tiles, bu]
+  const float* cnt_i;        // [tiles, ni_pad]
+  const int* lu;
+  const int* li;
+  const int* qs;
+  const int* hist_u;
+  const int16_t* hist_i;
+  int lanes, bu, ni_pad, k, kp, slots;
+};
+
+// B. Step the round's item rows and user rows from their summed gradients,
+// the counts and the old rows, and leave both sums zeroed for the next
+// round. Block row blockIdx.y takes cell cells[blockIdx.y] (lane, user
+// block): its item rows first, then its user rows, PER consecutive values
+// of a row a thread (4 when k % 4 == 0, else 1). refresh (the cell grid,
+// tensor cores): the block's rows of the bf16 copy of U are rewritten from
+// the new rows. MASK: entity e of lambda L[e] has rank r = qrow[L[e] - 1]
+// at this visit; a value at d >= r is left as it is (m = 0), and below it
+// the regularization counts the valid partners of rank > d,
+// hist[e][first_above(qrow, d)] (the stripe's suffix histogram of partner
+// lambdas, exact integers).
+template <bool MASK, int PER>
 __global__ void __launch_bounds__(kThreads)
-stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
-                   const float* __restrict__ cnt_i, int ni_pad,
-                   float* __restrict__ U, long long* __restrict__ gu,
-                   const float* __restrict__ cnt_u, int bu, int k, float lr,
-                   float i_reg, float u_reg, int collision_norm,
-                   const int* __restrict__ li, const int* __restrict__ lu,
-                   const int* __restrict__ qrow,
-                   const int16_t* __restrict__ hist_i,
-                   const int* __restrict__ hist_u,
-                   __nv_bfloat16* __restrict__ ub_rows, int kp) {
-  const int per = (k & 3) == 0 ? 4 : 1;
-  const size_t n_i = static_cast<size_t>(ni_pad) * k / per;
-  const size_t n_u = static_cast<size_t>(bu) * k / per;
-  size_t q = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+step_kernel(Tabs tb, const int2* __restrict__ cells, float lr, float i_reg,
+            float u_reg, int collision_norm, int refresh) {
+  const int k = tb.k;
+  const int n_i = tb.ni_pad * k / PER, n_u = tb.bu * k / PER;
+  int q = blockIdx.x * kThreads + threadIdx.x;
   if (q >= n_i + n_u) return;
   const bool item = q < n_i;
   if (!item) q -= n_i;
-  const size_t e = q * per / k;               // the entity's row
-  const int d0 = static_cast<int>(q * per % k);
-  float* x = (item ? I : U) + q * per;
-  long long* acc = (item ? gi : gu) + q * per;
-  const float c = (item ? cnt_i : cnt_u)[e];
+  const int e = q * PER / k;                  // the entity's row
+  const int d0 = q * PER - e * k;
+  const int2 cell = cells[blockIdx.y];        // (lane, user block)
+  const int rows = item ? tb.ni_pad : tb.bu;
+  const size_t t = static_cast<size_t>(cell.y) * tb.lanes + cell.x;
+  const size_t own = (item ? static_cast<size_t>(cell.x) * tb.ni_pad
+                           : static_cast<size_t>(cell.y) * tb.bu) + e;
+  const size_t lane_row = static_cast<size_t>(cell.x) * rows + e;
+  float* x = (item ? tb.I : tb.U) + own * k + d0;
+  long long* acc = (item ? tb.gi : tb.gu) + lane_row * k + d0;
+  const float c = (item ? tb.cnt_i : tb.cnt_u)[t * rows + e];
   const float reg = item ? i_reg : u_reg;
+  const int* qrow = MASK ? tb.qs + static_cast<size_t>(cell.y) * k : nullptr;
   int rank = k;
-  if (MASK) rank = qrow[(item ? li : lu)[e] - 1];
-  long long sums[4] = {0, 0, 0, 0};
-  float xs[4] = {0.f, 0.f, 0.f, 0.f};
-  if (per == 4) {
+  if (MASK)
+    rank = qrow[(item ? tb.li[e]
+                      : tb.lu[static_cast<size_t>(cell.y) * tb.bu + e]) - 1];
+  float g[PER], xs[PER];
+  if (PER == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(x);
+    xs[0] = v.x, xs[1] = v.y, xs[2] = v.z, xs[3] = v.w;
+  } else {
+    xs[0] = *x;
+  }
+  if (!item && tb.slots) {
+    // the per-panel slots in panel order; every round writes them all
+    const float* src = tb.gup + (static_cast<size_t>(cell.x) * tb.bu + e) *
+                                    k + d0;
+    const size_t slot = static_cast<size_t>(tb.lanes) * tb.bu * k;
+    for (int p = 0; p < tb.slots; ++p, src += slot) {
+      float v4[4];
+      if (PER == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        v4[0] = v.x, v4[1] = v.y, v4[2] = v.z, v4[3] = v.w;
+      } else {
+        v4[0] = *src;
+      }
+#pragma unroll
+      for (int j = 0; j < PER; ++j) g[j] = p ? __fadd_rn(g[j], v4[j]) : v4[j];
+    }
+  } else if (PER == 4) {
     longlong2* a2 = reinterpret_cast<longlong2*>(acc);
     const longlong2 s0 = a2[0], s1 = a2[1];
     a2[0] = make_longlong2(0, 0);
     a2[1] = make_longlong2(0, 0);
-    sums[0] = s0.x, sums[1] = s0.y, sums[2] = s1.x, sums[3] = s1.y;
-    const float4 v = *reinterpret_cast<const float4*>(x);
-    xs[0] = v.x, xs[1] = v.y, xs[2] = v.z, xs[3] = v.w;
+    g[0] = from_fixed(s0.x), g[1] = from_fixed(s0.y);
+    g[2] = from_fixed(s1.x), g[3] = from_fixed(s1.y);
   } else {
-    sums[0] = *acc;
+    g[0] = from_fixed(*acc);
     *acc = 0;
-    xs[0] = *x;
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= per) break;
+  for (int j = 0; j < PER; ++j) {
     const int d = d0 + j;
     float m = 1.f, cr = c;
     if (MASK) {
       const int h = first_above(qrow, k, d);
       m = d < rank ? 1.f : 0.f;
+      const size_t he = static_cast<size_t>(cell.y) * rows + e;
       cr = d < rank && h < k
-               ? static_cast<float>(item ? hist_i[e * k + h]
-                                         : hist_u[e * k + h])
+               ? static_cast<float>(item ? tb.hist_i[he * k + h]
+                                         : tb.hist_u[he * k + h])
                : 0.f;
     }
-    xs[j] = sgd_value(xs[j], from_fixed(sums[j]), m, cr, c, lr, reg,
-                      collision_norm);
+    xs[j] = sgd_value(xs[j], g[j], m, cr, c, lr, reg, collision_norm);
   }
-  if (per == 4)
+  __nv_bfloat16* b =
+      refresh && !item
+          ? tb.Ub + (static_cast<size_t>(cell.y) * bu_pad(tb.bu) + e) *
+                        tb.kp + d0
+          : nullptr;
+  if (PER == 4) {
     *reinterpret_cast<float4*>(x) = make_float4(xs[0], xs[1], xs[2], xs[3]);
-  else
+    if (b != nullptr) {   // the cell grid: the bf16 operand rows follow
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(xs[0], xs[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(xs[2], xs[3]);
+      uint2 pack;
+      pack.x = *reinterpret_cast<const uint32_t*>(&lo);
+      pack.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(b) = pack;
+    }
+  } else {
     *x = xs[0];
-  if (ub_rows != nullptr && !item) {
-    // the cell grid: the block's bf16 operand rows follow its f32 rows
-    __nv_bfloat16* b = ub_rows + e * kp + d0;
-    for (int j = 0; j < per; ++j) b[j] = __float2bfloat16_rn(xs[j]);
+    if (b != nullptr) *b = __float2bfloat16_rn(xs[0]);
   }
 }
 
@@ -338,17 +432,12 @@ stripe_step_kernel(float* __restrict__ I, long long* __restrict__ gi,
 // ---------------------------------------------------------------------
 namespace tc {
 
-constexpr int kPanel = 128;           // items per CTA
-constexpr int kChunk = 64;            // users per step of the user loop
+constexpr int kPanel = kPanelItems;   // items per CTA
+constexpr int kChunk = kChunkUsers;   // users per step of the user loop
 constexpr int kEStride = kPanel + 8;  // bf16 per row of E (16 B of pad)
 
 __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
-}
-
-// Users of a stripe in the bf16 copy of U: whole chunks.
-__host__ __device__ constexpr int bu_pad(int bu) {
-  return (bu + kChunk - 1) / kChunk * kChunk;
 }
 
 // Byte offsets of the shared-memory regions. Per ring stage: the R tile,
@@ -487,31 +576,26 @@ u_bf16_kernel(const float* __restrict__ U, __nv_bfloat16* __restrict__ Ub,
 // CTAs of the persistent grid per SM: fixed by KP alone, so the partition
 // of a stripe into CTAs, and with it every f32 partial, is the same for
 // every tile type (codes and float tiles sum the same partials). A tile
-// type whose shared memory fits fewer CTAs per SM runs the grid in waves.
+// type whose shared memory fits fewer CTAs per SM runs the grid's CTAs
+// one after another where they do not fit at once.
 __host__ __device__ constexpr int ctas_per_sm(int kp) {
   return kp <= 64 ? 2 : 1;
 }
 
-// Each CTA of a persistent grid takes an equal run of the stripe's
-// (panel, 64-user chunk) units, panel-major, so every SM carries the same
-// work whatever the panel count. On leaving a panel it adds its share of
-// that panel's item gradient to gi.
-// MASK: the item panel is zeroed at and past each item's rank,
+// Each CTA of a persistent grid takes an equal run of the round's units,
+// ordered (cell, 128-item panel, 64-user chunk), so every SM carries the
+// same work whatever the cell and panel counts, and a CTA's run stays on
+// one (cell, panel) across chunks. On leaving a (cell, panel) it adds its
+// share of that panel's item gradient to the lane's gi slice.
+// MASK (stripes): the item panel is zeroed at and past each item's rank,
 // qrow[li[p] - 1] (the bf16 U copy is masked already), so the three
 // products are those of U o Mu and I o Mi.
 template <typename RT, typename WT, bool CODES, bool MASK, int KP, int STAGE>
 __global__ void __launch_bounds__(kThreads, ctas_per_sm(KP))
-panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
-             const __nv_bfloat16* __restrict__ Ubg,  // [bu_pad, KP]
-             const float* __restrict__ I,            // [ni_pad, k], old
-             const RT* __restrict__ R,               // [bu, ni_pad]
-             const WT* __restrict__ W,               // [bu, ni_pad] / null
-             long long* __restrict__ gu,             // [bu, k], fixed point
-             long long* __restrict__ gi,             // [ni_pad, k], same
-             int bu, int ni_pad, int k, int vec, float r_scale, float lim,
-             const int* __restrict__ li,             // [ni_pad] (MASK)
-             const int* __restrict__ lu,             // unused: bf16 copy
-             const int* __restrict__ qrow) {         // [k] (MASK)
+panel_kernel(Tabs tb, const int2* __restrict__ cells, int n_cells,
+             const RT* __restrict__ R,       // [tiles, bu, ni_pad]
+             const WT* __restrict__ W,       // [tiles, bu, ni_pad] / null
+             int vec, float r_scale, float lim) {
   static_assert(KP % 16 == 0 && KP <= 128, "KP: k padded to 16..128");
   constexpr int SR = sizeof(RT);
   constexpr int SW = CODES ? 0 : sizeof(WT);
@@ -527,22 +611,34 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int mt = warp & 3, nh = warp >> 2;   // P / Gu: user tile, half
+  const int bu = tb.bu, ni_pad = tb.ni_pad, k = tb.k;
   const int n_chunks = (bu + kChunk - 1) / kChunk;
+  const int n_panels = (ni_pad + kPanel - 1) / kPanel;
   const long long n_units =
-      static_cast<long long>((ni_pad + kPanel - 1) / kPanel) * n_chunks;
+      static_cast<long long>(n_cells) * n_panels * n_chunks;
   const long long begin = n_units * blockIdx.x / gridDim.x;
   const long long end = n_units * (blockIdx.x + 1) / gridDim.x;
   if (begin >= end) return;
 
+  // unit q is chunk q % n_chunks of run q / n_chunks, the (cell, panel)
+  // pair run / n_panels, run % n_panels
+  auto cell_of = [&](long long run) { return cells[run / n_panels]; };
+  auto panel_of = [&](long long run) {
+    return static_cast<int>(run % n_panels) * kPanel;
+  };
   // a panel's OLD item rows, bf16-rounded, k zero-padded to KP (MASK:
   // zero from each item's rank on)
-  auto load_panel = [&](int p0) {
+  auto load_panel = [&](long long run) {
+    const int2 c = cell_of(run);
+    const int p0 = panel_of(run);
+    const float* Il = tb.I + static_cast<size_t>(c.x) * ni_pad * k;
+    const int* qrow = MASK ? tb.qs + static_cast<size_t>(c.y) * k : nullptr;
     for (int q = tid; q < kPanel * KP / 2; q += kThreads) {
       const int p = q / (KP / 2), d = (q % (KP / 2)) * 2;
       float a = 0.f, b = 0.f;
       if (p0 + p < ni_pad) {
-        const float* row = I + static_cast<size_t>(p0 + p) * k;
-        const int r = MASK ? qrow[li[p0 + p] - 1] : k;
+        const float* row = Il + static_cast<size_t>(p0 + p) * k;
+        const int r = MASK ? qrow[tb.li[p0 + p] - 1] : k;
         if (d < r) a = row[d];
         if (d + 1 < r) b = row[d + 1];
       }
@@ -552,10 +648,17 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
   };
   auto load_unit = [&](long long q, int s) {
     unsigned char* st = smem + s * L.stage;
-    const int p0 = static_cast<int>(q / n_chunks) * kPanel;
+    const long long run = q / n_chunks;
+    const int2 c = cell_of(run);
+    const int p0 = panel_of(run);
     const int u0 = static_cast<int>(q % n_chunks) * kChunk;
-    load_tile<RT>(st + L.rt, R, u0, p0, bu, ni_pad, vec != 0);
-    if (!CODES) load_tile<WT>(st + L.wt, W, u0, p0, bu, ni_pad, vec != 0);
+    const size_t tile = (static_cast<size_t>(c.y) * tb.lanes + c.x) * bu *
+                        static_cast<size_t>(ni_pad);
+    load_tile<RT>(st + L.rt, R + tile, u0, p0, bu, ni_pad, vec != 0);
+    if (!CODES)
+      load_tile<WT>(st + L.wt, W + tile, u0, p0, bu, ni_pad, vec != 0);
+    const __nv_bfloat16* Ubg =
+        tb.Ub + static_cast<size_t>(c.y) * bu_pad(bu) * KP;
     constexpr int kPieces = KP / 8;   // 16-byte pieces per U row
     for (int i = tid; i < kChunk * kPieces; i += kThreads) {
       const int u = i / kPieces, c8 = (i % kPieces) * 8;
@@ -571,20 +674,23 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
 #pragma unroll
       for (int e = 0; e < 4; ++e) gi_acc[j][e] = 0.f;
   };
-  auto flush_gi = [&](int p0) {
+  auto flush_gi = [&](long long run) {
+    const int p0 = panel_of(run);
+    long long* gil =
+        tb.gi + static_cast<size_t>(cell_of(run).x) * ni_pad * k;
 #pragma unroll
     for (int j = 0; j < KP / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = p0 + 16 * warp + g + 8 * h, d = 8 * j + 2 * t;
         if (p < ni_pad && d < k)
-          add2(gi + static_cast<size_t>(p) * k + d, d, k, gi_acc[j][2 * h],
+          add2(gil + static_cast<size_t>(p) * k + d, d, k, gi_acc[j][2 * h],
                gi_acc[j][2 * h + 1], lim);
       }
   };
 
-  int p0 = static_cast<int>(begin / n_chunks) * kPanel;
-  load_panel(p0);
+  long long run = begin / n_chunks;
+  load_panel(run);
   zero_gi();
   load_unit(begin, 0);
   cp_async_commit();
@@ -595,12 +701,12 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
     cp_async_commit();   // possibly empty: one group per unit
     cp_async_wait1();    // this unit's group has landed
     __syncthreads();
-    if (static_cast<int>(q / n_chunks) * kPanel != p0) {
-      // a new panel: every warp is done with the old one's rows
-      if (STAGE >= kItem) flush_gi(p0);
+    if (q / n_chunks != run) {
+      // a new (cell, panel): every warp is done with the old one's rows
+      if (STAGE >= kItem) flush_gi(run);
       zero_gi();
-      p0 = static_cast<int>(q / n_chunks) * kPanel;
-      load_panel(p0);
+      run = q / n_chunks;
+      load_panel(run);
       __syncthreads();
     }
 
@@ -608,6 +714,10 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
     const __nv_bfloat16* Ub =
         reinterpret_cast<const __nv_bfloat16*>(st + L.ub);
     const int u0 = static_cast<int>(q % n_chunks) * kChunk;
+    // the unit's Gu partial: this panel's slot, or the lane's fixed point
+    long long* gul = tb.gu + static_cast<size_t>(cell_of(run).x) * bu * k;
+    float* gus = tb.gup + (static_cast<size_t>(run % n_panels) * tb.lanes +
+                           cell_of(run).x) * bu * static_cast<size_t>(k);
 
     if (STAGE >= kPmm) {
       // P = U_c I_p^T: users 16*mt.., items 64*nh.. (8 n-tiles)
@@ -715,15 +825,21 @@ panel_kernel(const float* __restrict__ U,            // unused: bf16 copy
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int u = u0 + 16 * mt + g + 8 * h;
-          if (u < bu && d < k)
-            add2(gu + static_cast<size_t>(u) * k + d, d, k, acc[j][2 * h],
+          if (u >= bu || d >= k) continue;
+          if (tb.slots) {
+            float* o = gus + static_cast<size_t>(u) * k + d;
+            o[0] = acc[j][2 * h];
+            if (d + 1 < k) o[1] = acc[j][2 * h + 1];
+          } else {
+            add2(gul + static_cast<size_t>(u) * k + d, d, k, acc[j][2 * h],
                  acc[j][2 * h + 1], lim);
+          }
         }
       }
     }
     __syncthreads();   // the stage, E and the panel rows are free
   }
-  if (STAGE >= kItem) flush_gi(p0);
+  if (STAGE >= kItem) flush_gi(run);
 }
 
 }  // namespace tc
@@ -755,18 +871,17 @@ __host__ __device__ inline size_t smem_floats(int k) {
          + static_cast<size_t>(kPanel) * k;   // Gi
 }
 
-// MASK: the item rows and the user chunk are zeroed at and past each
-// entity's rank, qrow[l[e] - 1], as they are staged.
+// Block b of the round's grid takes panel b % n_panels of cell
+// cells[b / n_panels]. MASK (stripes): the item rows and the user chunk
+// are zeroed at and past each entity's rank, qrow[l[e] - 1], as they are
+// staged.
 template <typename RT, typename WT, bool CODES, bool MMBF16, bool MASK>
 __global__ void __launch_bounds__(kThreads)
-panel_kernel(const float* __restrict__ U,
-             const __nv_bfloat16* __restrict__ Ubg,  // unused
-             const float* __restrict__ I, const RT* __restrict__ R,
-             const WT* __restrict__ W, long long* __restrict__ gu,
-             long long* __restrict__ gi, int bu, int ni_pad, int k, int vec,
-             float r_scale, float lim, const int* __restrict__ li,
-             const int* __restrict__ lu, const int* __restrict__ qrow) {
+panel_kernel(Tabs tb, const int2* __restrict__ cells, int n_cells,
+             const RT* __restrict__ R, const WT* __restrict__ W, int vec,
+             float r_scale, float lim) {
   extern __shared__ float smem[];
+  const int bu = tb.bu, ni_pad = tb.ni_pad, k = tb.k;
   const int ks = k + 1;  // padded stride: item rows hit distinct banks
   float* Im = smem;                                   // [kPanel][ks]
   float* Us = Im + kPanel * ks;                       // [kChunk][k]
@@ -775,8 +890,21 @@ panel_kernel(const float* __restrict__ U,
   float* Gi = Ws + kChunk * kPanel;                   // [kPanel][k]
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kPanel;
+  const int n_panels = (ni_pad + kPanel - 1) / kPanel;
+  const int2 cell = cells[blockIdx.x / n_panels];
+  const int p0 = static_cast<int>(blockIdx.x % n_panels) * kPanel;
   const int np_here = min(kPanel, ni_pad - p0);  // ragged last panel
+  const size_t tile = (static_cast<size_t>(cell.y) * tb.lanes + cell.x) *
+                      bu * static_cast<size_t>(ni_pad);
+  R += tile;
+  if (!CODES) W += tile;
+  const float* I = tb.I + static_cast<size_t>(cell.x) * ni_pad * k;
+  const float* U = tb.U + static_cast<size_t>(cell.y) * bu * k;
+  long long* gu = tb.gu + static_cast<size_t>(cell.x) * bu * k;
+  long long* gi = tb.gi + static_cast<size_t>(cell.x) * ni_pad * k;
+  const int* li = tb.li;
+  const int* lu = MASK ? tb.lu + static_cast<size_t>(cell.y) * bu : nullptr;
+  const int* qrow = MASK ? tb.qs + static_cast<size_t>(cell.y) * k : nullptr;
 
   for (int idx = tid; idx < kPanel * k; idx += kThreads) {
     const int p = idx / k, d = idx % k;
@@ -880,15 +1008,20 @@ int tc_kp(int k, int mm_bf16) {
 
 size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
 
-// Byte offsets in the scratch: the user gradient [bu, k] and the item
-// gradient [ni_pad, k], both 64-bit fixed point, then (tensor cores) the
+// Byte offsets in the scratch: the user gradient (per-panel f32 slots
+// [slots, lanes, bu, k], or 64-bit fixed point [lanes, bu, k]) and the
+// item gradient [lanes, ni_pad, k] in fixed point, then (tensor cores) the
 // bf16 U [NU, bu_pad, KP].
-size_t scratch_gi(int bu, int k) {
-  return align256(static_cast<size_t>(bu) * k * sizeof(long long));
+size_t scratch_gi(int lanes, int bu, int ni_pad, int k, int kp) {
+  const size_t row = static_cast<size_t>(lanes) * bu * k;
+  const int slots = gu_slots(ni_pad, kp);
+  return align256(slots ? slots * row * sizeof(float)
+                        : row * sizeof(long long));
 }
-size_t scratch_ub(int bu, int ni_pad, int k) {
-  return scratch_gi(bu, k) +
-         align256(static_cast<size_t>(ni_pad) * k * sizeof(long long));
+size_t scratch_ub(int lanes, int bu, int ni_pad, int k, int kp) {
+  return scratch_gi(lanes, bu, ni_pad, k, kp) +
+         align256(static_cast<size_t>(lanes) * ni_pad * k *
+                  sizeof(long long));
 }
 
 // The largest |partial| that keeps the sum of `parts` partials within
@@ -900,54 +1033,61 @@ float fix_limit(long long parts) {
 }
 
 struct Epoch {
-  float* u3;
-  float* I;
+  Tabs tb;
   const void* R;
   const void* W;
-  const float* cnt_u;   // [NU, bu]
-  const float* cnt_i;   // [NU, ni_pad]
-  long long* gu;        // [bu, k]
-  long long* gi;        // [ni_pad, k]
-  __nv_bfloat16* ub;    // [NU, bu_pad, KP] (tensor cores)
-  const long long* order;
-  // rank masks, or all null: lambda / rank tables, each stripe's rank row
-  // (that of its visit) and the stripes' suffix histograms of partner
-  // lambdas
-  const int* lu;        // [NU, bu]
-  const int* li;        // [ni_pad]
-  const int* qs;        // [NU, k]
-  const int* hist_u;    // [NU, bu, k]
-  const int16_t* hist_i;  // [NU, ni_pad, k]
-  int n_order, n_stripes, bu, ni_pad, k, vec, collision_norm;
+  const int2* cells;    // device: the epoch's (lane, user block) cells
+  const int* counts;    // host: each round's cells; null: one a round
+  int n_rounds, n_ublocks, vec, collision_norm;
   float lr, r_scale, u_reg, i_reg;
   cudaStream_t stream;
   long long* failed;
   long long* launched;
-  // 0: order holds stripes. The cell grid: order holds the rounds' user
-  // blocks lane by lane, lane b of `lanes` is item block b
-  int lanes = 0;
+  int refresh;          // the step rewrites the block's bf16 U rows
 };
 
 Epoch make_epoch(void* u3, void* i_tab, const void* R, const void* W,
                  const void* cnt_u, const void* cnt_i, void* scratch,
-                 const long long* order, int n_order, int n_stripes, int bu,
-                 int ni_pad, int k, int collision_norm, float lr,
-                 float r_scale, float u_reg, float i_reg, void* stream,
-                 long long* failed, long long* launched) {
+                 const void* cells, const int* counts, int n_rounds,
+                 int lanes, int n_ublocks, int bu, int ni_pad, int k,
+                 int mm_bf16, int collision_norm, float lr, float r_scale,
+                 float u_reg, float i_reg, void* stream, long long* failed,
+                 long long* launched) {
   char* base = static_cast<char*>(scratch);
+  const int kp = tc_kp(k, mm_bf16);
   *failed = -1;
   *launched = 0;
-  return Epoch{static_cast<float*>(u3), static_cast<float*>(i_tab), R, W,
-               static_cast<const float*>(cnt_u),
-               static_cast<const float*>(cnt_i),
-               reinterpret_cast<long long*>(base),
-               reinterpret_cast<long long*>(base + scratch_gi(bu, k)),
-               reinterpret_cast<__nv_bfloat16*>(base +
-                                                scratch_ub(bu, ni_pad, k)),
-               order, nullptr, nullptr, nullptr, nullptr, nullptr, n_order,
-               n_stripes, bu, ni_pad, k, 0, collision_norm, lr, r_scale,
-               u_reg, i_reg, static_cast<cudaStream_t>(stream), failed,
-               launched};
+  Epoch e{};
+  e.tb.U = static_cast<float*>(u3);
+  e.tb.I = static_cast<float*>(i_tab);
+  e.tb.gu = reinterpret_cast<long long*>(base);
+  e.tb.gup = reinterpret_cast<float*>(base);
+  e.tb.slots = gu_slots(ni_pad, kp);
+  e.tb.gi = reinterpret_cast<long long*>(
+      base + scratch_gi(lanes, bu, ni_pad, k, kp));
+  e.tb.Ub = reinterpret_cast<__nv_bfloat16*>(
+      base + scratch_ub(lanes, bu, ni_pad, k, kp));
+  e.tb.cnt_u = static_cast<const float*>(cnt_u);
+  e.tb.cnt_i = static_cast<const float*>(cnt_i);
+  e.tb.lanes = lanes;
+  e.tb.bu = bu;
+  e.tb.ni_pad = ni_pad;
+  e.tb.k = k;
+  e.R = R;
+  e.W = W;
+  e.cells = static_cast<const int2*>(cells);
+  e.counts = counts;
+  e.n_rounds = n_rounds;
+  e.n_ublocks = n_ublocks;
+  e.collision_norm = collision_norm;
+  e.lr = lr;
+  e.r_scale = r_scale;
+  e.u_reg = u_reg;
+  e.i_reg = i_reg;
+  e.stream = static_cast<cudaStream_t>(stream);
+  e.failed = failed;
+  e.launched = launched;
+  return e;
 }
 
 bool aligned16(const void* p) {
@@ -958,54 +1098,45 @@ unsigned blocks_for(size_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-// The epoch's stripes in order: the panel kernel on `grid` CTAs, then
-// (step) the step kernel. ``kernel`` is an instantiation of either panel
-// kernel; they share their signature. `lim` bounds each gradient partial.
+// The epoch's rounds in order: the panel kernel on `grid` CTAs (0: one a
+// (cell, CUDA-core panel)), then (step) the step kernel over the round's
+// rows. ``kernel`` is an instantiation of either panel kernel; they share
+// their signature. `lim` bounds each gradient partial. A round without a
+// cell launches nothing.
 template <bool MASK, typename RT, typename WT, typename Kernel>
 cudaError_t walk(const Epoch& e, Kernel kernel, unsigned grid, size_t smem,
-                 int kp, bool step, float lim) {
-  const size_t bp = static_cast<size_t>(tc::bu_pad(e.bu));
-  for (int i = 0; i < e.n_order; ++i) {
-    // the visit's user block s, item block b and tile t: a stripe is
-    // (s, 0, s); a cell is (s, lane, s * lanes + lane), and a dummy lane
-    // (s = NU) is skipped
-    const long long s = e.order[i];
-    const int b = e.lanes ? i % e.lanes : 0;
-    const long long t = e.lanes ? s * e.lanes + b : s;
-    if (s < 0 || s > e.n_stripes || (s == e.n_stripes && !e.lanes)) {
-      *e.failed = t;
-      return cudaErrorInvalidValue;
-    }
-    if (s == e.n_stripes) continue;
-    const size_t tile = static_cast<size_t>(t) * e.bu * e.ni_pad;
-    float* U = e.u3 + static_cast<size_t>(s) * e.bu * e.k;
-    float* I = e.I + static_cast<size_t>(b) * e.ni_pad * e.k;
-    __nv_bfloat16* Ub = e.ub + static_cast<size_t>(s) * bp * kp;
-    const RT* R = static_cast<const RT*>(e.R) + tile;
-    const WT* W = e.W ? static_cast<const WT*>(e.W) + tile : nullptr;
-    const int* lu = MASK ? e.lu + static_cast<size_t>(s) * e.bu : nullptr;
-    const int* qrow = MASK ? e.qs + static_cast<size_t>(s) * e.k : nullptr;
-    kernel<<<grid, kThreads, smem, e.stream>>>(
-        U, Ub, I, R, W, e.gu, e.gi, e.bu, e.ni_pad, e.k, e.vec, e.r_scale,
-        lim, e.li, lu, qrow);
+                 bool step, float lim) {
+  const unsigned cc_panels =
+      static_cast<unsigned>((e.tb.ni_pad + cc::kPanel - 1) / cc::kPanel);
+  long long start = 0;
+  for (int r = 0; r < e.n_rounds; ++r) {
+    const int n = e.counts ? e.counts[r] : 1;
+    const int2* cells = e.cells + start;
+    start += n;
+    if (n <= 0) continue;
+    kernel<<<grid ? grid : n * cc_panels, kThreads, smem, e.stream>>>(
+        e.tb, cells, n, static_cast<const RT*>(e.R),
+        static_cast<const WT*>(e.W), e.vec, e.r_scale, lim);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++*e.launched;
     if (err == cudaSuccess && step) {
-      const size_t n = (static_cast<size_t>(e.ni_pad) + e.bu) * e.k;
-      const size_t hk = static_cast<size_t>(s) * e.k;
-      stripe_step_kernel<MASK><<<blocks_for(e.k % 4 ? n : n / 4), kThreads,
-                                 0, e.stream>>>(
-          I, e.gi, e.cnt_i + static_cast<size_t>(t) * e.ni_pad, e.ni_pad,
-          U, e.gu, e.cnt_u + static_cast<size_t>(t) * e.bu, e.bu, e.k, e.lr,
-          e.i_reg, e.u_reg, e.collision_norm, e.li, lu, qrow,
-          MASK ? e.hist_i + hk * e.ni_pad : nullptr,
-          MASK ? e.hist_u + hk * e.bu : nullptr,
-          e.lanes && kp ? Ub : nullptr, kp);
+      const int per = e.tb.k % 4 ? 1 : 4;
+      const dim3 g(blocks_for(static_cast<size_t>(e.tb.ni_pad + e.tb.bu) *
+                              e.tb.k / per),
+                   n);
+      if (per == 4)
+        step_kernel<MASK, 4><<<g, kThreads, 0, e.stream>>>(
+            e.tb, cells, e.lr, e.i_reg, e.u_reg, e.collision_norm,
+            e.refresh);
+      else
+        step_kernel<MASK, 1><<<g, kThreads, 0, e.stream>>>(
+            e.tb, cells, e.lr, e.i_reg, e.u_reg, e.collision_norm,
+            e.refresh);
       err = cudaGetLastError();
       if (err == cudaSuccess) ++*e.launched;
     }
     if (err != cudaSuccess) {
-      *e.failed = t;
+      *e.failed = r;
       return err;
     }
   }
@@ -1021,12 +1152,13 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename RT, typename WT, bool CODES, bool MASK, int KP, int STAGE>
-cudaError_t run_tc(const Epoch& e) {
+cudaError_t run_tc(Epoch e) {
   constexpr tc::Smem L =
       tc::smem_layout(sizeof(RT), CODES ? 0 : sizeof(WT), KP);
   auto kernel = tc::panel_kernel<RT, WT, CODES, MASK, KP, STAGE>;
   cudaError_t err = set_smem(kernel, L.total);
   // the persistent grid: ctas_per_sm(KP) CTAs an SM, whatever the tile type
+  // and the round (CTAs past a small round's units return at once)
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1036,39 +1168,40 @@ cudaError_t run_tc(const Epoch& e) {
                                                         kThreads, L.total);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long panels = (e.ni_pad + tc::kPanel - 1) / tc::kPanel;
-  const long long chunks = (e.bu + tc::kChunk - 1) / tc::kChunk;
-  const unsigned grid = static_cast<unsigned>(
-      std::min<long long>(panels * chunks, 1LL * sms * tc::ctas_per_sm(KP)));
-  // Gu: one partial a panel; Gi: one a CTA on the panel, at most a chunk's
+  const long long panels = (e.tb.ni_pad + tc::kPanel - 1) / tc::kPanel;
+  const long long chunks = (e.tb.bu + tc::kChunk - 1) / tc::kChunk;
+  const unsigned grid = static_cast<unsigned>(sms * tc::ctas_per_sm(KP));
+  // Partials an element: Gu (fixed point), one a unit on its chunk, so one
+  // a panel of the cell; Gi, one a CTA whose run covers the (cell, panel),
+  // so at most one a chunk. Both are fixed by the cell's geometry alone.
   const float lim = fix_limit(std::max(panels, chunks));
   const size_t n =
-      static_cast<size_t>(e.n_stripes) * tc::bu_pad(e.bu) * KP / 2;
+      static_cast<size_t>(e.n_ublocks) * bu_pad(e.tb.bu) * KP / 2;
   tc::u_bf16_kernel<<<blocks_for(n), kThreads, 0, e.stream>>>(
-      e.u3, e.ub, e.n_stripes, e.bu, e.k, KP, MASK ? e.lu : nullptr,
-      MASK ? e.qs : nullptr);
+      e.tb.U, e.tb.Ub, e.n_ublocks, e.tb.bu, e.tb.k, KP,
+      MASK ? e.tb.lu : nullptr, MASK ? e.tb.qs : nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*e.launched;
-  return walk<MASK, RT, WT>(e, kernel, grid, L.total, KP, STAGE == kFull,
-                            lim);
+  e.tb.kp = KP;
+  e.refresh = e.counts != nullptr;   // the cell grid revisits blocks
+  return walk<MASK, RT, WT>(e, kernel, grid, L.total, STAGE == kFull, lim);
 }
 
 template <typename RT, typename WT, bool CODES, bool MMBF16, bool MASK>
 cudaError_t run_cc(const Epoch& e) {
   auto kernel = cc::panel_kernel<RT, WT, CODES, MMBF16, MASK>;
-  const size_t smem = cc::smem_floats(e.k) * sizeof(float);
+  const size_t smem = cc::smem_floats(e.tb.k) * sizeof(float);
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const unsigned grid =
-      static_cast<unsigned>((e.ni_pad + cc::kPanel - 1) / cc::kPanel);
-  // Gu: one partial a panel; Gi: one, stored
-  return walk<MASK, RT, WT>(e, kernel, grid, smem, 0, true, fix_limit(grid));
+  // Gu: one partial a panel of the cell; Gi: one, stored
+  const long long panels = (e.tb.ni_pad + cc::kPanel - 1) / cc::kPanel;
+  return walk<MASK, RT, WT>(e, kernel, 0, smem, true, fix_limit(panels));
 }
 
 template <typename RT, typename WT, bool CODES, bool MASK>
 cudaError_t run_rw(const Epoch& e, int mm_bf16) {
-  switch (tc_kp(e.k, mm_bf16)) {
+  switch (tc_kp(e.tb.k, mm_bf16)) {
     case 16: return run_tc<RT, WT, CODES, MASK, 16, kFull>(e);
     case 32: return run_tc<RT, WT, CODES, MASK, 32, kFull>(e);
     case 64: return run_tc<RT, WT, CODES, MASK, 64, kFull>(e);
@@ -1083,7 +1216,7 @@ cudaError_t run_rw(const Epoch& e, int mm_bf16) {
 // carry them: int8 validity W (beside f32 / bf16 R) and int8 codes.
 template <typename RT>
 cudaError_t run_w(const Epoch& e, int wtype, int mm_bf16) {
-  const bool masked = e.qs != nullptr;
+  const bool masked = e.tb.qs != nullptr;
   switch (wtype) {
     case kWInt8:
       return masked ? run_rw<RT, int8_t, false, true>(e, mm_bf16)
@@ -1098,25 +1231,30 @@ cudaError_t run_w(const Epoch& e, int wtype, int mm_bf16) {
   }
 }
 
+bool vec_tiles(const void* R, const void* W, int cols, int rtype,
+               int wtype) {
+  const int rb = rtype_bytes(rtype), wb = W ? wtype_bytes(wtype) : 1;
+  return (static_cast<size_t>(cols) * rb) % 16 == 0 &&
+         (static_cast<size_t>(cols) * wb) % 16 == 0 && aligned16(R) &&
+         (W == nullptr || aligned16(W));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of the scratch an epoch needs, zeroed by the caller: the stripe's
-// user gradient [bu, k] and item gradient [ni_pad, k] in 64-bit fixed point
-// (the kernels leave them zeroed) and, with the tensor cores, the epoch's bf16 copy of U
-// [NU, bu_pad, KP].
-size_t dense_rows_scratch_bytes(int n_stripes, int bu, int ni_pad, int k,
-                                int mm_bf16) {
-  return scratch_ub(bu, ni_pad, k) +
-         static_cast<size_t>(n_stripes) * tc::bu_pad(bu) * tc_kp(k, mm_bf16) *
-             2;
-}
-
-// Kernel launches of one epoch: the panel and step kernels of each stripe,
-// and with the tensor cores the bf16 copy of U.
-long long dense_rows_epoch_launches(int n_stripes, int k, int mm_bf16) {
-  return 2LL * n_stripes + (tc_kp(k, mm_bf16) != 0);
+// Bytes of the scratch an epoch needs, zeroed by the caller: the lanes'
+// user gradients (per-panel f32 slots for a cell of at most kMaxGuSlots
+// tensor-core panels, each written before it is read, else [lanes, bu, k]
+// in 64-bit fixed point) and item gradients [lanes, ni_pad, k] in fixed
+// point (the kernels leave the fixed-point sums zeroed) and, with the
+// tensor cores, the epoch's bf16 copy of the n_ublocks user blocks [NU,
+// bu_pad, KP]. Stripes: one lane.
+size_t dense_rows_scratch_bytes(int lanes, int n_ublocks, int bu,
+                                int ni_pad, int k, int mm_bf16) {
+  const int kp = tc_kp(k, mm_bf16);
+  return scratch_ub(lanes, bu, ni_pad, k, kp) +
+         static_cast<size_t>(n_ublocks) * bu_pad(bu) * kp * 2;
 }
 
 // Shared-memory bytes of the panel kernel the epoch would launch.
@@ -1129,47 +1267,46 @@ size_t dense_rows_smem_bytes(int rtype, int wtype, int k, int mm_bf16) {
 }
 
 // One epoch on `stream`: with the tensor cores the bf16 copy of U, then for
-// each stripe of order[0..n_order) the panel and step kernels.
+// each stripe visit the panel and step kernels, a round of one cell.
 // Tiles are [n_stripes, bu, ni_pad] (R of rtype 0 f32 / 1 bf16 / 2 int8
 // codes; W of wtype 0 int8 / 1 bf16 / 2 f32, or null for codes), u3 is
 // [n_stripes, bu, k], i_tab [ni_pad, k], cnt_u [n_stripes, bu] and cnt_i
 // [n_stripes, ni_pad] the tiles' f32 validity counts, `scratch` holds
-// dense_rows_scratch_bytes zeroed bytes; `order` is a host array.
+// dense_rows_scratch_bytes(1, n_stripes, ...) zeroed bytes; `cells` is a
+// device int32 [n_order, 2] array, (0, stripe) for each visit in order.
 // Rank masks (codes or int8 W only; all five null for full rank): lu
 // [n_stripes, bu] and li [ni_pad] int32 lambdas (or ranks) in [1, k], qs
 // [n_stripes, k] int32 each stripe's nondecreasing rank row (rank of lambda
 // L = qs[s][L - 1]), hist_u [n_stripes, bu, k] int32 and hist_i
 // [n_stripes, ni_pad, k] int16 the stripes' counts of valid partners of
 // lambda >= l + 1. Returns the cudaError_t of the first launch that failed
-// (its stripe in *failed_stripe, -1 for the U copy), else cudaSuccess;
+// (its visit in *failed_stripe, -1 for the U copy), else cudaSuccess;
 // *launched counts the kernels launched.
 int dense_rows_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
                      void* u3, void* i_tab, const void* R, const void* W,
                      const void* lu, const void* li, const void* qs,
                      const void* hist_u, const void* hist_i,
                      const void* cnt_u, const void* cnt_i, void* scratch,
-                     const long long* order, int n_order, int n_stripes,
-                     int bu, int ni_pad, int k, float lr, float r_scale,
-                     float u_reg, float i_reg, void* stream,
-                     long long* failed_stripe, long long* launched) {
+                     const void* cells, int n_order, int n_stripes, int bu,
+                     int ni_pad, int k, float lr, float r_scale, float u_reg,
+                     float i_reg, void* stream, long long* failed_stripe,
+                     long long* launched) {
   if (bu <= 0 || ni_pad <= 0 || k <= 0 || n_order < 0 || n_stripes <= 0)
     return cudaErrorInvalidValue;
   if ((rtype == kRCodes) != (W == nullptr)) return cudaErrorInvalidValue;
   const int n_masks = (lu != nullptr) + (li != nullptr) + (qs != nullptr) +
                       (hist_u != nullptr) + (hist_i != nullptr);
   if (n_masks != 0 && n_masks != 5) return cudaErrorInvalidValue;
-  const int rb = rtype_bytes(rtype), wb = W ? wtype_bytes(wtype) : 1;
-  Epoch e = make_epoch(u3, i_tab, R, W, cnt_u, cnt_i, scratch, order,
-                       n_order, n_stripes, bu, ni_pad, k, collision_norm, lr,
-                       r_scale, u_reg, i_reg, stream, failed_stripe, launched);
-  e.lu = static_cast<const int*>(lu);
-  e.li = static_cast<const int*>(li);
-  e.qs = static_cast<const int*>(qs);
-  e.hist_u = static_cast<const int*>(hist_u);
-  e.hist_i = static_cast<const int16_t*>(hist_i);
-  e.vec = (static_cast<size_t>(ni_pad) * rb) % 16 == 0 &&
-          (static_cast<size_t>(ni_pad) * wb) % 16 == 0 && aligned16(R) &&
-          (W == nullptr || aligned16(W));
+  Epoch e = make_epoch(u3, i_tab, R, W, cnt_u, cnt_i, scratch, cells,
+                       nullptr, n_order, 1, n_stripes, bu, ni_pad, k,
+                       mm_bf16, collision_norm, lr, r_scale, u_reg, i_reg,
+                       stream, failed_stripe, launched);
+  e.tb.lu = static_cast<const int*>(lu);
+  e.tb.li = static_cast<const int*>(li);
+  e.tb.qs = static_cast<const int*>(qs);
+  e.tb.hist_u = static_cast<const int*>(hist_u);
+  e.tb.hist_i = static_cast<const int16_t*>(hist_i);
+  e.vec = vec_tiles(R, W, ni_pad, rtype, wtype);
   switch (rtype) {
     case kRF32: return run_w<float>(e, wtype, mm_bf16);
     case kRBF16: return run_w<__nv_bfloat16>(e, wtype, mm_bf16);
@@ -1181,34 +1318,36 @@ int dense_rows_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
 }
 
 // One epoch of the diag cell grid on `stream`: with the tensor cores the
-// bf16 copy of U, then for each (round, lane) of ub_idx[n_rounds][n_lanes]
-// (a host array; user block n_ublocks marks a dummy lane, skipped) the
-// panel and step kernels on cell ub * n_lanes + lane. Tiles are [n_ublocks
-// * n_lanes + 1, bu, bi] (types as dense_rows_epoch; no rank masks), u3
-// [n_ublocks, bu, k], i3 [n_lanes, bi, k], cnt_u [n_cells + 1, bu] and
-// cnt_i [n_cells + 1, bi] the cells' f32 validity counts, `scratch` holds
-// dense_rows_scratch_bytes(n_ublocks, bu, bi, k, mm_bf16) zeroed bytes.
-// Returns as dense_rows_epoch, the failing cell in *failed_cell.
+// bf16 copy of U, then for each round the panel kernel over all of the
+// round's live cells and the step kernel over their rows. `cells` is a
+// device int32 [n_live, 2] array of (lane, user block) pairs, round by
+// round (dummy lanes left out), and counts[0..n_rounds) a host array of
+// each round's cells; a round of none launches nothing. Tiles are
+// [n_ublocks * n_lanes + 1, bu, bi] (types as dense_rows_epoch; no rank
+// masks), u3 [n_ublocks, bu, k], i3 [n_lanes, bi, k], cnt_u [n_cells + 1,
+// bu] and cnt_i [n_cells + 1, bi] the cells' f32 validity counts,
+// `scratch` holds dense_rows_scratch_bytes(n_lanes, n_ublocks, bu, bi, k,
+// mm_bf16) zeroed bytes. Returns as dense_rows_epoch, the failing round
+// in *failed_round.
 int dense_cells_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
                       void* u3, void* i3, const void* R, const void* W,
                       const void* cnt_u, const void* cnt_i, void* scratch,
-                      const long long* ub_idx, int n_rounds, int n_lanes,
-                      int n_ublocks, int bu, int bi, int k, float lr,
-                      float r_scale, float u_reg, float i_reg, void* stream,
-                      long long* failed_cell, long long* launched) {
+                      const void* cells, const int* counts, int n_rounds,
+                      int n_lanes, int n_ublocks, int bu, int bi, int k,
+                      float lr, float r_scale, float u_reg, float i_reg,
+                      void* stream, long long* failed_round,
+                      long long* launched) {
   if (bu <= 0 || bi <= 0 || k <= 0 || n_rounds < 0 || n_lanes <= 0 ||
-      n_ublocks <= 0 || 1LL * n_rounds * n_lanes > 0x7fffffffLL)
+      n_lanes > 65535 || n_ublocks <= 0)   // the step grid's rows: cells
     return cudaErrorInvalidValue;
   if ((rtype == kRCodes) != (W == nullptr)) return cudaErrorInvalidValue;
-  const int rb = rtype_bytes(rtype), wb = W ? wtype_bytes(wtype) : 1;
-  Epoch e = make_epoch(u3, i3, R, W, cnt_u, cnt_i, scratch, ub_idx,
-                       n_rounds * n_lanes, n_ublocks, bu, bi, k,
+  for (int r = 0; r < n_rounds; ++r)
+    if (counts[r] < 0 || counts[r] > n_lanes) return cudaErrorInvalidValue;
+  Epoch e = make_epoch(u3, i3, R, W, cnt_u, cnt_i, scratch, cells, counts,
+                       n_rounds, n_lanes, n_ublocks, bu, bi, k, mm_bf16,
                        collision_norm, lr, r_scale, u_reg, i_reg, stream,
-                       failed_cell, launched);
-  e.lanes = n_lanes;
-  e.vec = (static_cast<size_t>(bi) * rb) % 16 == 0 &&
-          (static_cast<size_t>(bi) * wb) % 16 == 0 && aligned16(R) &&
-          (W == nullptr || aligned16(W));
+                       failed_round, launched);
+  e.vec = vec_tiles(R, W, bi, rtype, wtype);
   switch (rtype) {
     case kRF32: return run_w<float>(e, wtype, mm_bf16);
     case kRBF16: return run_w<__nv_bfloat16>(e, wtype, mm_bf16);
@@ -1219,18 +1358,22 @@ int dense_cells_epoch(int rtype, int wtype, int mm_bf16, int collision_norm,
 
 // The tensor-core kernel on int8 codes, k in 33..64, truncated after
 // `stage` (0 tile loads, 1 + P, 2 + E, 3 + Gi, 4 + Gu and the step
-// kernel: the full epoch); arguments as dense_rows_epoch.
+// kernel: the full epoch): stripes as dense_rows_epoch (counts null,
+// lanes 1), or the cell grid's rounds as dense_cells_epoch (counts[0..
+// n_rounds) the cells a round, `lanes` item blocks); scratch as either.
 int dense_rows_ablate(int stage, void* u3, void* i_tab, const void* R,
                       const void* cnt_u, const void* cnt_i, void* scratch,
-                      const long long* order, int n_order, int n_stripes,
-                      int bu, int ni_pad, int k, float lr, float r_scale,
-                      float u_reg, float i_reg, void* stream,
-                      long long* failed_stripe, long long* launched) {
-  if (tc_kp(k, 1) != 64 || bu <= 0 || ni_pad <= 0 || n_stripes <= 0)
+                      const void* cells, const int* counts, int n_rounds,
+                      int lanes, int n_ublocks, int bu, int ni_pad, int k,
+                      float lr, float r_scale, float u_reg, float i_reg,
+                      void* stream, long long* failed, long long* launched) {
+  if (tc_kp(k, 1) != 64 || bu <= 0 || ni_pad <= 0 || n_ublocks <= 0 ||
+      lanes <= 0 || lanes > 65535)
     return cudaErrorInvalidValue;
-  Epoch e = make_epoch(u3, i_tab, R, nullptr, cnt_u, cnt_i, scratch, order,
-                       n_order, n_stripes, bu, ni_pad, k, 1, lr, r_scale,
-                       u_reg, i_reg, stream, failed_stripe, launched);
+  Epoch e = make_epoch(u3, i_tab, R, nullptr, cnt_u, cnt_i, scratch, cells,
+                       counts, n_rounds, lanes, n_ublocks, bu, ni_pad, k, 1,
+                       1, lr, r_scale, u_reg, i_reg, stream, failed,
+                       launched);
   e.vec = ni_pad % 16 == 0 && aligned16(R);
   switch (stage) {
     case kStream: return run_tc<int8_t, int8_t, true, false, 64, kStream>(e);

@@ -22,8 +22,8 @@
 //   * Score tiles of 64 users x 256 items, f32 FMAs on the CUDA cores: each
 //     thread holds an 8 x 8 register tile (8 users of its warp x 8 items
 //     lane + 32 j) and reads its operands as float4 along k from shared
-//     memory, 16 floats for 64 FMAs each 4 steps of d (4 FMAs a float loaded;
-//     the radix route's 4x4 tile does 2). Item and user rows arrive by
+//     memory, 16 floats for 64 FMAs each 4 steps of d (4 FMAs a float
+//     loaded). Item and user rows arrive by
 //     16-byte cp.async in 16-deep k slices, a 3-stage ring loaded two
 //     stages ahead with one barrier a stage; the row stride of 80 B keeps a
 //     quarter warp's float4 loads on distinct banks.
@@ -54,43 +54,55 @@
 // (5 MB there) is read from L2 by every user tile.
 //
 // RADIX (n up to kMaxN = 4096; topk_catalog_chunk). One call handles a
-// chunk of B users with two kernels on one stream:
-//   A. score_kernel: a tiled f32 product (64 users x 64 items per block, a
-//      4x4 register tile per thread, 32-deep k slices in shared memory) with
-//      the bias / invalid epilogue, written to a [B, n_items] f32 scratch.
-//   B. select_kernel: one block per user. It writes -3e38 over the user's
-//      train row (CSR, sorted columns: O(row) work, no per-tile staging),
-//      finds the n-th largest scorable score by a 4-pass 8-bit radix select
-//      on order-preserving uint32 keys, gathers every score above it plus
-//      the smallest-id ties at it (a block scan keeps id order), and sorts
-//      those n candidates by (score desc, id asc) with a bitonic sort of
-//      64-bit (key, ~id) words in shared memory.
-// The TPU kernel's n passes of max-extraction and its [n_tiles, BU, c_max]
-// rated-in-tile lists were VMEM devices; radix select costs the same for
-// n = 1 and n = 4096 (kMaxN), and CSR exclusion costs the row's length.
-//
+// chunk of B users with two kernels on one stream, through a [B, n_items]
+// f32 score scratch that each score is written to once and read from once:
+//   A. radix_score_kernel: the fused route's sweep (the same 8 x 8 register
+//      tile, float4 operands, 3-stage cp.async ring and cursor exclusion,
+//      so a user's scores are bitwise the fused route's), its epilogue
+//      writing each tile's scores, -3e38 where the item is invalid or in
+//      the user's train row. The catalog is cut into slices (grid.y) so
+//      the user tiles x slices fill the card several times over. Bound by
+//      the sweep's FMA tile, as the fused route (scripts/
+//      torch_topk_probe.py).
+//   B. radix_select_kernel: one 512-thread block per user. It reads the
+//      row once, into shared memory as order-preserving uint32 keys where
+//      n_items x 4 B fits beside the histograms (20,000 items: 80 KB, two
+//      blocks an SM; a wider catalog streams the row from device memory
+//      on each pass), and finds the row's scorable count and key range.
+//      Every scorable key at or above a bound is a candidate; the bound
+//      starts below every key and rises by 8-bit radix passes whose first
+//      digit starts at the highest bit where the row's scorable keys
+//      differ (a trained model's scores share their sign and exponent, so
+//      a fixed first digit would put them in one or two bins), each pass
+//      a histogram of the keys still at the bound's prefix (a histogram a
+//      warp: no two warps' increments meet on one word) and a block scan
+//      of its bins from the top (no thread walks them alone), until the
+//      candidates fit in the sort buffer (ncap = a power of 2 >= n) —
+//      one or two passes at 20,000 items. Then one gather of the
+//      candidates (a warp places 128 keys' takers with one atomic), a
+//      bitonic sort of the 64-bit (key, ~id) words (score desc, id asc;
+//      strides below 32 in registers by shuffle) and the first n out.
+//      Where more keys tie at the n-th score than the buffer holds, the
+//      ties are taken in id order by a scan of per-warp id segments. The
+//      sort is the select stage's largest step (scripts/
+//      torch_topk_probe.py's kSelCut / kSelSort variants).
 // What bounds it on this card: a full pass at 100k users x 20k items, k=64,
-// is 2.6e11 FLOP of scores (about 4 ms at the 67 TFLOP/s f32 CUDA-core peak;
-// kernel A, bound by its shared-memory loads, reaches a fraction of that)
-// and 8 GB of scores written once and read five times by kernel B (the
-// radix passes and the gather; a 80 KB row mostly stays in L2 between
-// passes). The route serves n above the fused route's limit (ARHR at
-// n = 1000).
+// is 2.6e11 FLOP of scores (3.9 ms at the 67 TFLOP/s f32 CUDA-core peak)
+// and 8 GB of scores written once and read once (2.4 ms each way at 3.35
+// TB/s). The route serves n above the fused route's limit (ARHR at
+// n = 1000). The TPU kernel's n passes of max-extraction and its
+// [n_tiles, BU, c_max] rated-in-tile lists were VMEM devices; the radix
+// bound costs the same for n = 1 and n = 4096 (kMaxN).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr float kNegInf = -3.0e38f;
-constexpr int kTU = 64;          // users per score block
-constexpr int kTI = 64;          // items per score block
-constexpr int kKC = 32;          // k slice held in shared memory
-constexpr int kScoreThreads = 256;
-constexpr int kSelThreads = 512;
 constexpr int kMaxN = 4096;      // candidates sorted in shared memory
-static_assert(kScoreThreads == 256, "the 4x4 tile mapping needs 16 x 16");
-static_assert(kSelThreads % 32 == 0, "the eq scan works in whole warps");
 
 __device__ __forceinline__ uint32_t ord_key(float s) {
   const uint32_t b = __float_as_uint(s);
@@ -101,215 +113,8 @@ __device__ __forceinline__ float key_float(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-__global__ void __launch_bounds__(kScoreThreads)
-score_kernel(const float* __restrict__ U, const long long* __restrict__ users,
-             const float* __restrict__ I, const float* __restrict__ ib,
-             const float* __restrict__ ub, const float* __restrict__ mu,
-             const uint8_t* __restrict__ invalid, float* __restrict__ S,
-             int B, int n_items, int k) {
-  __shared__ float As[kKC][kTU + 4];
-  __shared__ float Bs[kKC][kTI + 4];
-  __shared__ long long urow[kTU];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int u0 = blockIdx.y * kTU, i0 = blockIdx.x * kTI;
-  if (tid < kTU) urow[tid] = u0 + tid < B ? users[u0 + tid] : -1;
-  __syncthreads();
-
-  float acc[4][4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[q][j] = 0.f;
-
-  for (int d0 = 0; d0 < k; d0 += kKC) {
-    for (int idx = tid; idx < kTU * kKC; idx += kScoreThreads) {
-      const int u = idx / kKC, d = idx % kKC;
-      const long long r = urow[u];
-      As[d][u] = (r >= 0 && d0 + d < k) ? U[r * k + d0 + d] : 0.f;
-    }
-    for (int idx = tid; idx < kTI * kKC; idx += kScoreThreads) {
-      const int i = idx / kKC, d = idx % kKC;
-      const int it = i0 + i;
-      Bs[d][i] = (it < n_items && d0 + d < k)
-                     ? I[static_cast<size_t>(it) * k + d0 + d]
-                     : 0.f;
-    }
-    __syncthreads();
-    const int dn = min(kKC, k - d0);
-    for (int d = 0; d < dn; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[q] = As[d][ty + 16 * q];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[d][tx + 16 * j];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[q][j] = fmaf(a[q], b[j], acc[q][j]);
-    }
-    __syncthreads();
-  }
-
-  const float m = mu[0];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int ul = ty + 16 * q;
-    if (u0 + ul >= B) continue;
-    const float ubv = ub[urow[ul]];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int it = i0 + tx + 16 * j;
-      if (it >= n_items) continue;
-      float s = ((acc[q][j] + m) + ubv) + ib[it];
-      if (invalid[it]) s = kNegInf;
-      if (s == 0.f) s = 0.f;  // -0 and +0 are one score: one key
-      S[static_cast<size_t>(u0 + ul) * n_items + it] = s;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kSelThreads)
-select_kernel(float* __restrict__ S, const long long* __restrict__ users,
-              const long long* __restrict__ indptr,
-              const int* __restrict__ indices, int n_items, int n, int ncap,
-              float* __restrict__ out_s, int* __restrict__ out_i) {
-  extern __shared__ unsigned long long cand[];   // [ncap]
-  __shared__ unsigned int hist[256];
-  __shared__ unsigned int warp_eq[kSelThreads / 32];
-  __shared__ unsigned int s_prefix, s_mask, s_target, s_need_eq, s_gt,
-      s_eq_base;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  float* Srow = S + static_cast<size_t>(row) * n_items;
-  const long long u = users[row];
-
-  // exclusion: the user's train row
-  for (long long e = indptr[u] + tid; e < indptr[u + 1]; e += kSelThreads)
-    Srow[indices[e]] = kNegInf;
-  if (tid == 0) {
-    s_prefix = 0;
-    s_mask = 0;
-    s_gt = 0;
-    s_eq_base = 0;
-  }
-  __syncthreads();
-
-  // radix select of the target-th largest scorable key, 8 bits a pass
-  const uint32_t masked = ord_key(kNegInf);
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    for (int b = tid; b < 256; b += kSelThreads) hist[b] = 0;
-    __syncthreads();
-    const uint32_t prefix = s_prefix, mask = s_mask;
-    for (int i = tid; i < n_items; i += kSelThreads) {
-      const uint32_t key = ord_key(Srow[i]);
-      if (key > masked && (key & mask) == prefix)
-        atomicAdd(&hist[(key >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      if (pass == 0) {
-        unsigned int m = 0;
-        for (int b = 0; b < 256; ++b) m += hist[b];
-        s_target = min(static_cast<unsigned int>(n), m);
-        s_need_eq = s_target;
-      }
-      const unsigned int rem = s_need_eq;
-      if (rem > 0) {
-        unsigned int cum = 0;
-        int b = 255;
-        for (; b > 0; --b) {
-          if (cum + hist[b] >= rem) break;
-          cum += hist[b];
-        }
-        s_need_eq = rem - cum;
-        s_prefix = prefix | (static_cast<uint32_t>(b) << shift);
-        s_mask = mask | (255u << shift);
-      }
-    }
-    __syncthreads();
-    if (s_target == 0) break;
-  }
-  const unsigned int target = s_target;
-  const unsigned int need_eq = s_need_eq;   // ties at T to take, id order
-  const unsigned int c_gt = target - need_eq;
-  const uint32_t T = s_prefix;
-
-  // gather: keys above T anywhere in [0, c_gt), the first need_eq keys
-  // equal to T in id order after them
-  for (int i = tid; i < ncap; i += kSelThreads) cand[i] = 0ull;
-  __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5;
-  if (target > 0) {
-    for (int base = 0; base < n_items; base += kSelThreads) {
-      const int i = base + tid;
-      bool eq = false;
-      uint32_t key = 0;
-      if (i < n_items) {
-        key = ord_key(Srow[i]);
-        if (key > masked) {
-          if (key > T) {
-            const unsigned int p = atomicAdd(&s_gt, 1u);
-            cand[p] = (static_cast<unsigned long long>(key) << 32) |
-                      (0xffffffffu - static_cast<uint32_t>(i));
-          } else {
-            eq = key == T;
-          }
-        }
-      }
-      const unsigned int ballot = __ballot_sync(0xffffffffu, eq);
-      if (lane == 0) warp_eq[warp] = __popc(ballot);
-      __syncthreads();
-      unsigned int before = s_eq_base, total = 0;
-      for (int w = 0; w < kSelThreads / 32; ++w) {
-        if (w < warp) before += warp_eq[w];
-        total += warp_eq[w];
-      }
-      before += __popc(ballot & ((1u << lane) - 1u));
-      if (eq && before < need_eq)
-        cand[c_gt + before] = (static_cast<unsigned long long>(key) << 32) |
-                              (0xffffffffu - static_cast<uint32_t>(i));
-      const unsigned int next_base = s_eq_base + total;
-      __syncthreads();
-      if (tid == 0) s_eq_base = next_base;
-    }
-  }
-  __syncthreads();
-
-  // bitonic sort, descending on (key, ~id): score desc, then id asc
-  for (int size = 2; size <= ncap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < ncap; i += kSelThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long a = cand[i], b = cand[j];
-          const bool desc = (i & size) == 0;
-          if (desc ? a < b : a > b) {
-            cand[i] = b;
-            cand[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = tid; i < n; i += kSelThreads) {
-    float s = kNegInf;
-    int id = -1;
-    if (static_cast<unsigned int>(i) < target) {
-      const unsigned long long c = cand[i];
-      s = key_float(static_cast<uint32_t>(c >> 32));
-      id = static_cast<int>(0xffffffffu - static_cast<uint32_t>(c));
-    }
-    out_s[static_cast<size_t>(row) * n + i] = s;
-    out_i[static_cast<size_t>(row) * n + i] = id;
-  }
-}
-
 // ---------------------------------------------------------------------
-// the fused route
+// the sweep: the fused route, and the radix route's score stage
 // ---------------------------------------------------------------------
 
 // n of the fused route, set by shared memory: at n = 128 the 64 users'
@@ -325,6 +130,7 @@ constexpr int kExWords = 18;      // exclusion words a lane: 64 user bytes
 constexpr int kMaxMerge = 4096;   // keys a merge block sorts (S * n)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStages = 3;        // the ring of k slices
+constexpr int kScoreWaves = 8;    // the radix score grid, in card-fulls
 constexpr int kFusedCtas = 1;     // CTAs an SM the registers are sized for
 // the sweep cut after a stage, for scripts/torch_topk_probe.py: 0 the
 // loads, 1 + the scores, 2 + exclusion bits and the threshold filter,
@@ -451,16 +257,19 @@ __device__ __noinline__ void insert(Sel s, int lu, unsigned long long key,
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kFThreads, kFusedCtas)
-topk_fused_kernel(const float* __restrict__ U,
-                  const long long* __restrict__ users,
-                  const float* __restrict__ I, const float* __restrict__ ib,
-                  const float* __restrict__ ub, const float* __restrict__ mu,
-                  const uint8_t* __restrict__ invalid,
-                  const long long* __restrict__ indptr,
-                  const int* __restrict__ indices, int B, int n_items, int k,
-                  int n, int cap, int vec, unsigned long long* __restrict__ keys,
-                  float* __restrict__ out_s, int* __restrict__ out_i) {
+// The sweep of a CTA's user tile over its catalog slice. SCORES (the radix
+// route's score stage): each tile's scores go to out_s [B, n_items] (-3e38
+// where the item is invalid or excluded, -0 as +0) and nothing is
+// selected; n, cap, keys and out_i are unused.
+template <bool SCORES>
+__device__ __forceinline__ void sweep(
+    const float* __restrict__ U, const long long* __restrict__ users,
+    const float* __restrict__ I, const float* __restrict__ ib,
+    const float* __restrict__ ub, const float* __restrict__ mu,
+    const uint8_t* __restrict__ invalid, const long long* __restrict__ indptr,
+    const int* __restrict__ indices, int B, int n_items, int k, int n,
+    int cap, int vec, unsigned long long* __restrict__ keys,
+    float* __restrict__ out_s, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FusedSmem L = fused_smem(cap);
   float* ring = reinterpret_cast<float*>(smem + L.ring);
@@ -585,7 +394,7 @@ topk_fused_kernel(const float* __restrict__ U,
       for (int j = 0; j < 8; ++j)
         iv[j] = *reinterpret_cast<const float4*>(st + (lane + 32 * j) * kFStr +
                                                  d4);
-      if (kCut >= 1) {
+      if (SCORES || kCut >= 1) {
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           const float4 uv = *reinterpret_cast<const float4*>(
@@ -602,7 +411,7 @@ topk_fused_kernel(const float* __restrict__ U,
     }
     buf = buf + 1 == kStages ? 0 : buf + 1;
     if (++cs < nks) continue;
-    if (kCut < 2) {   // the probe's cuts: consume the scores, no selection
+    if (!SCORES && kCut < 2) {   // the probe's cuts: no selection
       cs = 0;
       ++ct;
 #pragma unroll
@@ -659,6 +468,31 @@ topk_fused_kernel(const float* __restrict__ U,
     }
     __syncwarp();
     const uint32_t w0 = exw[0], w1 = exw[1];
+    if (SCORES) {
+      // the tile's scores, once: a warp's lanes store 128 B of a row each
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int lu = warp * 8 + u;
+        if (rows[lu] < 0) continue;
+        const unsigned rej =
+            (((u < 4 ? w0 >> (8 * u) : w1 >> (8 * (u - 4)))) & 0xffu) | inv;
+        float* srow = out_s + static_cast<size_t>(u0 + lu) * n_items;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int item = it0 + lane + 32 * j;
+          if (item >= n_items) continue;
+          float s = ((acc[u][j] + m) + ubv[u]) + ibv[j];
+          if ((rej >> j) & 1u) s = kNegInf;
+          if (s == 0.f) s = 0.f;  // -0 and +0 are one score: one key
+          srow[item] = s;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[u][j] = 0.f;
+      continue;
+    }
     unsigned pass_lo = 0, pass_hi = 0;   // bit 8 u + j
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -723,6 +557,7 @@ topk_fused_kernel(const float* __restrict__ U,
       for (int j = 0; j < 8; ++j) acc[u][j] = 0.f;
   }
 
+  if (SCORES) return;
   if (kCut < 3 && sink == 1234.5f) out_s[0] = sink;   // keeps the cut alive
   if (kStats) {
     __syncthreads();
@@ -751,6 +586,34 @@ topk_fused_kernel(const float* __restrict__ U,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kFThreads, kFusedCtas)
+topk_fused_kernel(const float* __restrict__ U,
+                  const long long* __restrict__ users,
+                  const float* __restrict__ I, const float* __restrict__ ib,
+                  const float* __restrict__ ub, const float* __restrict__ mu,
+                  const uint8_t* __restrict__ invalid,
+                  const long long* __restrict__ indptr,
+                  const int* __restrict__ indices, int B, int n_items, int k,
+                  int n, int cap, int vec, unsigned long long* __restrict__ keys,
+                  float* __restrict__ out_s, int* __restrict__ out_i) {
+  sweep<false>(U, users, I, ib, ub, mu, invalid, indptr, indices, B, n_items,
+               k, n, cap, vec, keys, out_s, out_i);
+}
+
+// A. The radix route's score stage: S [B, n_items], each score once.
+__global__ void __launch_bounds__(kFThreads, kFusedCtas)
+radix_score_kernel(const float* __restrict__ U,
+                   const long long* __restrict__ users,
+                   const float* __restrict__ I, const float* __restrict__ ib,
+                   const float* __restrict__ ub, const float* __restrict__ mu,
+                   const uint8_t* __restrict__ invalid,
+                   const long long* __restrict__ indptr,
+                   const int* __restrict__ indices, int B, int n_items, int k,
+                   int vec, float* __restrict__ S) {
+  sweep<true>(U, users, I, ib, ub, mu, invalid, indptr, indices, B, n_items,
+              k, 0, 0, vec, nullptr, S, nullptr);
 }
 
 // The best n of each user's S slices' keys ([B, S, n]; 0: empty), by a
@@ -786,6 +649,360 @@ topk_merge_kernel(const unsigned long long* __restrict__ keys, int S, int n,
   }
 }
 
+// ---------------------------------------------------------------------
+// the radix route's select stage
+// ---------------------------------------------------------------------
+
+constexpr int kSelThreads = 512;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kBins = 256;             // an 8-bit digit
+// dynamic shared memory a select block may have beside its static words
+constexpr size_t kSelSmem = 232448 - 1024;
+// the select stage cut after a step, for scripts/torch_topk_probe.py: 0
+// the row's read, 1 + the radix passes, 2 + the gather, 3 the kernel
+constexpr int kSelCut = 3;
+// 0: the probe's select kernel without its sort (the candidates out in
+// the order gathered)
+constexpr int kSelSort = 1;
+static_assert(kBins <= kSelThreads, "a thread a bin in the scan");
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Bytes of the histograms (a [kBins] array a warp) or, after the passes,
+// the ncap candidate keys (at least 32): one region.
+__host__ __device__ constexpr size_t sel_work(int ncap) {
+  return static_cast<size_t>(kSelWarps) * kBins * 4 >
+                 8 * static_cast<size_t>(ncap > 32 ? ncap : 32)
+             ? static_cast<size_t>(kSelWarps) * kBins * 4
+             : 8 * static_cast<size_t>(ncap > 32 ? ncap : 32);
+}
+
+// Dynamic shared memory of a select block: the row's keys (RES), then the
+// work region.
+__host__ __device__ constexpr size_t sel_smem(int n_items, int ncap,
+                                              bool res) {
+  return (res ? align16(static_cast<size_t>(n_items) * 4) : 0) +
+         sel_work(ncap);
+}
+
+__device__ __forceinline__ unsigned long long cand_key(uint32_t key, int i) {
+  return (static_cast<unsigned long long>(key) << 32) |
+         (0xffffffffu - static_cast<uint32_t>(i));
+}
+
+// B. The best n scorable scores of row blockIdx.x of S [B, n_items] (-3e38
+// and below: not scorable), descending, equal scores by id; ncap = a power
+// of 2 >= n. RES: the row's keys stay in shared memory after one read,
+// else each pass reads the row again.
+template <bool RES>
+__global__ void __launch_bounds__(kSelThreads)
+radix_select_kernel(const float* __restrict__ S, int n_items, int n,
+                    int ncap, float* __restrict__ out_s,
+                    int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* keys = reinterpret_cast<uint32_t*>(smem);   // [n_items] (RES)
+  unsigned char* work =
+      smem + (RES ? align16(static_cast<size_t>(n_items) * 4) : 0);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(work);   // [warps][kBins]
+  unsigned long long* cand =
+      reinterpret_cast<unsigned long long*>(work);      // [ncap], after
+  __shared__ uint32_t s_red[3][kSelWarps];
+  __shared__ uint32_t s_scan[kBins / 32];
+  __shared__ uint32_t s_eq[kSelWarps];
+  __shared__ uint32_t s_bin, s_above, s_cnt, s_app;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = blockIdx.x;
+  const float* Srow = S + row * n_items;
+  const uint32_t masked = ord_key(kNegInf);
+  auto key_at = [&](int i) -> uint32_t {
+    return RES ? keys[i] : ord_key(__ldcs(Srow + i));
+  };
+
+  // 1. the row, read once: its scorable count m and key range [lo, hi]
+  uint32_t m = 0, lo = 0xffffffffu, hi = 0;
+  auto see = [&](uint32_t key) {
+    if (key > masked) {
+      ++m;
+      lo = min(lo, key);
+      hi = max(hi, key);
+    }
+  };
+  if ((n_items & 3) == 0 && (reinterpret_cast<uintptr_t>(S) & 15) == 0) {
+    const float4* S4 = reinterpret_cast<const float4*>(Srow);
+    const int n4 = n_items / 4;
+    for (int i = tid; i < n4; i += 4 * kSelThreads) {
+      float4 v[4];   // four 16-byte loads in flight a thread
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (i + r * kSelThreads < n4) v[r] = __ldcs(S4 + i + r * kSelThreads);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = i + r * kSelThreads;
+        if (j >= n4) break;
+        const uint4 q = make_uint4(ord_key(v[r].x), ord_key(v[r].y),
+                                   ord_key(v[r].z), ord_key(v[r].w));
+        if (RES) reinterpret_cast<uint4*>(keys)[j] = q;
+        see(q.x), see(q.y), see(q.z), see(q.w);
+      }
+    }
+  } else {
+    for (int i = tid; i < n_items; i += kSelThreads) {
+      const uint32_t key = ord_key(__ldcs(Srow + i));
+      if (RES) keys[i] = key;
+      see(key);
+    }
+  }
+  m = __reduce_add_sync(kFull, m);
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if (lane == 0) {
+    s_red[0][warp] = m;
+    s_red[1][warp] = lo;
+    s_red[2][warp] = hi;
+  }
+  if (tid == 0) s_app = 0;
+  __syncthreads();
+  m = 0, lo = 0xffffffffu, hi = 0;
+  for (int w = 0; w < kSelWarps; ++w) {
+    m += s_red[0][w];
+    lo = min(lo, s_red[1][w]);
+    hi = max(hi, s_red[2][w]);
+  }
+  const uint32_t target = min(static_cast<uint32_t>(n), m);
+  if (kSelCut == 0) {   // the probe's cuts keep their work alive
+    if (tid == 0) out_s[row * n] = static_cast<float>(m ^ lo ^ hi);
+    return;
+  }
+
+  // 2. the bound: every scorable key >= lower is a candidate (at first all
+  // m of them). While they would not fit in ncap, a radix pass raises it.
+  // cut: more keys tie at the n-th key `tie` than fit; c_gt keys above it
+  // and need_eq of the ties, in id order, are the result.
+  uint32_t lower = masked + 1, tie = 0, c_gt = 0, need_eq = 0;
+  bool cut = false;
+  if (m > static_cast<uint32_t>(ncap)) {
+    if (lo == hi) {
+      cut = true;
+      tie = lo;
+      need_eq = target;
+    } else {
+      // the first digit's top bit: the highest where the keys differ;
+      // every scorable key shares the bits above it (prefix under mask)
+      int top = 31 - __clz(lo ^ hi);
+      uint32_t mask = top == 31 ? 0u : ~((2u << top) - 1u);
+      uint32_t prefix = hi & mask, rem = target;
+      uint32_t* wh = hist + warp * kBins;
+      for (;;) {
+        const int shift = max(top - 7, 0);
+        const uint32_t dmask = (2u << (top - shift)) - 1u;
+        for (int b = lane; b < kBins; b += 32) wh[b] = 0;
+        __syncwarp();
+#pragma unroll 4
+        for (int i = tid; i < n_items; i += kSelThreads) {
+          const uint32_t key = key_at(i);
+          if (key > masked && (key & mask) == prefix)
+            atomicAdd(wh + ((key >> shift) & dmask), 1u);
+        }
+        __syncthreads();
+        // thread t takes bin kBins - 1 - t: an inclusive scan over t
+        // counts the keys at or above each bin
+        uint32_t c = 0, incl = 0;
+        if (tid < kBins) {
+          const int b = kBins - 1 - tid;
+          for (int w = 0; w < kSelWarps; ++w) c += hist[w * kBins + b];
+          incl = c;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const uint32_t x = __shfl_up_sync(kFull, incl, off);
+            if (lane >= off) incl += x;
+          }
+          if (lane == 31) s_scan[warp] = incl;
+        }
+        __syncthreads();
+        if (tid < kBins) {
+          for (int w = 0; w < warp; ++w) incl += s_scan[w];
+          const uint32_t above = incl - c;
+          if (c > 0 && above < rem && rem <= incl) {
+            s_bin = kBins - 1 - tid;
+            s_above = above;
+            s_cnt = c;
+          }
+        }
+        __syncthreads();
+        c_gt += s_above;
+        rem -= s_above;
+        prefix |= s_bin << shift;
+        mask |= dmask << shift;
+        if (c_gt + s_cnt <= static_cast<uint32_t>(ncap)) {
+          lower = prefix;
+          break;
+        }
+        if (shift == 0) {
+          cut = true;
+          tie = prefix;
+          need_eq = rem;
+          break;
+        }
+        top = shift - 1;
+      }
+    }
+  }
+
+  if (kSelCut == 1) {
+    if (tid == 0) out_s[row * n] = static_cast<float>(lower ^ tie ^ c_gt);
+    return;
+  }
+
+  // 3. the candidates into the work region (the histograms are done): a
+  // warp takes 4 x 32 keys a step and places its takers with one atomic;
+  // every scorable key >= lower, or (cut) every key above the tie
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = warp * 128; base < n_items; base += 4 * kSelThreads) {
+    uint32_t key[4];
+    unsigned b[4];
+    int cnt = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = base + 32 * r + lane;
+      key[r] = i < n_items ? key_at(i) : 0u;
+      b[r] = __ballot_sync(kFull, key[r] > masked &&
+                                      (cut ? key[r] > tie : key[r] >= lower));
+      cnt += __popc(b[r]);
+    }
+    if (cnt == 0) continue;
+    uint32_t at = 0;
+    if (lane == 0) at = atomicAdd(&s_app, static_cast<uint32_t>(cnt));
+    at = __shfl_sync(kFull, at, 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if ((b[r] >> lane) & 1u)
+        cand[at + __popc(b[r] & below)] = cand_key(key[r], base + 32 * r +
+                                                              lane);
+      at += __popc(b[r]);
+    }
+  }
+  if (cut && need_eq > 0) {
+    // the first need_eq ties by id: each warp counts its id segment's,
+    // then writes its own from the ties of the warps before it on
+    const int seg =
+        ((n_items + kSelWarps - 1) / kSelWarps + 31) / 32 * 32;
+    const int i0 = warp * seg, i1 = min(i0 + seg, n_items);
+    uint32_t cnt = 0;
+    for (int base = i0; base < i1; base += 32) {
+      const int i = base + lane;
+      cnt += __popc(__ballot_sync(kFull, i < i1 && key_at(i) == tie));
+    }
+    if (lane == 0) s_eq[warp] = cnt;
+    __syncthreads();
+    uint32_t before = s_app;   // the c_gt keys above the tie come first
+    for (int w = 0; w < warp; ++w) before += s_eq[w];
+    const uint32_t end = s_app + need_eq;
+    for (int base = i0; base < i1 && before < end; base += 32) {
+      const int i = base + lane;
+      const bool eq = i < i1 && key_at(i) == tie;
+      const unsigned b = __ballot_sync(kFull, eq);
+      const uint32_t at = before + __popc(b & ((1u << lane) - 1u));
+      if (eq && at < end) cand[at] = cand_key(tie, i);
+      before += __popc(b);
+    }
+  }
+  __syncthreads();
+
+  // 4. sort the candidates (a power of 2 of them, at least 32, zero-
+  // padded) descending on (key, ~id): score desc, then id asc; the first n
+  // out. A bitonic network: strides of 32 and up on pairs in shared
+  // memory, each followed by a block barrier; the strides below 32 of each
+  // size in registers, a warp on each 32 consecutive keys, partners by
+  // shuffle (21 barriers for 1,024 keys, not 55).
+  const int total =
+      static_cast<int>(cut ? s_app + need_eq : s_app);   // <= ncap
+  if (kSelCut == 2) {
+    if (tid == 0) out_s[row * n] = static_cast<float>(total);
+    return;
+  }
+  int p = 32;
+  while (p < total) p <<= 1;
+  for (int i = total + tid; i < p; i += kSelThreads) cand[i] = 0ull;
+  __syncthreads();
+  // sizes up to `size` at strides below 32, in registers
+  auto warp_stages = [&](int size) {
+    for (int seg = warp; seg < p / 32; seg += kSelWarps) {
+      const int i = seg * 32 + lane;
+      unsigned long long x = cand[i];
+      for (int sz = size > 32 ? size : 2; sz <= size; sz <<= 1)
+        for (int st = min(sz, 32) >> 1; st > 0; st >>= 1) {
+          const unsigned long long y = __shfl_xor_sync(kFull, x, st);
+          const bool keep_max = ((lane & st) == 0) == ((i & sz) == 0);
+          x = keep_max ? (x > y ? x : y) : (x < y ? x : y);
+        }
+      cand[i] = x;
+    }
+    __syncthreads();
+  };
+  if (kSelSort) warp_stages(32);
+  for (int size = 64; kSelSort && size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride >= 32; stride >>= 1) {
+      for (int i = tid; i < p / 2; i += kSelThreads) {
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        const unsigned long long x = cand[a], y = cand[b];
+        if ((a & size) == 0 ? x < y : x > y) {
+          cand[a] = y;
+          cand[b] = x;
+        }
+      }
+      __syncthreads();
+    }
+    warp_stages(size);
+  }
+  for (int i = tid; i < n; i += kSelThreads) {
+    float sc = kNegInf;
+    int id = -1;
+    if (static_cast<uint32_t>(i) < target) {
+      const unsigned long long c = cand[i];
+      sc = key_float(static_cast<uint32_t>(c >> 32));
+      id = static_cast<int>(0xffffffffu - static_cast<uint32_t>(c));
+    }
+    out_s[row * n + i] = sc;
+    out_i[row * n + i] = id;
+  }
+}
+
+// The radix kernels' attributes: their shared-memory caps (a launch asks
+// for its own bytes below them) and, for the select kernel, the whole
+// carveout as shared memory, so two resident blocks of 96 KB fit an SM;
+// with the card's SMs and the score kernel's resident CTAs.
+struct RadixSetup {
+  int sms = 0, score_per_sm = 0;
+};
+cudaError_t radix_setup(RadixSetup& su) {
+  const size_t ring = fused_smem(0).total;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(radix_score_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(ring));
+  for (auto select : {radix_select_kernel<true>, radix_select_kernel<false>}) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(select,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSelSmem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          select, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&su.sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &su.score_per_sm, radix_score_kernel, kFThreads, ring);
+  return err;
+}
+
 int pow2_at_least(int x) {
   int p = 1;
   while (p < x) p <<= 1;
@@ -796,39 +1013,100 @@ int pow2_at_least(int x) {
 
 extern "C" {
 
+int topk_radix_scores(const void* U, const void* users, const void* I,
+                      const void* ib, const void* ub, const void* mu,
+                      const void* invalid, const void* indptr,
+                      const void* indices, void* S, int B, int n_items, int k,
+                      void* stream);
+
 int topk_max_n() { return kMaxN; }
 
 // Top-n of B queried users (users [B] int64 rows of U and of the CSR) over
-// n_items items, on `stream`: kernel A then kernel B. U [*, k], I [n_items,
-// k], ib [n_items], ub [*], mu [1] are f32; invalid [n_items] uint8 (1 =
-// excluded); indptr int64 / indices int32 are the train CSR (sorted rows,
-// columns < n_items); S is [B, n_items] f32 scratch; out_s [B, n] f32 and
-// out_i [B, n] int32. Returns the cudaError_t of the first launch that
-// failed, else cudaSuccess.
+// n_items items, on `stream`: the score kernel then the select kernel. U
+// [*, k], I [n_items, k], ib [n_items], ub [*], mu [1] are f32; invalid
+// [n_items] uint8 (1 = excluded); indptr int64 / indices int32 are the
+// train CSR (sorted rows, columns < n_items); S is [B, n_items] f32
+// scratch; out_s [B, n] f32 and out_i [B, n] int32. Returns the
+// cudaError_t of the first launch that failed, else cudaSuccess.
 int topk_catalog_chunk(const void* U, const void* users, const void* I,
                        const void* ib, const void* ub, const void* mu,
                        const void* invalid, const void* indptr,
                        const void* indices, void* S, void* out_s, void* out_i,
                        int B, int n_items, int k, int n, void* stream) {
-  if (B <= 0 || n_items <= 0 || k <= 0 || n <= 0 || n > kMaxN)
-    return cudaErrorInvalidValue;
-  if ((B + kTU - 1) / kTU > 65535) return cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxN) return cudaErrorInvalidValue;
+  cudaError_t err = static_cast<cudaError_t>(
+      topk_radix_scores(U, users, I, ib, ub, mu, invalid, indptr, indices, S,
+                        B, n_items, k, stream));
+  if (err != cudaSuccess) return err;
+  // B: a block a user, its row kept in shared memory where it fits
+  const int ncap = pow2_at_least(n);
+  const bool res = sel_smem(n_items, ncap, true) <= kSelSmem;
+  const size_t smem = sel_smem(n_items, ncap, res);
+  auto select = res ? radix_select_kernel<true> : radix_select_kernel<false>;
+  select<<<B, kSelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S), n_items, n, ncap,
+      static_cast<float*>(out_s), static_cast<int*>(out_i));
+  return cudaGetLastError();
+}
+
+// The radix route's score stage alone: S [B, n_items] f32, each score of
+// the B users once (-3e38 where not scorable); inputs as
+// topk_catalog_chunk. One launch.
+int topk_radix_scores(const void* U, const void* users, const void* I,
+                      const void* ib, const void* ub, const void* mu,
+                      const void* invalid, const void* indptr,
+                      const void* indices, void* S, int B, int n_items, int k,
+                      void* stream) {
+  if (B <= 0 || n_items <= 0 || k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_items + kTI - 1) / kTI, (B + kTU - 1) / kTU);
-  score_kernel<<<grid, kScoreThreads, 0, s>>>(
+  // the user tiles x catalog slices, kScoreWaves times the CTAs the card
+  // holds at once (at most a slice a 256-item tile)
+  RadixSetup su;
+  const cudaError_t err = radix_setup(su);
+  if (err != cudaSuccess) return err;
+  const size_t ring = fused_smem(0).total;
+  const long long user_tiles = (B + kFTU - 1) / kFTU;
+  const long long n_tiles = (n_items + kFTI - 1) / kFTI;
+  const long long want =
+      (kScoreWaves * su.sms * std::max(su.score_per_sm, 1) + user_tiles -
+       1) / user_tiles;
+  const int slices = static_cast<int>(
+      std::max(1LL, std::min({want, n_tiles, 65535LL})));
+  const uintptr_t align = reinterpret_cast<uintptr_t>(U) |
+                          reinterpret_cast<uintptr_t>(I);
+  const int vec = k % 4 == 0 && (align & 15) == 0;
+  radix_score_kernel<<<dim3(static_cast<unsigned>(user_tiles), slices),
+                       kFThreads, ring, s>>>(
       static_cast<const float*>(U), static_cast<const long long*>(users),
       static_cast<const float*>(I), static_cast<const float*>(ib),
       static_cast<const float*>(ub), static_cast<const float*>(mu),
-      static_cast<const uint8_t*>(invalid), static_cast<float*>(S), B,
-      n_items, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int ncap = pow2_at_least(n);
-  select_kernel<<<B, kSelThreads, ncap * sizeof(unsigned long long), s>>>(
-      static_cast<float*>(S), static_cast<const long long*>(users),
+      static_cast<const uint8_t*>(invalid),
       static_cast<const long long*>(indptr), static_cast<const int*>(indices),
-      n_items, n, ncap, static_cast<float*>(out_s), static_cast<int*>(out_i));
+      B, n_items, k, vec, static_cast<float*>(S));
   return cudaGetLastError();
+}
+
+// The widest catalog whose rows the select kernel keeps in shared memory
+// at this n (wider ones stream the row from device memory on each pass).
+int topk_radix_resident_items(int n) {
+  const int ncap = pow2_at_least(n);
+  return static_cast<int>((kSelSmem - sel_work(ncap)) / 4);
+}
+
+// Select blocks an SM holds at once for a catalog of n_items at this n; a
+// negative cudaError_t on failure.
+int topk_radix_select_per_sm(int n_items, int n) {
+  const int ncap = pow2_at_least(n);
+  const bool res = sel_smem(n_items, ncap, true) <= kSelSmem;
+  const size_t smem = sel_smem(n_items, ncap, res);
+  auto select = res ? radix_select_kernel<true> : radix_select_kernel<false>;
+  int per_sm = 0;
+  RadixSetup su;
+  cudaError_t err = radix_setup(su);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select,
+                                                        kSelThreads, smem);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 
 // Dynamic shared memory of the fused kernel whose users each keep cap

@@ -12,7 +12,8 @@ TPU VMEM and DMA workarounds.
 
 ``dense_rows_epoch`` takes the tensors' device as the route: a CPU tensor
 runs the plain ``dense_sweep_rows``; a CUDA tensor launches the kernel or
-raises. One C call runs the epoch's stripes in order;
+raises. One C call runs the epoch's stripes in order, each a round of one
+cell (``stripe_cells`` puts the order on the device once an epoch);
 ``dense_rows_epoch.launches`` counts kernel launches: two per stripe (the
 panel kernel and the step kernel, which steps the items and the stripe's
 users), plus one an epoch for the bf16 copy of U when the products run on
@@ -33,10 +34,13 @@ tiles of the 0/1-weight models that carry them.
 
 ``dense_cells_epoch`` is the same kernel's cell-grid entry, the port of
 the JAX dense engine's diag cell grid (``dense_sweep_diag``, which XLA
-computes there): DSGD rounds of [bu, bi] cells, one (panel, step) pair a
-cell (the step also refreshes the block's bf16 U rows), plus the bf16
-copy of U once an epoch on the tensor-core route; the same launch count as
-``epoch_launches`` of the cells visited. No rank masks, as in JAX.
+computes there): DSGD rounds of [bu, bi] cells, one panel launch over all
+of a round's live cells and one step launch over their rows (the step
+also refreshes the blocks' bf16 U rows), plus the bf16 copy of U once an
+epoch on the tensor-core route. ``cells_plan`` is the host's plan of an
+epoch: each round's live cells (dummy lanes dropped), which go to the
+device once an epoch, and the launches, 2 a round with a live cell (+1).
+No rank masks, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ _WTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _P = ctypes.c_void_p
 _EPOCH_TAIL = [
     _P, _P, _P,                                         # cnt_u, cnt_i, scratch
-    _P, ctypes.c_int, ctypes.c_int,                     # order, n_order, NU
+    _P, ctypes.c_int, ctypes.c_int,                     # cells, n_order, NU
     ctypes.c_int, ctypes.c_int, ctypes.c_int,           # bu, ni_pad, k
     ctypes.c_float, ctypes.c_float, ctypes.c_float,     # lr, r_scale, u_reg
     ctypes.c_float, _P, _P, _P]          # i_reg, stream, failed, launched
@@ -72,14 +76,19 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rtype,
         _P, _P, _P, _P,                     # wtype, mm, cn; u3, i3, R, W
         _P, _P, _P,                         # cnt_u, cnt_i, scratch
-        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ub_idx, R, G, NU
+        _P, _P, ctypes.c_int, ctypes.c_int,  # cells, counts, rounds, G
+        ctypes.c_int,                                  # NU
         ctypes.c_int, ctypes.c_int, ctypes.c_int,      # bu, bi, k
         ctypes.c_float, ctypes.c_float, ctypes.c_float,  # lr, r_scale, u_reg
         ctypes.c_float, _P, _P, _P]),        # i_reg, stream, failed, launched
     "dense_rows_ablate": (ctypes.c_int, [
-        ctypes.c_int, _P, _P, _P] + _EPOCH_TAIL),   # stage; u3, i_tab, R
-    "dense_rows_scratch_bytes": (ctypes.c_size_t, [ctypes.c_int] * 5),
-    "dense_rows_epoch_launches": (ctypes.c_longlong, [ctypes.c_int] * 3),
+        ctypes.c_int, _P, _P, _P,                   # stage; u3, i_tab, R
+        _P, _P, _P, _P, _P,    # cnt_u, cnt_i, scratch, cells, counts
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,   # rounds, lanes, NU
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,   # bu, ni_pad, k
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,  # lr, r_scale, u_reg
+        ctypes.c_float, _P, _P, _P]),        # i_reg, stream, failed, launched
+    "dense_rows_scratch_bytes": (ctypes.c_size_t, [ctypes.c_int] * 6),
     "dense_rows_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 4),
     "dense_rows_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -90,10 +99,41 @@ def library() -> ctypes.CDLL:
     return _build.load("dense_rows", _SIGNATURES)
 
 
-def epoch_launches(n_stripes: int, k: int, mm_bf16: bool) -> int:
-    """Kernel launches of one epoch on the card (``n_stripes`` stripes, or
-    the cells a cell-grid epoch visits)."""
-    return library().dense_rows_epoch_launches(n_stripes, k, int(mm_bf16))
+def tensor_cores(k: int, mm_bf16: bool) -> bool:
+    """Whether the products run on the tensor cores (the bf16 copy of U, a
+    launch an epoch) or on the CUDA cores (f32 products, or k > 128)."""
+    return bool(mm_bf16) and k <= 128
+
+
+def epoch_launches(n_rounds: int, k: int, mm_bf16: bool) -> int:
+    """Kernel launches of one epoch on the card: the panel and step
+    kernels of each round (a stripe, or a cell-grid round with a live
+    cell), and the bf16 copy of U on the tensor-core route."""
+    return 2 * n_rounds + tensor_cores(k, mm_bf16)
+
+
+def stripe_cells(row_order: torch.Tensor, device) -> torch.Tensor:
+    """The stripe epoch's rounds as the kernel reads them: int32 [NU, 2],
+    (lane 0, stripe) for each visit in order, on ``device``."""
+    order = row_order.to(device="cpu", dtype=torch.int32)
+    return torch.stack([torch.zeros_like(order), order], 1).to(device)
+
+
+def cells_plan(ub_idx: torch.Tensor, NU: int, k: int, mm_bf16: bool) -> dict:
+    """How ``dense_cells_epoch`` runs the rounds ub_idx [R, NI] on the card:
+    ``cells`` int32 [n_live, 2], the (lane, user block) pairs of every
+    round, lanes ascending, a dummy lane (user block NU) left out as
+    ``dense_sweep_diag`` skips it; ``counts`` int32 [R], each round's live
+    cells (a round of none launches nothing); ``launches``, 2 a round with
+    a live cell plus the bf16 copy of U (``epoch_launches``)."""
+    idx = ub_idx.to(device="cpu", dtype=torch.int64)
+    live = idx < NU
+    lanes = torch.arange(idx.shape[1]).expand_as(idx)
+    cells = torch.stack([lanes[live], idx[live]], 1).to(torch.int32)
+    counts = live.sum(1, dtype=torch.int32)
+    rounds = int((counts > 0).sum())
+    return dict(cells=cells.contiguous(), counts=counts.contiguous(),
+                rounds=rounds, launches=epoch_launches(rounds, k, mm_bf16))
 
 
 def stripe_counts(R_rows: torch.Tensor, W_rows: Optional[torch.Tensor]
@@ -285,10 +325,10 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
         masks = [Lu.contiguous(), Li.contiguous(), Qs, hist_u, hist_i]
     # the stripe's user and item gradients (the kernels leave them zeroed)
     # and the bf16 copy of U
-    scratch = torch.zeros(lib.dense_rows_scratch_bytes(NU, bu, ni_pad, k,
+    scratch = torch.zeros(lib.dense_rows_scratch_bytes(1, NU, bu, ni_pad, k,
                                                        int(mm_bf16)),
                           dtype=torch.uint8, device=u3.device)
-    order = row_order.to(device="cpu", dtype=torch.int64).contiguous()
+    cells = stripe_cells(row_order, u3.device)
     failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
     with torch.cuda.device(u3.device):
         err = lib.dense_rows_epoch(
@@ -297,7 +337,7 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
             None if W_rows is None else W_rows.data_ptr(),
             *(None if m is None else m.data_ptr() for m in masks),
             cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
-            order.data_ptr(), NU, NU, bu, ni_pad, k, float(lr),
+            cells.data_ptr(), NU, NU, bu, ni_pad, k, float(lr),
             float(r_scale or 0.0), float(u_reg), float(i_reg),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(failed),
             ctypes.byref(launched))
@@ -330,9 +370,8 @@ def _check_cells(u3, i3, ub_idx, R_cells, W_cells, r_scale):
     if bool(((idx < 0) | (idx > NU)).any()):
         raise ValueError(f"ub_idx must lie in [0, {NU}] ({NU}: a dummy "
                          "lane)")
-    # the lanes of a round run one after another, which equals JAX's
-    # round (every lane from the round's old tables) only when no user
-    # block appears twice in a round
+    # the lanes of a round run together from the round's old tables, as in
+    # JAX, only when no user block appears twice in a round
     real = torch.where(idx < NU, idx, -1 - torch.arange(NI))
     if bool((real.sort(dim=1).values.diff(dim=1) == 0).any()):
         raise ValueError("a user block appears twice in one round of "
@@ -370,12 +409,13 @@ def dense_cells_epoch(u3: torch.Tensor, i3: torch.Tensor,
     n_cells = NU * NI + 1
     _check_counts(counts, ((n_cells, bu), (n_cells, bi)), u3.device)
     cnt_u, cnt_i = counts
-    # the cell's gradients (the kernels leave them zeroed) and the bf16
+    # the lanes' gradients (the kernels leave them zeroed) and the bf16
     # copy of U
-    scratch = torch.zeros(lib.dense_rows_scratch_bytes(NU, bu, bi, k,
+    scratch = torch.zeros(lib.dense_rows_scratch_bytes(NI, NU, bu, bi, k,
                                                        int(mm_bf16)),
                           dtype=torch.uint8, device=u3.device)
-    idx = ub_idx.to(device="cpu", dtype=torch.int64).contiguous()
+    plan = cells_plan(ub_idx, NU, k, mm_bf16)
+    cells, per_round = plan["cells"].to(u3.device), plan["counts"]
     failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
     with torch.cuda.device(u3.device):
         err = lib.dense_cells_epoch(
@@ -383,13 +423,14 @@ def dense_cells_epoch(u3: torch.Tensor, i3: torch.Tensor,
             i3.data_ptr(), R_cells.data_ptr(),
             None if W_cells is None else W_cells.data_ptr(),
             cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
-            idx.data_ptr(), idx.shape[0], NI, NU, bu, bi, k, float(lr),
-            float(r_scale or 0.0), float(u_reg), float(i_reg),
+            cells.data_ptr(), per_round.data_ptr(), per_round.numel(), NI,
+            NU, bu, bi, k, float(lr), float(r_scale or 0.0), float(u_reg),
+            float(i_reg),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(failed),
             ctypes.byref(launched))
     dense_cells_epoch.launches += launched.value
     if err != 0:
-        _raise_failed(lib, "cell", err, failed.value, rtype, wtype, k,
+        _raise_failed(lib, "round", err, failed.value, rtype, wtype, k,
                       mm_bf16)
     return u3, i3
 

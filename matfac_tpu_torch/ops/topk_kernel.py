@@ -22,9 +22,14 @@ n <= ``FUSED_MAX_N`` takes the fused score-and-select kernel, which writes
 no score to device memory: one launch a pass, or two where the catalog is
 split into slices to fill the card (``fused_plan``); larger n takes the
 radix route, ``KERNELS_PER_CHUNK`` launches per chunk of
-``chunk_users(n_items)`` users through a [chunk, n_items] score scratch.
+``chunk_users(n_items)`` users (``radix_plan``): the fused route's sweep
+writes each score once to a [chunk, n_items] scratch, and a select kernel
+reads each user's row once (into shared memory up to
+``library().topk_radix_resident_items(n)`` items) and picks the n best by
+radix passes that start at the row's highest differing key bit.
 ``topk_catalog.launches`` counts the launches; ``pass_launches`` says how
-many one call makes.
+many one call makes. ``radix_scores`` runs the score stage alone (its own
+``.launches``).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ KERNELS_PER_CHUNK = 2   # radix route: score kernel + select kernel
 # f32 scores one chunk may hold (1 GiB): bounds the radix route's scratch
 # and the plain version's score and sort temporaries
 SCRATCH_FLOATS = 1 << 28
-_MAX_CHUNK = 1 << 20    # keeps the score kernel's user grid under 65535
+_MAX_CHUNK = 1 << 20    # users a chunk, whatever the catalog
 # the fused route (csrc/topk.cu): n up to FUSED_MAX_N (kFusedMaxN there:
 # each user's candidate buffer lives in shared memory), tiles of FUSED_TILE_USERS users x
 # FUSED_TILE_ITEMS items, at most FUSED_MAX_SPLITS catalog slices and
@@ -54,6 +59,9 @@ FUSED_MAX_SPLITS, FUSED_MAX_MERGE = 32, 4096
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "topk_catalog_chunk": (_I, [_P] * 12 + [_I] * 4 + [_P]),  # B, I, k, n
+    "topk_radix_scores": (_I, [_P] * 10 + [_I] * 3 + [_P]),   # B, I, k
+    "topk_radix_resident_items": (_I, [_I]),
+    "topk_radix_select_per_sm": (_I, [_I, _I]),
     "topk_fused": (_I, [_P] * 12 + [_I] * 6 + [_P]),  # B, I, k, n, cap, S
     "topk_max_n": (_I, []),
     "topk_fused_resident": (_I, [_I]),
@@ -90,13 +98,22 @@ def fused_splits(B: int, n_items: int, n: int, resident: int) -> int:
                       FUSED_MAX_MERGE // n))
 
 
+def radix_plan(B: int, n_items: int) -> dict:
+    """How the radix route runs B users: chunks of ``chunk`` users, each a
+    score and a select launch."""
+    chunk = chunk_users(n_items)
+    chunks = -(-B // chunk)
+    return dict(chunk=chunk, chunks=chunks,
+                launches=chunks * KERNELS_PER_CHUNK)
+
+
 def fused_plan(B: int, n_items: int, n: int) -> dict:
     """How ``topk_catalog`` runs B users at n on the card: the route
     ("fused" up to FUSED_MAX_N, else "radix"), the fused route's candidate
     buffer and catalog slices, and the kernel launches of the call."""
     if n > FUSED_MAX_N:
         return dict(route="radix", cap=0, splits=0,
-                    launches=-(-B // chunk_users(n_items)) * KERNELS_PER_CHUNK)
+                    launches=radix_plan(B, n_items)["launches"])
     cap = fused_capacity(n)
     resident = library().topk_fused_resident(cap)
     if resident <= 0:
@@ -158,6 +175,19 @@ def _row_ranges(indptr: torch.Tensor, users: torch.Tensor):
     return rows, first + torch.arange(rows.numel(), device=users.device)
 
 
+def scores_plain(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices,
+                 users) -> torch.Tensor:
+    """The plain PyTorch version of the radix route's score stage: [B,
+    n_items] f32 scores of ``users``, -3e38 where an item is invalid or in
+    the user's train row."""
+    sc = (((u_fac[users] @ i_fac.T) + mu) + u_bias[users][:, None]) \
+        + i_bias[None, :]
+    sc.masked_fill_(invalid[None, :], NEG_INF)
+    rows, pos = _row_ranges(indptr, users)
+    sc[rows, indices[pos].long()] = NEG_INF
+    return sc
+
+
 def topk_plain(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices,
                users, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: dense scores per chunk of users, the
@@ -170,12 +200,8 @@ def topk_plain(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices,
     take = min(n, n_items)
     step = chunk_users(n_items)
     for s in range(0, B, step):
-        uu = users[s:s + step]
-        sc = (((u_fac[uu] @ i_fac.T) + mu) + u_bias[uu][:, None]) \
-            + i_bias[None, :]
-        sc.masked_fill_(invalid[None, :], NEG_INF)
-        rows, pos = _row_ranges(indptr, uu)
-        sc[rows, indices[pos].long()] = NEG_INF
+        sc = scores_plain(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr,
+                          indices, users[s:s + step])
         top_s, top_i = torch.sort(sc, dim=1, descending=True, stable=True)
         del sc
         top_s, top_i = top_s[:, :take], top_i[:, :take]
@@ -249,7 +275,8 @@ def _fused(lib, tabs, out_s, out_i, n: int, pl: dict) -> None:
 
 def _radix(lib, tabs, out_s, out_i, n: int, pl: dict) -> None:
     """The radix route: a score and a select kernel per chunk of users,
-    through one [chunk, n_items] score scratch."""
+    through one [chunk, n_items] score scratch, each score written and
+    read once."""
     u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices, users = tabs
     B, (n_items, k) = users.numel(), i_fac.shape
     step = chunk_users(n_items)
@@ -269,3 +296,44 @@ def _radix(lib, tabs, out_s, out_i, n: int, pl: dict) -> None:
             raise RuntimeError(f"topk kernel launch failed on users "
                                f"[{s}, {s + m}): {msg} (cudaError {err})")
         topk_catalog.launches += KERNELS_PER_CHUNK
+
+
+def radix_scores(u_fac: torch.Tensor, i_fac: torch.Tensor,
+                 i_bias: torch.Tensor, u_bias: torch.Tensor,
+                 mu: torch.Tensor, invalid: torch.Tensor,
+                 indptr: torch.Tensor, indices: torch.Tensor,
+                 users: torch.Tensor) -> torch.Tensor:
+    """The radix route's score stage: [B, n_items] f32, the scores of
+    ``topk_catalog``'s order (-3e38 where an item is invalid or in the
+    user's train row; on the card -0 as +0, bitwise the fused route's); at
+    most ``chunk_users(n_items)`` users a call. Inputs as ``topk_catalog``;
+    a CPU tensor runs ``scores_plain``."""
+    _check(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices,
+           users, 1)
+    if u_fac.device.type == "cpu":
+        return scores_plain(u_fac, i_fac, i_bias, u_bias, mu, invalid,
+                            indptr, indices, users)
+    if u_fac.device.type != "cuda":
+        raise ValueError(f"no route for device {u_fac.device}")
+    B, (n_items, k) = users.numel(), i_fac.shape
+    if not 0 < B <= chunk_users(n_items):
+        raise ValueError(f"radix_scores takes 1 to {chunk_users(n_items)} "
+                         f"users at {n_items} items, got {B}")
+    tabs = [t.contiguous() for t in (u_fac, users, i_fac, i_bias, u_bias,
+                                     mu.reshape(1), invalid, indptr,
+                                     indices)]
+    S = torch.empty((B, n_items), dtype=torch.float32, device=u_fac.device)
+    lib = library()
+    with torch.cuda.device(u_fac.device):
+        err = lib.topk_radix_scores(
+            *(t.data_ptr() for t in tabs), S.data_ptr(), B, n_items, k,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"topk score kernel launch failed: "
+                           f"{lib.topk_error_string(err).decode()} "
+                           f"(cudaError {err})")
+    radix_scores.launches += 1
+    return S
+
+
+radix_scores.launches = 0

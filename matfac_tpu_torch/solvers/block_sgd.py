@@ -29,8 +29,9 @@ in a random order, one full-catalog masked-residual GD step per stripe
 the diag cell grid: cell-major [NU * NI + 1, bu, bi] tiles (cell = ub *
 NI + ib, an all-invalid dummy cell last), each epoch the DSGD rounds of
 ``diag_schedule`` (the one-hot diag engine's generator, so both engines
-visit the same cells for the same draw), one GD step per cell
-(ops/dense_row_kernel.dense_cells_epoch); rank-masked models are refused
+visit the same cells for the same draw), one GD step per cell, a round's
+cells in one launch on the card (ops/dense_row_kernel.dense_cells_epoch);
+rank-masked models are refused
 there, as in JAX. In the row layout, rank-masked models stage
 per-entity tables in the relabeled order, pad entities at rank k: TMF its
 static ranks, TMF+Dropout its lambdas, whose ranks are redrawn at every

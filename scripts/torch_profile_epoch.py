@@ -191,7 +191,8 @@ def profile_ranking(tag: str, out_dir) -> None:
         ("top-10 pass, plain version", lambda: tk.topk_plain(**args, n=10))]
     run_windows(tag, windows,
                 (tk.topk_catalog, ("topk_fused_kernel", "topk_merge_kernel",
-                                   "score_kernel", "select_kernel")), out_dir)
+                                   "radix_score_kernel",
+                                   "radix_select_kernel")), out_dir)
     print(f"({tag}) {solver.n_pos} positives per epoch", flush=True)
     del rep, solver, state, scorer, view, args
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """Where a full-catalog top-N pass spends its time on a GPU, and how the
 fused kernel's tuning constants move it.
 
-    python scripts/torch_topk_probe.py [--n 10] [--variants kept stages2 ...]
+    python scripts/torch_topk_probe.py [--n 10] [--radix-n 1000]
+        [--variants kept stages2 ...]
 
 Port of scripts/tpu_topk_probe.py's question (the scorer's cost at the
 bench shape) for the port's kernel, ``csrc/topk.cu``. At 100,000 users x
@@ -17,7 +18,11 @@ item skew) it times, by CUDA events (mean of 5 after 2 warm-ups):
     scores and ids bitwise (the same sum order); each with its registers,
     spills and resident CTAs;
   * the radix route on the same inputs (the score and select kernels
-    through the [chunk, n_items] scratch) and the plain version.
+    through the [chunk, n_items] scratch) at --radix-n, with each kernel's
+    device ms (torch.profiler), through the kept build and through copies
+    cut after a step of the select kernel (``kSelCut``: the row's read,
+    the radix passes, the gather) or without its sort (``kSelSort``), and
+    the plain version.
 
 It prints one line per run and exits 2 without a CUDA device.
 """
@@ -50,8 +55,18 @@ VARIANTS = {
     "stats": {"kStats": 1},
     "stages2": {"kStages": 2},
     "ctas2": {"kFusedCtas": 2, "kStages": 2},
+    "sel_read": {"kSelCut": 0},
+    "sel_passes": {"kSelCut": 1},
+    "sel_gather": {"kSelCut": 2},
+    "sel_nosort": {"kSelSort": 0},
+    "sel_768": {"kSelThreads": 768},
+    "sel_1024": {"kSelThreads": 1024},
 }
 CUTS = ("loads", "scores", "filter", "stats")   # not the kernel's result
+# the radix route's select kernel cut after a step, without its sort, or
+# with other block sizes (not cuts: the kept build's result)
+SEL_CUTS = ("sel_read", "sel_passes", "sel_gather", "sel_nosort",
+            "sel_768", "sel_1024")
 OUT = os.path.join(_build.BUILD_DIR.parent, "topk_probe")
 
 
@@ -148,6 +163,7 @@ def cuda_ms(fn, reps=5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10)
+    ap.add_argument("--radix-n", type=int, default=1000)
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
                     choices=list(VARIANTS))
     args = ap.parse_args()
@@ -166,6 +182,8 @@ def main() -> int:
                          next(iter(libs.values()))[0], a, n)
     torch.cuda.synchronize()
     for name, (lib, ptxas) in libs.items():
+        if name in SEL_CUTS:
+            continue
         got, resident = fused_pass(lib, a, n)
         torch.cuda.synchronize()
         same = (name in CUTS
@@ -185,12 +203,42 @@ def main() -> int:
               flush=True)
         if not same:
             return 1
-    radix = tk.FUSED_MAX_N + 1
-    ms_r = cuda_ms(lambda: tk.topk_catalog(**a, n=radix))
+    rn = args.radix_n
+    keep = tk.library
+    for name, (lib, _) in libs.items():
+        if name != "kept" and name not in SEL_CUTS:
+            continue
+        tk.library = lambda lib=lib: lib
+        try:
+            ms_r = cuda_ms(lambda: tk.topk_catalog(**a, n=rn))
+            split = stage_ms(lambda: tk.topk_catalog(**a, n=rn))
+        finally:
+            tk.library = keep
+        per_sm = lib.topk_radix_select_per_sm(a["i_fac"].shape[0], rn)
+        print(f"radix {name:10s} {VARIANTS[name]}: {ms_r:.3f} ms a top-{rn} "
+              f"pass; device ms " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                              split.items())
+              + f"; {per_sm} select blocks an SM", flush=True)
     ms_p = cuda_ms(lambda: tk.topk_plain(**a, n=n), reps=2)
-    print(f"radix route (top-{radix}, its time hardly depends on n): "
-          f"{ms_r:.3f} ms; plain top-{n}: {ms_p:.3f} ms", flush=True)
+    print(f"plain top-{n}: {ms_p:.3f} ms", flush=True)
     return 0
+
+
+def stage_ms(fn) -> dict:
+    """Device ms of the radix route's two kernels in one call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = ("radix_score_kernel", "radix_select_kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    out[name] += e.time_range.elapsed_us() / 1e3
+    return out
 
 
 if __name__ == "__main__":

@@ -1096,14 +1096,19 @@ def _cell_args(mode, rng, dev, NU=4, NI=3, bu=100, bi=200, k=64,
 
 
 def _cell_pair(args, mm_bf16, collision_norm=True, lr=LR):
+    """(kernel result, plain result); the kernel's launches held to its
+    plan: a panel and a step launch a round with a live cell, and the
+    bf16 copy of U on the tensor-core route."""
     u3, i3, ub_idx, R, W, r_scale = args
     before = tdrk.dense_cells_epoch.launches
     kern = tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, lr, R, W,
                                   r_scale, U_REG, I_REG, collision_norm,
                                   mm_bf16)
-    n_visits = int((ub_idx < u3.shape[0]).sum())
+    live = int((ub_idx < u3.shape[0]).any(1).sum())
     assert tdrk.dense_cells_epoch.launches - before == \
-        tdrk.epoch_launches(n_visits, u3.shape[2], mm_bf16)
+        tdrk.epoch_launches(live, u3.shape[2], mm_bf16) == \
+        tdrk.cells_plan(ub_idx, u3.shape[0], u3.shape[2],
+                        mm_bf16)["launches"]
     plain = tdbk.dense_sweep_diag(u3.clone(), i3.clone(), ub_idx, lr, R, W,
                                   U_REG, I_REG, collision_norm, mm_bf16,
                                   r_scale=r_scale)
@@ -1231,3 +1236,198 @@ def test_dense_cell_grid_solver_on_the_card(mm_bf16):
                                atol=1e-5)
     torch.testing.assert_close(sc.i_fac.cpu(), sp.i_fac, rtol=1e-3,
                                atol=1e-5)
+
+
+def _uneven_rounds(NU, NI, gen):
+    """An epoch of the diag schedule for NU != NI user blocks on NI lanes
+    (dummy lanes), an all-dummy round, and a round that revisits user
+    block 0 on another lane."""
+    rounds = tbsk.diag_schedule(gen, NU, NI, 1)[0]
+    dummy = torch.full((1, NI), NU, dtype=rounds.dtype)
+    again = torch.full((1, NI), NU, dtype=rounds.dtype)
+    again[0, NI - 1] = 0
+    return torch.cat([rounds[:1], dummy, rounds[1:], again])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 64, 128, 160])
+@pytest.mark.parametrize("NU, NI", [(5, 3), (2, 4)])
+def test_cell_round_launch_on_uneven_rounds(NU, NI, k):
+    """One panel and one step launch a round on uneven grids (more user
+    blocks than lanes, and fewer), an all-dummy round (no launch) and a
+    revisited user block, against the plain version at rtol 1e-3 / atol
+    1e-5, on both routes (k 160: the CUDA cores)."""
+    dev = _cuda()
+    rng = np.random.default_rng(46 + k)
+    u3, i3, _, R, W, r_scale = _cell_args("bf16+W", rng, dev, NU=NU, NI=NI,
+                                          bu=130, bi=200, k=k)
+    ub_idx = _uneven_rounds(NU, NI, torch.Generator().manual_seed(k))
+    plan = tdrk.cells_plan(ub_idx, NU, k, True)
+    assert plan["rounds"] == ub_idx.shape[0] - 1
+    assert plan["launches"] == (k <= 128) + 2 * plan["rounds"]
+    for mm_bf16 in (True, False):
+        kern, plain = _cell_pair((u3, i3, ub_idx, R, W, r_scale), mm_bf16)
+        for g, w in zip(kern, plain):
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 64, 128, 160])
+def test_cell_round_launch_is_bitwise_reproducible(k):
+    """At every KP (and the CUDA-core route at 160): two runs of an epoch
+    give the same bits, and int8 codes the bits of f32 / bf16 tiles with
+    int8 validity (the partition and the fixed-point bound depend on the
+    cells' geometry and the round, not on the tile type)."""
+    dev = _cuda()
+    rng = np.random.default_rng(47)
+    u3, i3, ub_idx, codes, _, _ = _cell_args("codes", rng, dev, NU=5, NI=3,
+                                             bu=260, bi=384, k=k, scale=0.1)
+    W = (codes != 0).to(torch.int8)
+    run = lambda R_, W_, s: tdrk.dense_cells_epoch(
+        u3.clone(), i3.clone(), ub_idx, LR, R_, W_, s, U_REG, I_REG, True,
+        True)
+    a, b = run(codes, None, 0.5), run(codes, None, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for rtype in (torch.float32, torch.bfloat16):
+        got = run((codes.float() * 0.5).to(rtype), W, None)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], a[0]) and torch.equal(got[1], a[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_bf16", [False, True])
+def test_cell_launches_are_one_pair_a_round(mm_bf16):
+    """An epoch whose rounds all hold a live cell launches 1 + 2 x rounds
+    kernels on the tensor-core route (2 x rounds on the CUDA cores),
+    however many cells a round holds."""
+    dev = _cuda()
+    rng = np.random.default_rng(48)
+    u3, i3, ub_idx, R, W, r_scale = _cell_args("f32+W", rng, dev, NU=6,
+                                               NI=6, bu=70, bi=130, k=32,
+                                               rounds=3)
+    assert bool((ub_idx < 6).any(1).all())
+    before = tdrk.dense_cells_epoch.launches
+    tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, LR, R, W,
+                           r_scale, U_REG, I_REG, True, mm_bf16)
+    assert tdrk.dense_cells_epoch.launches - before == \
+        int(mm_bf16) + 2 * ub_idx.shape[0]
+
+
+# ----------------------------------------------------------------------
+# the radix top-N route (n > FUSED_MAX_N): score and select stages
+# ----------------------------------------------------------------------
+
+EXACT_ROWS = (2, 3, 4, 7)
+
+
+def _radix_case(rng, n_items, k, dev, n_users=64):
+    """_topk_inputs at random with mu 0 and item biases +0 or -0, and rows
+    the select stage must get right, each score exact in f32: user 2
+    all-equal scores (a zero factor row), user 3 three values in about
+    equal thirds (ties cut at the n-th, by id), user 4 every score zero
+    (from +0 and -0 biases), user 7 a trained model's scores (one sign,
+    one exponent); user 5 rated every item but 60 (fewer scorable than n),
+    user 6 every other item (heavy exclusion)."""
+    a = _topk_inputs(rng, n_users, n_items, k, False, dev)
+    u, i = a["u_fac"].cpu(), a["i_fac"].cpu()
+    ub = a["u_bias"].cpu()
+    gen = torch.Generator().manual_seed(n_items)
+    i[:, 0] = torch.randint(0, 3, (n_items,), generator=gen) * 0.5
+    i[:, 1] = 1.0 + 0.4 * torch.rand((n_items,), generator=gen)
+    u[2:5] = 0.0
+    u[3, 0] = 1.0
+    u[7] = 0.0
+    u[7, 1] = 1.0
+    ub[2], ub[3], ub[4], ub[7] = 1.25, 0.0, 0.0, 1.5
+    ib = torch.where(torch.rand((n_items,), generator=gen) < 0.5, 0.0, -0.0)
+    rated = torch.rand((n_users, n_items), generator=gen) < 0.05
+    rated[0], rated[1] = True, True
+    rated[0, :5] = False
+    rated[5] = True
+    rated[5, torch.randperm(n_items, generator=gen)[:60]] = False
+    rated[6] = False
+    rated[6, ::2] = True
+    indptr = torch.zeros(n_users + 1, dtype=torch.int64)
+    indptr[1:] = torch.cumsum(rated.sum(1), 0)
+    cols = rated.nonzero(as_tuple=True)[1].to(torch.int32)
+    a.update(u_fac=u.to(dev), i_fac=i.to(dev), u_bias=ub.to(dev),
+             i_bias=ib.to(dev), mu=torch.zeros((), device=dev),
+             indptr=indptr.to(dev), indices=cols.to(dev),
+             users=torch.arange(n_users, device=dev))   # row r: user r
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [129, 1000, 4096])
+def test_radix_route_matches_plain_on_hard_rows(n):
+    """The radix route against topk_plain on rows of all-equal scores,
+    three values (ties cut at the n-th by id), all-zero scores from +0 and
+    -0 biases, fewer scorable items than n, heavy exclusion and a trained
+    model's one-sign one-exponent scores: scores at rtol 1e-5 / atol 1e-6
+    and ids where no neighbour is that close, the exact rows equal."""
+    dev = _cuda()
+    args = _radix_case(np.random.default_rng(n), 6_000, 32, dev)
+    pl = ttk.fused_plan(64, 6_000, n)
+    assert pl["route"] == "radix"
+    before = ttk.topk_catalog.launches
+    got = ttk.topk_catalog(**args, n=n)
+    assert ttk.topk_catalog.launches - before == pl["launches"]
+    want = ttk.topk_plain(**args, n=n)
+    torch.cuda.synchronize()
+    _topk_check(got, want, False)
+    gs, gi = (t.cpu() for t in got)
+    ws, wi = (t.cpu() for t in want)
+    for row in EXACT_ROWS:
+        assert torch.equal(gs[row], ws[row]) and \
+            torch.equal(gi[row], wi[row]), row
+    tied = (gs[3, 1:] == gs[3, :-1]) & (gi[3, 1:] >= 0)
+    assert bool(tied.any()) and bool((gi[3, :-1][tied] < gi[3, 1:][tied])
+                                     .all())
+    assert not bool(torch.signbit(gs[4][gi[4] >= 0]).any())
+    assert int((gi[5] >= 0).sum()) == int((wi[5] >= 0).sum()) <= 60
+    assert (gi[1] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [129, 1000])
+def test_radix_route_streams_a_wide_catalog(n):
+    """A catalog wider than the select stage keeps in shared memory takes
+    the streamed path, with the plain version's result (exact scores and
+    ties)."""
+    dev = _cuda()
+    n_items = ttk.library().topk_radix_resident_items(n) + 1_000
+    args = _topk_inputs(np.random.default_rng(9), 24, n_items, 32, True, dev)
+    got = ttk.topk_catalog(**args, n=n)
+    _topk_check(got, ttk.topk_plain(**args, n=n), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("m", [1, 10, ttk.FUSED_MAX_N])
+def test_radix_prefix_equals_the_fused_top_m(m, exact):
+    """The radix route's first m slots are the fused route's top-m, bit for
+    bit: the same sweep scores both, and the keys are unique."""
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(m), 3_000, 2_900, 64, exact,
+                        dev)
+    rs, ri = ttk.topk_catalog(**args, n=1000)
+    fs, fi = ttk.topk_catalog(**args, n=m)
+    torch.cuda.synchronize()
+    assert torch.equal(rs[:, :m], fs) and torch.equal(ri[:, :m], fi)
+
+
+@pytest.mark.cuda
+def test_radix_score_stage_writes_each_score():
+    """The score stage alone: the plain version's scores (rtol 1e-5 / atol
+    1e-6), -3e38 exactly on invalid and rated items, no -0."""
+    dev = _cuda()
+    args = _topk_inputs(np.random.default_rng(12), 300, 1_201, 64, False,
+                        dev)
+    before = ttk.radix_scores.launches
+    S = ttk.radix_scores(**args).cpu()
+    assert ttk.radix_scores.launches - before == 1
+    want = ttk.radix_scores(**{key: t.cpu() for key, t in args.items()})
+    torch.testing.assert_close(S, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(S == ttk.NEG_INF, want == ttk.NEG_INF)
+    assert not bool(torch.signbit(S[S == 0]).any())
