@@ -114,6 +114,23 @@ Phases, in order; any failure raises and the script exits non-zero:
       "sgdparsvd") for 2 epochs: val RMSE falls from the SVD start, 4
       batches held against the CPU copy of the solver; no hand kernel
       (JAX uses XLA);
+  (y) the multi-device engines on a mesh of 4 shards of the one card, at
+      (d)'s data: train_model(mf_method="densesgd", mesh=...) for 3
+      epochs (DenseBlockDSGDSolver: 10 stripes of 2560 x 5120 a shard,
+      bf16 R + int8 W; each shard-round one call of the stripe entry,
+      launches asserted), one shard-round against dense_sweep_rows, a
+      whole epoch in f32 and in bf16 products against the plain version,
+      the epoch twice bit-identical, epoch ms, idle share and bound; the
+      first epoch again as 2 processes x 2 shards on the card (gloo; this
+      script with --mesh-worker), bit for bit; half-star ratings as int8
+      code tiles against bf16 + int8 tiles, bit for bit; the sharded
+      top-10 (HR@10, ARHR@10, ids) and RMSE against one device, launches
+      against the plan; save_sharded / restore_sharded bit for bit; mesh
+      ALS, one epoch, bit for bit ALS on one device; train_model(
+      mf_method="blocksgd", mesh=...) for 2 epochs (BlockDSGDSolver, one
+      diag launch a shard-round, every cell finished, a shard-round
+      against block_sweep_diag); TMF+Dropout on the scatter DSGD, 2
+      epochs; val RMSE falls in each run;
   (u) the port's front door at (d)'s width: (d)'s splits written once
       through the port's write_csr (the val split also the probe matrix),
       then ``matfac_tpu_torch.cli.main`` in process for mf_headwt with
@@ -212,6 +229,9 @@ from matfac_tpu_torch.ops import dense_row_kernel as drk
 from matfac_tpu_torch.ops import sgd_kernel as sk
 from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.eval.metrics import Evaluator
+from matfac_tpu_torch.eval.ranking import CatalogScorer
+from matfac_tpu_torch.parallel import block_dsgd as bdsgd
+from matfac_tpu_torch.parallel.mesh import make_mesh, shard_state
 from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_diag,
                                                     dense_sweep_rows,
                                                     identity_quantiles,
@@ -3881,6 +3901,463 @@ def phase_quality(dev="cuda") -> list:
     return rows
 
 
+# ----------------------------------------------------------------------
+# (y): the multi-device engines on a 4-shard mesh of the one card
+# ----------------------------------------------------------------------
+
+# (d)'s data and Params on a mesh of 4 shards of the one card: the dense
+# block-DSGD engine stages bu 25,600 (10 stripes of 2,560) x bi 5,120 a
+# shard, 102,400 x 20,480 slots in all, bf16 R + int8 W (6.3 GB, under
+# the JAX package's 8 GiB budget)
+Y_SHARDS = 4
+Y_PARAMS = dict(CELLS["d"][1], max_iter=3)
+Y_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke", "mesh")
+# a whole bf16-product epoch against the plain version: the JAX package's
+# class for bf16 over several steps (tests/test_pallas_dense_rows.py:120),
+# as (w) holds its epoch; one shard-round and the f32-product epoch at
+# RTOL / ATOL
+Y_BF16_RTOL, Y_BF16_ATOL = 5e-3, 5e-4
+
+
+def _y_mesh(dev, n=Y_SHARDS):
+    return make_mesh((n,), ("u",), devices=[torch.device(dev)] * n)
+
+
+def _plain_rows(u3, i_tab, order, lr, R, W, r_scale, u_reg, i_reg, cn, mm,
+                counts=None):
+    """dense_rows_epoch's plain version, with its signature."""
+    return dense_sweep_rows(u3, i_tab, order, lr, R, W, u_reg, i_reg, cn,
+                            mm, r_scale=r_scale)
+
+
+def _mesh_epoch(solver, state, lr, sched, plain=False, mm_bf16=None):
+    """One epoch of a DenseBlockDSGDSolver from ``state`` on ``sched``,
+    each shard-round through the kernel or its plain version, in the
+    solver's matmul precision or ``mm_bf16``; returns (u, i) copies. The
+    solver's resident tables are dropped first and after."""
+    mm, rows = solver.mm_bf16, bdsgd.dense_rows_epoch
+    solver.mm_bf16 = mm if mm_bf16 is None else mm_bf16
+    if plain:
+        bdsgd.dense_rows_epoch = _plain_rows
+    solver._resident = None
+    try:
+        out = solver.epoch_with(state, lr, sched)
+        return out.u_fac.clone(), out.i_fac.clone()
+    finally:
+        bdsgd.dense_rows_epoch = rows
+        solver.mm_bf16 = mm
+        solver._resident = None
+
+
+def mesh_dense_bound(solver):
+    """Bound of one dense block-DSGD epoch: every tile read once, each
+    shard-round's user block and held item block read and written once;
+    three products of 2k FLOP a slot on the bf16 tensor cores."""
+    k = solver.model.k
+    N = solver.n_shards
+    tiles = sum(t.nbytes for t in solver.R_tiles) + (
+        0 if solver.W_tiles is None else sum(t.nbytes
+                                             for t in solver.W_tiles))
+    slots = sum(t.numel() for t in solver.R_tiles)
+    nbytes = tiles + N * N * 2 * 4 * k * (solver.bu + solver.bi)
+    return _bound(nbytes, 6.0 * slots * k, "bf16" if solver.mm_bf16
+                  else "f32")
+
+
+def _y_dense(data, dev):
+    """(y) 1: train_model(mf_method="densesgd", mesh=4 shards), 3 epochs:
+    launches, staging, val RMSE; one shard-round against dense_sweep_rows,
+    a whole epoch in f32 and in bf16 products against the plain version,
+    the kernel's epoch twice bit-identical; epoch ms, idle share, bound."""
+    params = Params(**Y_PARAMS)
+    mesh = _y_mesh(dev)
+    drk.dense_rows_epoch.launches = 0
+    t0 = time.perf_counter()
+    rep, model, ev, inval = train_model(
+        data, params, algo="mf", mf_method="densesgd", mesh=mesh,
+        log_fn=lambda s: log(f"(y) {s}"))
+    wall = time.perf_counter() - t0
+    launches = drk.dense_rows_epoch.launches
+    solver = rep.solver
+    N, k = solver.n_shards, params.fac_dim
+    log(f"(y) densesgd on {N} shards of {mesh.home()}: SU={solver.SU} "
+        f"sub_bu={solver.sub_bu} bu={solver.bu} bi={solver.bi} R="
+        f"{solver.R_tiles[0].dtype} W={solver.W_tiles[0].dtype} tiles "
+        f"{sum(t.numel() for t in solver.R_tiles)} slots; nnz {solver.nnz}; "
+        f"train_model wall {wall:.1f} s; stop={rep.stop_reason}")
+    assert isinstance(solver, bdsgd.DenseBlockDSGDSolver)
+    if (data.n_users, data.n_items) == (100_000, 20_000):
+        assert (solver.SU, solver.sub_bu, solver.bi) == (10, 2560, 5120)
+    assert (solver.R_tiles[0].dtype, solver.W_tiles[0].dtype) == (
+        torch.bfloat16, torch.int8)
+    epochs = len(rep.history)
+    assert epochs == params.max_iter, (rep.stop_reason, epochs)
+    want = epochs * N * N * drk.epoch_launches(solver.SU, k, solver.mm_bf16)
+    assert launches == want, f"(y) stripe launches {launches} != {want}"
+    s0 = shard_state(init_state(params, data.n_users, data.n_items,
+                                device=dev), mesh)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    vals = [h.val_rmse for h in rep.history]
+    log(f"(y) val RMSE at init {val0!r}, per epoch {vals!r}; epoch in the "
+        f"loop {[1e3 * h.seconds for h in rep.history]!r} ms")
+    assert all(np.isfinite(vals)) and rep.best_metric < val0 and \
+        vals[-1] < val0, (vals, val0)
+    lr = params.learn_rate
+    # one shard-round, kernel vs plain
+    u_blk, i_blk = solver.stage_factors(s0)
+    order = torch.randperm(solver.SU, generator=torch.Generator()
+                           .manual_seed(1))
+    R, W = solver.tiles(0, 0)
+    U0 = u_blk[0].view(solver.SU, solver.sub_bu, k)
+    p = params
+    kern = lambda: drk.dense_rows_epoch(
+        U0.clone(), i_blk[0].clone(), order, lr, R, W, solver.r_scale,
+        p.u_reg, p.i_reg, solver.collision_norm, solver.mm_bf16,
+        counts=None if solver.counts is None else solver.counts[0][0])
+    plain = lambda: dense_sweep_rows(
+        U0.clone(), i_blk[0].clone(), order, lr, R, W, p.u_reg, p.i_reg,
+        solver.collision_norm, solver.mm_bf16, r_scale=solver.r_scale)
+    a_sr, r_sr, ratio = _errors(kern(), plain())
+    sr_ms, sr_plain_ms = _alternate(kern, plain)
+    log(f"(y) one shard-round (shard 0, round 0; {solver.SU} stripes of "
+        f"[{solver.sub_bu}, {solver.bi}]) kernel vs plain: max_abs "
+        f"{a_sr:.3e} max_rel {r_sr:.3e} err/tol {ratio:.3e}; kernel "
+        f"{sr_ms:.3f} ms, plain {sr_plain_ms:.3f} ms (CUDA events)")
+    if ratio > 1.0:
+        raise AssertionError("(y) shard-round: kernel disagrees with "
+                             f"dense_sweep_rows (rtol {RTOL}, atol {ATOL})")
+    # whole epochs, f32 then bf16 products
+    sched = solver.draw_schedule()
+    errs = [a_sr]
+    for mm, rtol, atol in ((False, RTOL, ATOL),
+                           (True, Y_BF16_RTOL, Y_BF16_ATOL)):
+        got = _mesh_epoch(solver, s0, lr, sched, mm_bf16=mm)
+        want_ = _mesh_epoch(solver, s0, lr, sched, plain=True, mm_bf16=mm)
+        a, r, ratio = _errors(got, want_, rtol, atol)
+        errs.append(a)
+        log(f"(y) a whole epoch ({'bf16' if mm else 'f32'} products) "
+            f"kernel vs plain: max_abs {a:.3e} max_rel {r:.3e} err/tol "
+            f"{ratio:.3e} (rtol {rtol}, atol {atol})")
+        if ratio > 1.0:
+            raise AssertionError(f"(y) epoch in {'bf16' if mm else 'f32'} "
+                                 "products: kernel vs plain")
+    twice = [_mesh_epoch(solver, s0, lr, sched) for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*twice))
+    log(f"(y) the same epoch through the kernel twice: bit-identical {same}")
+    if not same:
+        raise AssertionError("(y) two runs of one mesh epoch differ")
+
+    def epoch():
+        solver._resident = None
+        return solver.epoch_with(s0, lr, sched)
+
+    epoch()
+    torch.cuda.synchronize()
+    ms, busy, idle, _ = _busy_idle(epoch)
+    plain_ms = _cuda_ms(lambda: _mesh_epoch(solver, s0, lr, sched,
+                                            plain=True))
+    bound = mesh_dense_bound(solver)
+    lib_ms = _three_products_ms(solver.sub_bu, solver.bi, k,
+                                N * N * solver.SU)
+    log(f"(y) dense block-DSGD epoch alone (CUDA events, tables staged "
+        f"and gathered): {ms:.3f} ms = {solver.nnz / ms * 1e3:.4e} "
+        f"ratings/s, device busy {busy:.3f} ms, idle share {idle:.3f}; "
+        f"plain PyTorch {plain_ms:.3f} ms; bound {bound[0]:.3f} ms "
+        f"({bound[1]}), kernel epoch at {bound[0] / ms:.3f} of it; the "
+        f"products as bf16 cuBLAS calls {lib_ms:.3f} ms")
+    # the 1-process first epoch of train_model, for (y) 2
+    solver._sched_rng = np.random.default_rng(params.seed + 41)
+    solver._resident = None
+    first = solver.epoch(s0, lr)
+    first = (first.u_fac.clone(), first.i_fac.clone())
+    return dict(launches=launches, max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, idle=idle, bound=bound, first=first,
+                rep=rep, model=model, ev=ev, inval=inval, s0=s0)
+
+
+def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
+    """One of the two processes of (y) 2: (d)'s data, this rank's
+    host-local rows, DenseBlockDSGDSolver on 2 of the 4 shards (gloo, the
+    item blocks staged through host memory), train_model's first epoch
+    from its initial state; rank 0 writes the gathered factors."""
+    from matfac_tpu_torch.parallel import distributed
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world_size=2,
+                           rank=rank, backend="gloo")
+    data = bench_data(**CELLS["d"][0])
+    params = Params(**Y_PARAMS)
+    iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
+                                      data.n_items)
+    r, c, v = distributed.host_local_ratings(data.train_mat, data.n_users,
+                                             2, rank)
+    local = RatingMatrix.from_coo(r, c, v, data.n_users, data.n_items)
+    mesh = make_mesh((Y_SHARDS,), ("u",),
+                     devices=[torch.device(dev)] * (Y_SHARDS // 2))
+    solver = bdsgd.DenseBlockDSGDSolver(
+        ModelMF(params, data.n_users, data.n_items), params, local, iu, ii,
+        mesh)
+    assert solver.local_blocks == [2 * rank, 2 * rank + 1]
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    drk.dense_rows_epoch.launches = 0
+    st = solver.epoch(s0, params.learn_rate)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        assert drk.dense_rows_epoch.launches == Y_SHARDS * 2 * \
+            drk.epoch_launches(solver.SU, params.fac_dim, solver.mm_bf16)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "two_process.npz"),
+                 u_fac=st.u_fac.cpu().numpy(), i_fac=st.i_fac.cpu().numpy())
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    log(f"mesh worker {rank}: ok")
+    return 0
+
+
+def _y_two_process(first, dev):
+    """(y) 2: the first epoch as 2 processes x 2 shards on the one card
+    (gloo; this script's --mesh-worker), bit for bit (y) 1's."""
+    import socket
+    os.makedirs(Y_DIR, exist_ok=True)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         str(port), str(r), Y_DIR, dev], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.splitlines()[-15:])
+        if p.returncode != 0:
+            raise AssertionError(f"(y) mesh worker {r} failed "
+                                 f"({p.returncode}):\n{tail}")
+    multi = np.load(os.path.join(Y_DIR, "two_process.npz"))
+    same = (np.array_equal(multi["u_fac"], first[0].cpu().numpy())
+            and np.array_equal(multi["i_fac"], first[1].cpu().numpy()))
+    log(f"(y) first epoch as 2 processes x 2 shards (gloo, exchange "
+        f"through host memory), {time.perf_counter() - t0:.1f} s with "
+        f"start-up and staging: bit for bit the 1-process epoch {same}")
+    if not same:
+        raise AssertionError("(y) 2-process epoch differs from 1-process")
+
+
+def _y_codes(data, dev):
+    """(y) 3: (d)'s ratings rounded to half stars on the same mesh:
+    dense_codes "codes" (int8 code tiles, no W) against "off" (bf16 R +
+    int8 W), one epoch each on one schedule, bit for bit; the codes
+    epoch's launches."""
+    mat = data.train_mat.copy()
+    mat.values[:] = (np.clip(np.round(mat.values / 0.5), 1, 10)
+                     * 0.5).astype(np.float32)
+    params = Params(**Y_PARAMS)
+    iu, ii = freq.invalid_users_items(mat, data.n_users, data.n_items)
+    model = ModelMF(params, data.n_users, data.n_items)
+    mesh = _y_mesh(dev)
+    s0 = init_state(params, data.n_users, data.n_items, device=dev)
+    out = {}
+    for codes in ("codes", "off"):
+        solver = bdsgd.DenseBlockDSGDSolver(model, params, mat, iu, ii,
+                                            mesh, dense_codes=codes)
+        assert (solver.W_tiles is None) == (codes == "codes")
+        sched = solver.draw_schedule()
+        drk.dense_rows_epoch.launches = 0
+        st = solver.epoch_with(s0, params.learn_rate, sched)
+        out[codes] = (st.u_fac.clone(), st.i_fac.clone(),
+                      drk.dense_rows_epoch.launches)
+        del solver, st
+        torch.cuda.empty_cache()
+    same = all(torch.equal(x, y) for x, y in zip(out["codes"][:2],
+                                                 out["off"][:2]))
+    log(f"(y) half-star ratings: int8 code tiles against bf16 R + int8 W "
+        f"tiles, one epoch: bit for bit {same}; code launches "
+        f"{out['codes'][2]}")
+    if not same:
+        raise AssertionError("(y) code tiles and float tiles differ")
+    return out["codes"][2]
+
+
+def _y_block(data, dev):
+    """(y) 4: train_model(mf_method="blocksgd", mesh), 2 epochs: one diag
+    launch a shard-round, every cell finished; one shard-round against
+    block_sweep_diag; val RMSE falls."""
+    params = Params(**dict(CELLS["d"][1], max_iter=2))
+    mesh = _y_mesh(dev)
+    _zero_block_counts()
+    rep, model, ev, _ = train_model(data, params, algo="mf",
+                                    mf_method="blocksgd", mesh=mesh,
+                                    log_fn=lambda s: log(f"(y) {s}"))
+    (n_row, n_diag, n_cell), cells = _block_counts()
+    solver = rep.solver
+    N = solver.n_shards
+    log(f"(y) blocksgd on {N} shards: SU={solver.SU} SI={solver.SI} sub "
+        f"{solver.sub_bu} x {solver.sub_bi} S={solver.S} bs={solver.bs} "
+        f"pad_frac {solver.pad_frac:.3f}; launches (row, diag, cell) "
+        f"{(n_row, n_diag, n_cell)}; finished cells {cells}")
+    assert isinstance(solver, bdsgd.BlockDSGDSolver)
+    epochs = len(rep.history)
+    assert epochs == params.max_iter
+    assert (n_row, n_diag, n_cell) == (0, epochs * N * N, 0)
+    assert cells == (0, epochs * N * N * solver.SU * solver.SI, 0), cells
+    s0 = shard_state(init_state(params, data.n_users, data.n_items,
+                                device=dev), mesh)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    vals = [h.val_rmse for h in rep.history]
+    log(f"(y) blocksgd val RMSE at init {val0!r}, per epoch {vals!r}; "
+        f"epoch in the loop {[1e3 * h.seconds for h in rep.history]!r} ms")
+    assert len(vals) == params.max_iter and all(np.isfinite(vals)) and \
+        rep.best_metric < val0, vals
+    u_blk, i_blk = solver.stage_factors(s0)
+    sched = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.SU,
+                              solver.SI, solver.S // solver.bs)
+    args = (*sched, params.learn_rate, *solver.streams(0, 0))
+    kw = solver.sweep_kwargs()
+    kern = lambda: bsk.block_sgd_diag_epoch(
+        u_blk[0].clone(), i_blk[0].clone(), *args, **kw,
+        slices=None if solver.slices is None else solver.slices[0][0])
+    plain = lambda: bsk.block_sweep_diag(u_blk[0].clone(),
+                                         i_blk[0].clone(), *args, **kw)
+    a, r, ratio = _errors(kern(), plain(), BF16_RTOL, BF16_ATOL)
+    k_ms, p_ms = _alternate(kern, plain)
+    log(f"(y) one shard-round of the one-hot engine (shard 0, round 0, "
+        f"{sched[0].shape[0]} diag rounds of {solver.SI} lanes) kernel vs "
+        f"plain: max_abs {a:.3e} max_rel {r:.3e} err/tol {ratio:.3e}; "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events)")
+    if ratio > 1.0:
+        raise AssertionError("(y) block shard-round: kernel vs plain")
+    return dict(launches=n_diag, max_abs_err=a, ms=k_ms, plain_ms=p_ms)
+
+
+def _y_dsgd(data, dev):
+    """(y) 5: TMF+Dropout on the scatter DSGD (train_model(algo=
+    "tmfdropout", mf_method="sgd", mesh)), 2 epochs: Poisson ranks drawn
+    per (round, shard); val RMSE falls; epoch ms and idle share (one
+    timed epoch, one profiled: the epoch is host-bound, seconds long).
+    Steps of 2,048 ratings at lr 0.01: the DSGD engine sums a batch's
+    gradients without collision normalization (as JAX's), so a hot item
+    of a 16,384-rating step at (d)'s lr 0.05 takes many steps at once."""
+    params = Params(**dict(CELLS["d"][1], max_iter=2, batch_size=2048,
+                           learn_rate=0.01))
+    mesh = _y_mesh(dev)
+    rep, model, ev, _ = train_model(data, params, algo="tmfdropout",
+                                    mf_method="sgd", mesh=mesh,
+                                    log_fn=lambda s: log(f"(y) {s}"))
+    solver = rep.solver
+    assert type(solver).__name__ == "DSGDShardedSolver"
+    assert solver.sample_poisson
+    s0 = shard_state(init_state(params, data.n_users, data.n_items,
+                                device=dev), mesh)
+    val0 = ev.rmse(model.eval_view(s0), "val")
+    vals = [h.val_rmse for h in rep.history]
+    sched = solver.draw_schedule()
+
+    def epoch():
+        solver._resident = None
+        return solver.epoch_with(s0, params.learn_rate, sched)
+
+    ms, busy, idle, _ = _busy_idle(epoch)
+    log(f"(y) tmfdropout scatter DSGD: S={solver.S} bs={solver.bs} "
+        f"({solver.S // solver.bs} steps a shard-round); val RMSE at init "
+        f"{val0!r}, per epoch {vals!r}; epoch alone (CUDA events) "
+        f"{ms:.3f} ms, device busy {busy:.3f} ms, idle share {idle:.3f}")
+    assert len(vals) == params.max_iter and all(np.isfinite(vals)) and \
+        rep.best_metric < val0, vals
+
+
+def _y_eval(data, dense, dev):
+    """(y) 6-8: the sharded top-N (HR@10, ARHR@10) and RMSE against one
+    device, the sharded checkpoint round trip, mesh ALS against ALS."""
+    mesh = _y_mesh(dev)
+    rep, model = dense["rep"], dense["model"]
+    view = model.eval_view(rep.best_state)
+    iu, ii = dense["inval"]
+    kw = dict(user_block=1024)
+    sc1 = CatalogScorer(data.train_mat, iu, ii, data.n_users, data.n_items,
+                        mesh=mesh, **kw)
+    sc0 = CatalogScorer(data.train_mat, iu, ii, data.n_users, data.n_items,
+                        device=dev, **kw)
+    tk.topk_catalog.launches = 0
+    hr1 = sc1.hit_rate(view, data.val_mat, 10)
+    ar1 = sc1.arhr(view, data.test_mat, 10)
+    launches = tk.topk_catalog.launches
+    per = -(-(-(-data.n_users // 1024)) // Y_SHARDS) * Y_SHARDS \
+        // Y_SHARDS * 1024
+    want = 2 * sum(tk.pass_launches(min(per, data.n_users - s * per),
+                                    data.n_items, 10)
+                   for s in range(Y_SHARDS))
+    hr0 = sc0.hit_rate(view, data.val_mat, 10)
+    ar0 = sc0.arhr(view, data.test_mat, 10)
+    s1, i1 = sc1._topk_dev(view, 10)
+    s0_, i0 = sc0._topk_dev(view, 10)
+    err = float((s1 - s0_).abs().max())
+    pass_ms = [_cuda_ms(lambda: sc._topk_dev(view, 10), 3)
+               for sc in (sc1, sc0, sc0, sc1)]
+    log(f"(y) sharded top-10 over {Y_SHARDS} shards: HR@10 {hr1!r} (one "
+        f"device {hr0!r}), ARHR@10 {ar1!r} (one device {ar0!r}); ids equal "
+        f"{bool(torch.equal(i1, i0))}, scores max_abs {err:.3e}; top-N "
+        f"launches {launches} (plan {want}); a top-10 pass (CUDA events, "
+        f"sharded, one device, one device, sharded) {pass_ms!r} ms")
+    assert launches == want, (launches, want)
+    if not (hr1 == hr0 and ar1 == ar0 and torch.equal(i1, i0)):
+        raise AssertionError("(y) sharded top-N differs from one device")
+    ev1 = Evaluator(data, iu, ii, rep.solver.params, mesh=mesh)
+    for which in ("val", "test"):
+        r1, r0 = ev1.rmse(view, which), dense["ev"].rmse(view, which)
+        log(f"(y) sharded RMSE ({which}) {r1!r}, one device {r0!r}")
+        assert abs(r1 - r0) <= 1e-6 * max(1.0, r0), (which, r1, r0)
+    path = os.path.join(Y_DIR, "ckpt")
+    t0 = time.perf_counter()
+    ckpt_mod.save_sharded(path, rep.best_state, epoch=np.int64(3))
+    back, extra = ckpt_mod.restore_sharded(path, rep.best_state)
+    same = all(torch.equal(a, b) for a, b in zip(back, rep.best_state))
+    log(f"(y) save_sharded -> restore_sharded of the trained state: bit "
+        f"for bit {same}, {time.perf_counter() - t0:.2f} s")
+    assert same and int(extra["epoch"]) == 3
+    params = Params(**dict(COORD_PARAMS, max_iter=1))
+    runs = {}
+    for tag, kw_ in (("mesh", dict(mesh=mesh)), ("one device",
+                                                 dict(device=dev))):
+        t0 = time.perf_counter()
+        r_, *_ = train_model(data, params, algo="mf", mf_method="als",
+                             log_fn=lambda s: None, **kw_)
+        runs[tag] = (r_.state, time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for a, b in zip(runs["mesh"][0],
+                                                 runs["one device"][0]))
+    log(f"(y) mesh ALS, 1 epoch ({runs['mesh'][1]:.1f} s) against ALS on "
+        f"one device ({runs['one device'][1]:.1f} s): bit for bit {same}")
+    if not same:
+        raise AssertionError("(y) mesh ALS differs from ALS")
+    return launches, err
+
+
+def phase_mesh(data: Data, dev="cuda") -> dict:
+    """(y): the multi-device engines on a 4-shard mesh of the one card.
+    Returns the launches and worst errors of each kernel on this path."""
+    dense = _y_dense(data, dev)
+    _y_two_process(dense["first"], dev)
+    n_codes = _y_codes(data, dev)
+    topk_n, topk_err = _y_eval(data, dense, dev)
+    del dense["rep"], dense["ev"]
+    torch.cuda.empty_cache()
+    block = _y_block(data, dev)
+    torch.cuda.empty_cache()
+    _y_dsgd(data, dev)
+    torch.cuda.empty_cache()
+    return dict(dense=dense, codes=n_codes, block=block,
+                topk=(topk_n, topk_err))
+
+
 NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 
@@ -3945,6 +4422,8 @@ def main() -> int:
     lap("q")
     phase_sgdparsvd(data_d)
     lap("t")
+    y = phase_mesh(data_d)
+    lap("y")
     cli_k = phase_cli(data_d, best_d=(d.pop("best"), d.pop("params")))
     lap("u")
     phase_analyze(data_d)
@@ -3970,13 +4449,14 @@ def main() -> int:
     kernels = [
         entry("dense_rows<f32|bf16 R; int8|bf16|f32 W>", SOURCE,
               "matfac_tpu/ops/dense_row_kernel.py:108",
-              d["launches"] + cli_k["stripe"][0],
+              d["launches"] + cli_k["stripe"][0] + y["dense"]["launches"],
               max(float_err, d["max_abs_err"], l_["max_abs_err"],
-                  cli_k["stripe"][1]), d["ms"],
+                  cli_k["stripe"][1], y["dense"]["max_abs_err"]), d["ms"],
               d["plain_ms"], (d["bound_ms"], d["bound_by"]),
               d["library_ms"], stripe_lib),
         entry("dense_rows<int8 codes>", SOURCE,
-              "matfac_tpu/ops/dense_row_kernel.py:231", e["launches"],
+              "matfac_tpu/ops/dense_row_kernel.py:231",
+              e["launches"] + y["codes"],
               max(worst["codes"], exact["codes"], e["max_abs_err"]), e["ms"],
               e["plain_ms"], (e["bound_ms"], e["bound_by"]),
               e["library_ms"], stripe_lib),
@@ -3996,9 +4476,9 @@ def main() -> int:
         entry("topk_catalog<fused>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118",
               g["fused"][0] + hyb["launches"] + dbpr["launches"]
-              + cli_k["fused"][0],
+              + cli_k["fused"][0] + y["topk"][0],
               max(err_f, g["fused"][1], hyb["max_abs_err"],
-                  cli_k["fused"][1]), *g["fused"][2:]),
+                  cli_k["fused"][1], y["topk"][1]), *g["fused"][2:]),
         entry("topk_catalog<radix>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118",
               g["radix"][0] + cli_k["radix"][0],
@@ -4006,9 +4486,9 @@ def main() -> int:
               *g["radix"][2:]),
         entry("block_sgd<diag>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148",
-              n_i + cli_k["diag"][0],
-              max(block["diag"], err_i, err_j, cli_k["diag"][1]), k_i, p_i,
-              bound_i),
+              n_i + cli_k["diag"][0] + y["block"]["launches"],
+              max(block["diag"], err_i, err_j, cli_k["diag"][1],
+                  y["block"]["max_abs_err"]), k_i, p_i, bound_i),
         entry("block_sgd<row>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148", n_k,
               max(block["row"], err_k), k_k, p_k, bound_k),
@@ -4029,4 +4509,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        # one process of phase (y)'s 2-process run (started by the script)
+        port, rank, out_dir, dev = sys.argv[2:6]
+        sys.exit(mesh_worker(int(port), int(rank), out_dir, dev))
     sys.exit(main())

@@ -31,7 +31,10 @@ dense-stripe BPR engine, "sgdparsvd"); and the othersrc models ("tmf_bias",
 reports (``eval/quartile.py``); the dense engine's diag cell grid
 (``BlockSGDSolver(engine="dense", bi=<below the catalog>)``, a cell-grid
 entry of ``csrc/dense_rows.cu``); both halves of the checkpoint and io
-modules and JAX's synthetic generators. Each kernel runs on a CUDA
+modules and JAX's synthetic generators; and the multi-device layer
+(``parallel/``: the mesh, ``torch.distributed`` set-up, the scatter,
+one-hot and dense DSGD solvers behind ``train_model(..., mesh=...)``,
+the sharded evaluators and checkpoints). Each kernel runs on a CUDA
 tensor, its plain PyTorch version on a CPU tensor.
 """
 

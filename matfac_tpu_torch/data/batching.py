@@ -1,5 +1,6 @@
 """Host batch staging (port of ``CooBatches`` / ``coo_batches`` and
-``RowBucket`` / ``bucketed_rows`` of matfac_tpu/data/batching.py).
+``RowBucket`` / ``bucketed_rows``, ``user_item_block_partition`` and
+``latin_square_schedule`` of matfac_tpu/data/batching.py).
 
 Ratings become fixed-size COO batches for the scatter SGD engine: the
 filtered triplets (getUIRatings semantics, util.cpp:636-722) padded to a
@@ -11,7 +12,7 @@ device once.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -123,3 +124,25 @@ def bucketed_rows(mat: RatingMatrix, min_cap: int = 8,
         lo = hi
         cap *= 2
     return out
+
+
+def user_item_block_partition(n_users: int, n_items: int, n_blocks: int,
+                              seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Shuffled equal partition of users and items into ``n_blocks`` parts
+    (the DSGD stratification of trainSGDPar, modelMF.cpp:229-265).
+    Returns (user_block[n_users], item_block[n_items]) part ids."""
+    rng = np.random.default_rng(seed)
+    u_perm = rng.permutation(n_users)
+    i_perm = rng.permutation(n_items)
+    u_block = np.zeros(n_users, np.int32)
+    i_block = np.zeros(n_items, np.int32)
+    u_block[u_perm] = (np.arange(n_users) * n_blocks) // max(n_users, 1)
+    i_block[i_perm] = (np.arange(n_items) * n_blocks) // max(n_items, 1)
+    return u_block, i_block
+
+
+def latin_square_schedule(n: int, rng: np.random.Generator) -> np.ndarray:
+    """One random round of the DSGD block schedule: a permutation pairing
+    row-block r with col-block perm[r] (sgdUpdateBlockSeq analog,
+    util.cpp:1077-1107; a uniform permutation has its coverage)."""
+    return rng.permutation(n)

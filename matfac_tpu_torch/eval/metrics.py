@@ -7,6 +7,13 @@ filtering, model.cpp:1770-1815 objective). Torch runs eagerly, so the COO
 streams are not padded to static sizes; the error reduction walks chunks
 of ``_EVAL_CHUNK`` entries so the gathered factor rows stay bounded
 (2 * _EVAL_CHUNK * k * 4 bytes), and sums in float64.
+
+With a ``mesh`` the SSE reductions are cut over every shard of the mesh:
+the stream is split into N slices of a multiple of 1024 entries (JAX pads
+it to a multiple of 1024 * N; the port leaves out the padded slots), each
+process sums its shards' slices on their devices and the (sse, count)
+partials are summed over the processes. RMSE and the objective equal the
+single-device values up to the order of the float64 sums.
 """
 
 from __future__ import annotations
@@ -86,7 +93,16 @@ class Evaluator:
     RMSE(train/test/val) and the objective."""
 
     def __init__(self, data, invalid_users: np.ndarray,
-                 invalid_items: np.ndarray, params, device="cuda"):
+                 invalid_items: np.ndarray, params, device="cuda",
+                 mesh=None):
+        """``mesh``: cut the SSE reductions over the mesh's shards; the
+        inputs then live on the process's first mesh device (``device``
+        is not read)."""
+        if mesh is not None:
+            device = mesh.home()
+        self.mesh = mesh
+        self.n_shards = mesh.size if mesh is not None else 1
+        self._shard_slices = {}
         self.params = params
         self.n_users = data.n_users
         self.n_items = data.n_items
@@ -106,12 +122,46 @@ class Evaluator:
         self.test_coo = stage(data.test_mat)
         self.val_coo = stage(data.val_mat)
 
+    def _shard_coo(self, coo: CooDevice):
+        """[(shard device, lo, hi, slice on that device)] of this
+        process's shards: N slices of a multiple of 1024 entries."""
+        key = id(coo)
+        if key not in self._shard_slices:
+            n = coo.rows.shape[0]
+            per = -(-n // (1024 * self.n_shards)) * 1024
+            flat = self.mesh.devices.reshape(-1)
+            out = []
+            for s in self.mesh.local_shards():
+                lo, hi = min(s * per, n), min((s + 1) * per, n)
+                out.append((flat[s], lo, hi, CooDevice(
+                    *(a[lo:hi].to(flat[s]) for a in coo))))
+            self._shard_slices[key] = (coo, out)
+        return self._shard_slices[key][1]
+
+    def _sse(self, view: EvalView, coo: CooDevice,
+             weights: Optional[torch.Tensor] = None) -> Tuple[float, int]:
+        """(sse, count): ``sse`` on one device, or the sum of the shards'
+        partials under a mesh (over every process)."""
+        if self.mesh is None:
+            return sse(view, coo, weights)
+        from matfac_tpu_torch.parallel import distributed
+        views, total, count = {}, 0.0, 0
+        for dev, lo, hi, part in self._shard_coo(coo):
+            if dev not in views:
+                views[dev] = EvalView(*(t.to(dev) for t in view))
+            w = None if weights is None else weights[lo:hi].to(dev)
+            s, n = sse(views[dev], part, w)
+            total, count = total + s, count + n
+        total, count = distributed.all_reduce_sum([total, count])
+        return total, int(count)
+
     def rmse(self, view: EvalView, which: str = "test") -> float:
         coo = {"train": self.train_coo, "test": self.test_coo,
                "val": self.val_coo}[which]
         if coo is None:
             raise ValueError(f"no {which} matrix")
-        return rmse_value(view, coo)
+        s, n = self._sse(view, coo)
+        return float(np.sqrt(s / max(n, 1)))
 
     def objective(self, view: EvalView, state,
                   weights: Optional[torch.Tensor] = None,
@@ -122,7 +172,7 @@ class Evaluator:
         penalty; ``use_bias=True`` adds u_reg*||uBias||^2 +
         i_reg*||iBias||^2 over valid entities. The penalty reads the raw
         factors, never the rank-masked view (model.cpp:1782-1807)."""
-        s, _ = sse(view, self.train_coo, weights)
+        s, _ = self._sse(view, self.train_coo, weights)
         p = self.params
         reg = 0.0
         if use_factors:
@@ -138,7 +188,7 @@ class Evaluator:
         """objectiveSing (model.cpp:1818-1865): SSE(train) plus the L2
         penalty of each dim weighted by its singular value, with NO
         u_reg / i_reg scaling."""
-        s, _ = sse(view, self.train_coo)
+        s, _ = self._sse(view, self.train_coo)
         sv = torch.as_tensor(np.asarray(singular_vals, np.float32),
                              device=self.device)[None, :]
         u = ((state.u_fac * state.u_fac * sv).sum(dim=1)

@@ -8,9 +8,16 @@ view, the plain PyTorch version on a CPU view. Exclusion reads the train
 matrix's CSR rows, so any set of users can be scored and eval and serving
 share one kernel.
 
-Not ported: the mesh sharding (ROADMAP queue 1, item 13) and the
-padded-row fallback for skewed COO blocks (``_use_coo``), which is TPU
-scatter machinery with no meaning over CSR exclusion. ``user_block`` and
+With a ``mesh`` the users are cut over every shard of the mesh, as in
+JAX: blocks of ``user_block`` users, their count rounded up to a multiple
+of the shard count, a contiguous run of blocks a shard; each process runs
+its shards' users through the same kernel on each shard's device and the
+[n_users, n] results are gathered (over the processes too). Every user's
+top-N is computed as on one device, so ``topk``, ``hit_rate`` and
+``arhr`` equal the single-device results exactly.
+
+Not ported: the padded-row fallback for skewed COO blocks (``_use_coo``),
+which is TPU scatter machinery with no meaning over CSR exclusion. ``user_block`` and
 ``item_block`` are kept for call compatibility; the kernel picks its own
 tiling. ``sample_negatives`` and ``popularity_ranking_metrics`` are numpy,
 copied from the JAX module (which imports jax).
@@ -70,9 +77,14 @@ class CatalogScorer:
                  invalid_items: np.ndarray, n_users: int, n_items: int,
                  user_block: int = 1024, item_block: int = 32768,
                  mesh=None, device="cuda"):
+        """``mesh``: cut the users over the mesh's shards; the inputs then
+        live on the process's first mesh device (``device`` is not
+        read)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded eval is ROADMAP queue 1, item 13")
+            device = mesh.home()
+        self.mesh = mesh
+        self.n_shards = mesh.size if mesh is not None else 1
+        self._per_device = {}
         self.n_users = n_users
         self.n_items = n_items
         self.user_block = user_block
@@ -95,7 +107,60 @@ class CatalogScorer:
                                   self.indices, self.invalid_items_dev, n)
 
     def _topk_dev(self, view: EvalView, n: int):
+        if self.mesh is not None:
+            return self._sharded(view, n)
         return self.topk_users(view, self._all_users, n)
+
+    def _staged_on(self, dev):
+        """(invalid items, indptr, indices) on ``dev``."""
+        if dev not in self._per_device:
+            self._per_device[dev] = tuple(
+                t.to(dev) for t in (self.invalid_items_dev, self.indptr,
+                                    self.indices))
+        return self._per_device[dev]
+
+    def _sharded(self, view: EvalView, n: int):
+        """[n_users, n] (scores, ids) on this process's first mesh device,
+        each local shard's contiguous users scored on its device, then
+        gathered over the processes."""
+        from matfac_tpu_torch.parallel import distributed
+        B, N = self.user_block, self.n_shards
+        n_blocks = -(-(-(-self.n_users // B)) // N) * N
+        per = n_blocks // N * B            # users a shard
+        flat = self.mesh.devices.reshape(-1)
+        shards = self.mesh.local_shards()
+        views, scores, ids = {}, [], []
+        for sh in shards:
+            dev = flat[sh]
+            lo, hi = min(sh * per, self.n_users), min((sh + 1) * per,
+                                                      self.n_users)
+            if dev not in views:
+                views[dev] = EvalView(*(t.to(device=dev,
+                                             dtype=torch.float32)
+                                        for t in view))
+            invalid, indptr, indices = self._staged_on(dev)
+            if hi <= lo:     # a shard of padding users only
+                continue
+            users = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+            sc, it = topk_catalog_block(views[dev], users, indptr, indices,
+                                        invalid, n)
+            scores.append(sc.to(self.device))
+            ids.append(it.to(self.device))
+        s = (torch.cat(scores) if scores else torch.empty(
+            (0, n), dtype=torch.float32, device=self.device))
+        i = (torch.cat(ids) if ids else torch.empty(
+            (0, n), dtype=torch.int32, device=self.device))
+        if distributed.multiprocess():
+            # every process scores len(shards) * per users, the last
+            # shards short by the padding: pad, gather, cut
+            rows = len(shards) * per
+            pad = lambda x: torch.cat([x, x.new_zeros(
+                (rows - x.shape[0],) + tuple(x.shape[1:]))])
+            s = distributed.allgather_blocks(pad(s)[None]).reshape(
+                -1, s.shape[1])[: self.n_users]
+            i = distributed.allgather_blocks(pad(i)[None]).reshape(
+                -1, i.shape[1])[: self.n_users]
+        return s, i
 
     def topk(self, view: EvalView, n: int) -> Tuple[np.ndarray, np.ndarray]:
         """[n_users, n] (scores, item ids) of top unrated items."""

@@ -1,6 +1,5 @@
-"""Checkpoint / resume (port of the text, binary and npz paths of
-matfac_tpu/train/checkpoint.py; sharded checkpoints are ROADMAP queue 1,
-item 13).
+"""Checkpoint / resume (port of matfac_tpu/train/checkpoint.py: the text,
+binary, npz and sharded paths).
 
 The files go through the port's copies of the JAX package's numpy writers
 and readers (``data/io.py``), so a file written here is byte-identical to
@@ -12,6 +11,14 @@ them (``save_full`` / ``load_full``), the reference's float64 binaries
 (``save_bin_facs`` / ``load_bin_facs``), invalid sets as
 ``_invalUsers.txt`` / ``_invalItems.txt``. Every reader returns tensors
 on the device of the ``state`` it is given.
+
+Sharded checkpoints (``save_sharded`` / ``restore_sharded``) are a torch
+format of the port's own: a directory of one ``rows_{p}.pt`` file per
+process, rank p writing the contiguous rows it owns of every table
+(``distributed.host_user_range`` over the processes), and a
+``manifest.pt`` with the shapes, dtypes, mu and the extras, written by
+rank 0. Every process takes part in both calls. They are not byte
+compatible with the JAX package's orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -157,3 +164,47 @@ def load_state(path: str, device="cuda") -> Tuple[MFState, dict]:
                           for f in _FIELDS))
         extra = {k: z[k] for k in z.files if k not in _FIELDS}
     return state, extra
+
+
+def save_sharded(path: str, state: MFState, **extra) -> None:
+    """Write ``state`` (whole tables in every process, as the mesh solvers
+    hand them back) as a sharded checkpoint directory: each process its
+    own rows, rank 0 the manifest. Collective: every process calls it."""
+    from matfac_tpu_torch.parallel import distributed
+    path = os.path.abspath(path)
+    me, world = distributed.process_index(), distributed.process_count()
+    os.makedirs(path, exist_ok=True)
+    rows = {}
+    for f in ("u_fac", "i_fac", "u_bias", "i_bias"):
+        t = getattr(state, f)
+        lo, hi = distributed.host_user_range(t.shape[0], world, me)
+        rows[f] = t[lo:hi].detach().cpu().clone()
+    torch.save(rows, os.path.join(path, f"rows_{me}.pt"))
+    if me == 0:
+        torch.save({"world": world,
+                    "shapes": {f: tuple(getattr(state, f).shape)
+                               for f in _FIELDS},
+                    "mu": state.mu.detach().cpu().clone(),
+                    "extra": {k: np.asarray(v) for k, v in extra.items()}},
+                   os.path.join(path, "manifest.pt"))
+    distributed.barrier()
+
+
+def restore_sharded(path: str, like: MFState) -> Tuple[MFState, dict]:
+    """Read a ``save_sharded`` directory back into whole tables with the
+    device and dtype of ``like``'s tables; returns (state, extras). Every
+    process reads every process's rows, so the checkpoint restores under
+    any process count."""
+    path = os.path.abspath(path)
+    man = torch.load(os.path.join(path, "manifest.pt"), weights_only=False)
+    parts = [torch.load(os.path.join(path, f"rows_{p}.pt"),
+                        weights_only=False) for p in range(man["world"])]
+    out = {}
+    for f in _FIELDS:
+        ref = getattr(like, f)
+        t = man["mu"] if f == "mu" else torch.cat([pt[f] for pt in parts])
+        if tuple(t.shape) != tuple(man["shapes"][f]):
+            raise ValueError(f"{path}: {f} rows {tuple(t.shape)} != "
+                             f"{man['shapes'][f]}")
+        out[f] = t.to(device=ref.device, dtype=ref.dtype)
+    return MFState(**out), man["extra"]

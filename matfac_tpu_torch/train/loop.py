@@ -4,7 +4,9 @@ one-hot cell and row-dense engines, plain MF on the coordinate family (ALS,
 CCD, CCD++) and SVD-initialised SGD, BPR and the BPR x TMF+Poisson hybrid
 on the stream and dense-stripe pairwise engines, and the othersrc models:
 TMF with biases, head-item weights, rank locality, adaptive-rank dropout,
-the mf_freq curriculum and incremental rank).
+the mf_freq curriculum and incremental rank), on one device or, through
+``train_model(..., mesh=...)``, on the DSGD engines of a mesh
+(``parallel/``).
 
 Termination is Model::isTerminateModel (model.cpp:1471-1540):
 
@@ -56,6 +58,11 @@ from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
+from matfac_tpu_torch.parallel import distributed
+from matfac_tpu_torch.parallel.block_dsgd import (BlockDSGDSolver,
+                                                  DenseBlockDSGDSolver)
+from matfac_tpu_torch.parallel.dsgd import DSGDShardedSolver
+from matfac_tpu_torch.parallel.mesh import shard_state
 
 
 @dataclasses.dataclass
@@ -394,14 +401,18 @@ _DROPOUT_MODES = {"dropoutmf": "prob", "dropoutmf_prob": "prob",
                   "dropoutmf_onlyordered": "onlyordered"}
 
 
-def _auto_method(algo: str, data, params: Params) -> str:
-    """The JAX package's single-device solver choice (``_auto_method`` of
-    matfac_tpu/train/loop.py; the reference makes the user pick): plain MF
-    -> 'als'; bias models, per-side gated and adaptive-dropout models ->
+def _auto_method(algo: str, data, params: Params, mesh=None) -> str:
+    """The JAX package's solver choice (``_auto_method`` of
+    matfac_tpu/train/loop.py; the reference makes the user pick). Under a
+    mesh: plain MF -> 'als', everything else -> 'blocksgd' (block-DSGD).
+    On one device: plain MF -> 'als'; bias models, per-side gated and
+    adaptive-dropout models ->
     'sgd'; the long-tail models -> 'densesgd' when the padded dense grid
     fits 6e9 bytes (1 byte a slot where the ratings stage as int8 codes,
     else 3), else 'sgd' for TMF+Dropout's sampled ranks, else 'blocksgd'
     when the one-hot stream fits 8e9 bytes, else 'sgd'."""
+    if mesh is not None:
+        return "als" if algo == "mf" else "blocksgd"
     if algo == "mf":
         return "als"
     if algo in ("mf_bias", "tmf_bias", "mf_loc", "mf_freq", "dropoutmf",
@@ -475,21 +486,41 @@ def train_model(data, params: Params, algo: str = "mf",
     deterministic ranks), "hog", or "hogposneg" / "posneg" (posneg mode);
     ``params.bpr_engine="dense"`` trains stream mode on the dense-stripe
     engine, falling back to the stream engine for the hybrid's rank masks
-    or a mask over budget. Mesh training is not ported and raises
-    NotImplementedError naming its ROADMAP item; what JAX refuses raises
-    JAX's ValueError.
+    or a mask over budget. What JAX refuses raises JAX's ValueError.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) routes as JAX does: "densesgd"
+    -> DenseBlockDSGDSolver (falling back to mesh "blocksgd" on its
+    ValueError, logged), "blocksgd" -> BlockDSGDSolver (DSGDShardedSolver
+    for Poisson-sampled ranks), the sgd spellings -> DSGDShardedSolver,
+    "als" / "ialspp" / "alsdense" -> the single-device solver on the
+    process's mesh device (JAX row-shards the tables and lets SPMD spread
+    the same math; across processes this raises NotImplementedError,
+    ROADMAP queue 1, item 19), the evaluator cut over the mesh; bias
+    models, adaptive-dropout sampled ranks and per-side gates are refused.
+    On a multi-process run the train matrix may be each process's
+    host-local rows: the frequencies are summed over the processes before
+    any model is built. ``device`` is not read under a mesh.
     Returns (report, model, evaluator or scorer, (invalid_users,
     invalid_items))."""
     a, m = algo.lower(), mf_method.lower()
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is ROADMAP queue 1, item 13")
+        device = mesh.home()
     inval_u, inval_i = ufreq.invalid_users_items(
         data.train_mat, data.n_users, data.n_items)
     user_freq, item_freq = ufreq.row_col_freq(data.train_mat)
     # zero-pad: entities seen only in test / val have zero train frequency
     user_freq = _pad_rows(user_freq, data.n_users)
     item_freq = _pad_rows(item_freq, data.n_items)
+    if distributed.multiprocess():
+        # each process may hold only its host-local rating rows: the model
+        # statistics (IFWMF weights, TMF ranks, head sets) and the invalid
+        # masks must be global, or the staged weights and ranks differ
+        # across processes
+        user_freq = distributed.allgather(
+            np.asarray(user_freq, np.int64)).sum(axis=0)
+        item_freq = distributed.allgather(
+            np.asarray(item_freq, np.int64)).sum(axis=0)
+        inval_u, inval_i = user_freq == 0, item_freq == 0
     if a in ("bpr", "bprpoissondropout", "bpr_poisson"):
         if m == "auto":
             # ranking trains through the one pairwise engine; 'train'
@@ -513,6 +544,9 @@ def train_model(data, params: Params, algo: str = "mf",
     if a in ("mf_freq", "mffreq"):
         # othersrc ModelMFFreq's head-first curriculum
         # (othersrc/modelMFFreq.cpp:200-278)
+        if mesh is not None:
+            raise ValueError("mf_freq trains on a single device "
+                             "(sequential curriculum, modelMFFreq.cpp:141)")
         return _train_mf_freq(data, params, m, log_fn, init_state_override,
                               inval_u, inval_i, user_freq, item_freq, prefix,
                               resume, device)
@@ -548,7 +582,7 @@ def train_model(data, params: Params, algo: str = "mf",
     else:
         raise ValueError(f"unknown algo {algo!r}")
     if m == "auto":
-        m = _auto_method(a, data, params)
+        m = _auto_method(a, data, params, mesh)
         log_fn(f"mf_method=auto resolved to '{m}' (the JAX package's "
                "measured guidance)")
         if m == "densesgd":
@@ -556,11 +590,24 @@ def train_model(data, params: Params, algo: str = "mf",
                    "fixed learn_rate this differs from the blocksgd "
                    "default's ~1-8k minibatches (pass mf_method="
                    "'blocksgd' to keep the previous default)")
-    # the single-device guards of the JAX front door
-    if type(model).update_side_masks is not ModelMF.update_side_masks \
-            and m not in _SGD:
+    # the guards of the JAX front door
+    if mesh is not None and model.use_bias:
+        # the DSGD engines update factors only: a bias model would train
+        # with frozen biases
         raise ValueError(
-            f"{model.name} carries per-side update gates that '{m}' does "
+            "mesh training does not support bias models (the DSGD "
+            "engines update factors only) — train mf_bias on a single "
+            "device, as the reference does (modelMFBias.cpp:103-227)")
+    if (mesh is not None and getattr(model, "stochastic_rank", False)
+            and not hasattr(model, "pair_lambda")):
+        raise ValueError(
+            f"mesh training does not support {model.name}'s sampled "
+            "ranks — train it single-device with mf_method=sgd")
+    if type(model).update_side_masks is not ModelMF.update_side_masks \
+            and (mesh is not None or m not in _SGD):
+        raise ValueError(
+            f"{model.name} carries per-side update gates that "
+            f"'{m}'{' under a mesh' if mesh is not None else ''} does "
             "not honor — use mf_method=sgd on a single device")
     if m in _COORD:
         weighted = (type(model).example_weight
@@ -595,7 +642,38 @@ def train_model(data, params: Params, algo: str = "mf",
         model, params, data.train_mat, inval_u, inval_i,
         batch_size=min(params.batch_size, 1024), bu=384, bi=384,
         schedule="diag", device=device)
-    if m in _SGD:
+    solver = None
+    if mesh is not None and m == "densesgd":
+        # the dense stripes inside the DSGD rotation; rank-masked models
+        # and over-budget grids fall back to mesh blocksgd
+        try:
+            solver = DenseBlockDSGDSolver(model, params, data.train_mat,
+                                          inval_u, inval_i, mesh)
+        except ValueError as e:
+            log_fn(f"mesh densesgd unavailable ({e}); falling back "
+                   "to mesh blocksgd")
+            m = "blocksgd"
+    if mesh is not None and m in _COORD[:3] and distributed.multiprocess():
+        raise NotImplementedError(
+            f"mesh '{m}' across processes is ROADMAP queue 1, item 19: "
+            "each process would run the whole solve")
+    if solver is not None:
+        pass
+    elif mesh is not None and m == "blocksgd":
+        # the one-hot engine inside the DSGD rotation; Poisson-sampled
+        # ranks need the scatter DSGD, which samples them
+        if hasattr(model, "pair_lambda"):
+            solver = DSGDShardedSolver(model, params, data.train_mat,
+                                       inval_u, inval_i, mesh)
+            log_fn("mesh blocksgd: fell back to the scatter DSGD "
+                   "(Poisson-sampled ranks)")
+        else:
+            solver = BlockDSGDSolver(model, params, data.train_mat, inval_u,
+                                     inval_i, mesh, batch_size=None)
+    elif mesh is not None and m in _SGD:
+        solver = DSGDShardedSolver(model, params, data.train_mat, inval_u,
+                                   inval_i, mesh)
+    elif m in _SGD:
         solver = sgd()
     elif m == "blocksgd":
         solver = blocksgd()
@@ -652,9 +730,11 @@ def train_model(data, params: Params, algo: str = "mf",
     else:
         raise ValueError(f"unknown mf_method {mf_method!r}; one of "
                          f"{_SOLVERS}")
-    ev = Evaluator(data, inval_u, inval_i, params, device)
+    ev = Evaluator(data, inval_u, inval_i, params, device, mesh=mesh)
     state = init_state_override or init_state(
         params, data.n_users, data.n_items, device=device)
+    if mesh is not None:
+        state = shard_state(state, mesh)
     state = model.transform_init_state(state)
     loop = TrainLoop(model, solver, ev, params, prefix=prefix,
                      invalid_users=inval_u, invalid_items=inval_i,

@@ -16,7 +16,7 @@ MODULES = sorted(
     for p in PKG.rglob("*.py"))
 SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
 PORT_FILES = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + SCRIPTS)
+              + SCRIPTS + [ROOT / "tests" / "torch_mesh_worker.py"])
 
 
 def _import_all_then(check: str) -> subprocess.CompletedProcess:
@@ -62,7 +62,11 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.analysis.topn",
             "matfac_tpu_torch.ops.ppr", "matfac_tpu_torch.tools",
             "matfac_tpu_torch.train.profiler",
-            "matfac_tpu_torch.data.movielens"} <= set(MODULES)
+            "matfac_tpu_torch.data.movielens",
+            "matfac_tpu_torch.parallel", "matfac_tpu_torch.parallel.mesh",
+            "matfac_tpu_torch.parallel.distributed",
+            "matfac_tpu_torch.parallel.dsgd",
+            "matfac_tpu_torch.parallel.block_dsgd"} <= set(MODULES)
     assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
     proc = _import_all_then(
         "bad = sorted(m for m in sys.modules if m == 'jax' "
