@@ -122,7 +122,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       whole epoch in f32 and in bf16 products against the plain version,
       the epoch twice bit-identical, epoch ms, idle share and bound; the
       first epoch again as 2 processes x 2 shards on the card (gloo; this
-      script with --mesh-worker), bit for bit; half-star ratings as int8
+      script with --mesh-worker), bit for bit; in the same two processes
+      ALS, iALS++ and dense ALS under train_model(mesh=...), 2 epochs
+      each, every process solving its share of each half-sweep, bit for
+      bit the 1-process runs; half-star ratings as int8
       code tiles against bf16 + int8 tiles, bit for bit; the sharded
       top-10 (HR@10, ARHR@10, ids) and RMSE against one device, launches
       against the plan; save_sharded / restore_sharded bit for bit; mesh
@@ -130,9 +133,14 @@ Phases, in order; any failure raises and the script exits non-zero:
       mf_method="blocksgd", mesh=...) for 2 epochs (BlockDSGDSolver, one
       diag launch a shard-round, every cell finished, a shard-round
       against block_sweep_diag); TMF+Dropout on the scatter DSGD, 2
-      epochs; val RMSE falls in each run;
+      epochs; val RMSE falls in each run; scripts/torch_scaling_curve.py's
+      phase split (full, nopermute and permuteonly epochs of the three
+      DSGD solvers at 1, 2 and 4 shards), printed, with one dense and one
+      one-hot shard-round at its shapes against their plain versions;
   (u) the port's front door at (d)'s width: (d)'s splits written once
-      through the port's write_csr (the val split also the probe matrix),
+      through the port's write_csr (the val split also the probe matrix)
+      and read back by read_csr through the native host parser (which
+      must be taken) and by the line parser, bit for bit, both timed,
       then ``matfac_tpu_torch.cli.main`` in process for mf_headwt with
       --mf_method auto (the one-hot kernel, float weights; 2 epochs) and
       densesgd (the stripe kernel, bf16 W; 4 epochs at lr 0.1, val RMSE
@@ -248,11 +256,13 @@ from matfac_tpu_torch.train import checkpoint as ckpt_mod
 from matfac_tpu_torch.train import loop as loop_mod
 from matfac_tpu_torch.train.loop import TrainLoop, TrainLoopHR, train_model
 from matfac_tpu_torch.utils import freq
+from matfac_tpu_torch.utils import native
 
 SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
 TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
 BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
 PROBE_SOURCE = "matfac_tpu_torch/csrc/bisect_probes.cu"
+HOST_SOURCE = "matfac_tpu_torch/csrc/native_host.cpp"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 1e-3, 1e-5   # summation order over bu and over panels
@@ -328,15 +338,18 @@ def phase_env() -> str:
 
 
 def phase_build() -> float:
-    """Every source at once (one nvcc each), then load each."""
+    """Every source at once (one nvcc each, g++ for the host library),
+    then load each."""
     t0 = time.perf_counter()
     paths = _build.build_all(["dense_rows", "topk", "block_sgd",
-                              "bisect_probes"])
+                              "bisect_probes", "native_host"])
     for mod in (drk, tk, bsk, bp):
         mod.library()
+    assert native.available()
     dt = time.perf_counter() - t0
-    log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE} and "
-        f"{PROBE_SOURCE}: {dt:.2f} s "
+    log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE}, "
+        f"{PROBE_SOURCE} and {HOST_SOURCE} ({_build.host_compiler()}): "
+        f"{dt:.2f} s "
         f"({', '.join(p.name for p in paths.values())})")
     return dt
 
@@ -2896,6 +2909,46 @@ def _bin_round_trip(best, params: Params, dev) -> None:
         os.remove(f)
 
 
+def _parse_both(paths: dict) -> RatingMatrix:
+    """(u)'s text read: each split through ``read_csr``, which must take
+    the native parser (``utils/native.py``, csrc/native_host.cpp built with
+    g++), then through the line parser, its fallback: the same arrays bit
+    for bit; both times printed. Returns the train split."""
+    taken, real = [], native.parse_csr_text
+
+    def spy(path, with_values):
+        out = real(path, with_values)
+        taken.append(out is not None)
+        return out
+    back = None
+    for name, path in paths.items():
+        native.parse_csr_text = spy
+        try:
+            t0 = time.perf_counter()
+            mat = mfio.read_csr(path)
+            native_s = time.perf_counter() - t0
+        finally:
+            native.parse_csr_text = real
+        if taken != [True]:
+            raise AssertionError(f"(u) read_csr {name}: the native parser "
+                                 f"was not taken ({taken})")
+        taken.clear()
+        t0 = time.perf_counter()
+        indptr, cols, vals = mfio._parse_lines(path, True)
+        line_s = time.perf_counter() - t0
+        same = (np.array_equal(indptr, mat.indptr)
+                and np.array_equal(cols.astype(np.int32), mat.indices)
+                and np.array_equal(vals.astype(np.float32), mat.values))
+        log(f"(u) read_csr {name} ({os.path.getsize(path) / 1e6:.1f} MB, "
+            f"{mat.nnz} ratings): native parser {native_s:.3f} s, line "
+            f"parser {line_s:.3f} s; arrays bit for bit equal {same}")
+        if not same:
+            raise AssertionError(f"(u) {name}: the native parser's arrays "
+                                 "differ from the line parser's")
+        back = mat if name == "train" else back
+    return back
+
+
 def phase_cli(data: Data, dev="cuda", best_d=None) -> dict:
     """(u): (d)'s splits written once through the port's write_csr (the val
     split also as --graphmat), then ``cli.main`` in process for each of
@@ -2927,16 +2980,14 @@ def phase_cli(data: Data, dev="cuda", best_d=None) -> dict:
         log(f"(u) write_csr {name}: {mat.nnz} ratings, "
             f"{os.path.getsize(paths[name]) / 1e6:.1f} MB in "
             f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    back = mfio.read_csr(paths["train"])
-    read_s = time.perf_counter() - t0
+    back = _parse_both(paths)
     # "%g" keeps 6 significant digits: a relative error up to 5e-6
     same = (np.array_equal(back.indptr, data.train_mat.indptr)
             and np.array_equal(back.indices, data.train_mat.indices)
             and np.allclose(back.values, data.train_mat.values, rtol=1e-5,
                             atol=0))
-    log(f"(u) read_csr train: {read_s:.2f} s; the same matrix (values to "
-        f"the text's 6 digits) {same}")
+    log(f"(u) read_csr train: the same matrix as written (values to the "
+        f"text's 6 digits) {same}")
     assert same, "read_csr did not read back what write_csr wrote"
     files = ["--trainmat", paths["train"], "--testmat", paths["test"],
              "--valmat", paths["val"], "--graphmat", paths["val"]]
@@ -3918,6 +3969,17 @@ Y_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 # as (w) holds its epoch; one shard-round and the f32-product epoch at
 # RTOL / ATOL
 Y_BF16_RTOL, Y_BF16_ATOL = 5e-3, 5e-4
+# (y) 2: the coordinate solvers under train_model(mesh=...), 2 epochs each
+# at (d)'s Params (k 64, reg 0.01), 1 process against 2
+Y_COORD = ("als", "ialspp", "alsdense")
+Y_COORD_PARAMS = dict(CELLS["d"][1], max_iter=2)
+Y_COORD_SOLVERS = {"als": als.ALSSolver, "ialspp": als.SubspaceALSSolver,
+                   "alsdense": als.DenseALSSolver}
+# (y) 6: scripts/torch_scaling_curve.py's phase split
+SCALING_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "scripts", "torch_scaling_curve.py")
+Y_CURVE_SHARDS = (1, 2, 4)
+Y_CURVE_EPOCHS = 2
 
 
 def _y_mesh(dev, n=Y_SHARDS):
@@ -3965,6 +4027,62 @@ def mesh_dense_bound(solver):
                   else "f32")
 
 
+def _dense_round_vs_plain(tag, solver, s0, params) -> float:
+    """One shard-round (shard 0, round 0) of a DenseBlockDSGDSolver from
+    ``s0``, kernel vs dense_sweep_rows at RTOL / ATOL, both timed; returns
+    the max abs error."""
+    k, p = params.fac_dim, params
+    u_blk, i_blk = solver.stage_factors(s0)
+    order = torch.randperm(solver.SU, generator=torch.Generator()
+                           .manual_seed(1))
+    R, W = solver.tiles(0, 0)
+    U0 = u_blk[0].view(solver.SU, solver.sub_bu, k)
+    kern = lambda: drk.dense_rows_epoch(
+        U0.clone(), i_blk[0].clone(), order, p.learn_rate, R, W,
+        solver.r_scale, p.u_reg, p.i_reg, solver.collision_norm,
+        solver.mm_bf16,
+        counts=None if solver.counts is None else solver.counts[0][0])
+    plain = lambda: dense_sweep_rows(
+        U0.clone(), i_blk[0].clone(), order, p.learn_rate, R, W, p.u_reg,
+        p.i_reg, solver.collision_norm, solver.mm_bf16,
+        r_scale=solver.r_scale)
+    a, r, ratio = _errors(kern(), plain())
+    ms, plain_ms = _alternate(kern, plain)
+    log(f"{tag} one dense shard-round (shard 0, round 0; {solver.SU} "
+        f"stripes of [{solver.sub_bu}, {solver.bi}]) kernel vs plain: "
+        f"max_abs {a:.3e} max_rel {r:.3e} err/tol {ratio:.3e}; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events)")
+    if ratio > 1.0:
+        raise AssertionError(f"{tag} shard-round: kernel disagrees with "
+                             f"dense_sweep_rows (rtol {RTOL}, atol {ATOL})")
+    return a
+
+
+def _block_round_vs_plain(tag, solver, s0, lr):
+    """One shard-round (shard 0, round 0) of a BlockDSGDSolver from ``s0``,
+    kernel vs block_sweep_diag at BF16_RTOL / BF16_ATOL, both timed;
+    returns (max abs error, kernel ms, plain ms)."""
+    u_blk, i_blk = solver.stage_factors(s0)
+    sched = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.SU,
+                              solver.SI, solver.S // solver.bs)
+    args = (*sched, lr, *solver.streams(0, 0))
+    kw = solver.sweep_kwargs()
+    kern = lambda: bsk.block_sgd_diag_epoch(
+        u_blk[0].clone(), i_blk[0].clone(), *args, **kw,
+        slices=None if solver.slices is None else solver.slices[0][0])
+    plain = lambda: bsk.block_sweep_diag(u_blk[0].clone(),
+                                         i_blk[0].clone(), *args, **kw)
+    a, r, ratio = _errors(kern(), plain(), BF16_RTOL, BF16_ATOL)
+    k_ms, p_ms = _alternate(kern, plain)
+    log(f"{tag} one shard-round of the one-hot engine (shard 0, round 0, "
+        f"{sched[0].shape[0]} diag rounds of {solver.SI} lanes) kernel vs "
+        f"plain: max_abs {a:.3e} max_rel {r:.3e} err/tol {ratio:.3e}; "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events)")
+    if ratio > 1.0:
+        raise AssertionError(f"{tag} block shard-round: kernel vs plain")
+    return a, k_ms, p_ms
+
+
 def _y_dense(data, dev):
     """(y) 1: train_model(mf_method="densesgd", mesh=4 shards), 3 epochs:
     launches, staging, val RMSE; one shard-round against dense_sweep_rows,
@@ -4004,29 +4122,7 @@ def _y_dense(data, dev):
     assert all(np.isfinite(vals)) and rep.best_metric < val0 and \
         vals[-1] < val0, (vals, val0)
     lr = params.learn_rate
-    # one shard-round, kernel vs plain
-    u_blk, i_blk = solver.stage_factors(s0)
-    order = torch.randperm(solver.SU, generator=torch.Generator()
-                           .manual_seed(1))
-    R, W = solver.tiles(0, 0)
-    U0 = u_blk[0].view(solver.SU, solver.sub_bu, k)
-    p = params
-    kern = lambda: drk.dense_rows_epoch(
-        U0.clone(), i_blk[0].clone(), order, lr, R, W, solver.r_scale,
-        p.u_reg, p.i_reg, solver.collision_norm, solver.mm_bf16,
-        counts=None if solver.counts is None else solver.counts[0][0])
-    plain = lambda: dense_sweep_rows(
-        U0.clone(), i_blk[0].clone(), order, lr, R, W, p.u_reg, p.i_reg,
-        solver.collision_norm, solver.mm_bf16, r_scale=solver.r_scale)
-    a_sr, r_sr, ratio = _errors(kern(), plain())
-    sr_ms, sr_plain_ms = _alternate(kern, plain)
-    log(f"(y) one shard-round (shard 0, round 0; {solver.SU} stripes of "
-        f"[{solver.sub_bu}, {solver.bi}]) kernel vs plain: max_abs "
-        f"{a_sr:.3e} max_rel {r_sr:.3e} err/tol {ratio:.3e}; kernel "
-        f"{sr_ms:.3f} ms, plain {sr_plain_ms:.3f} ms (CUDA events)")
-    if ratio > 1.0:
-        raise AssertionError("(y) shard-round: kernel disagrees with "
-                             f"dense_sweep_rows (rtol {RTOL}, atol {ATOL})")
+    a_sr = _dense_round_vs_plain("(y)", solver, s0, params)
     # whole epochs, f32 then bf16 products
     sched = solver.draw_schedule()
     errs = [a_sr]
@@ -4076,11 +4172,51 @@ def _y_dense(data, dev):
                 rep=rep, model=model, ev=ev, inval=inval, s0=s0)
 
 
+def _y_coord(data, dev) -> dict:
+    """(y) 2, one process: train_model(mf_method=m, mesh=4 shards) for m in
+    Y_COORD, 2 epochs each: the split layout (``split``: each process's
+    share of every half-sweep, here all of it), val RMSE falls, the wall
+    and the epochs; returns {m: (u, i)}, the final factors on the host,
+    for the 2-process run."""
+    params = Params(**Y_COORD_PARAMS)
+    mesh = _y_mesh(dev)
+    s0 = shard_state(init_state(params, data.n_users, data.n_items,
+                                device=dev), mesh)
+    out, val0 = {}, None
+    for m in Y_COORD:
+        t0 = time.perf_counter()
+        rep, model, ev, _ = train_model(data, params, algo="mf",
+                                        mf_method=m, mesh=mesh,
+                                        log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solver = rep.solver
+        assert type(solver) is Y_COORD_SOLVERS[m] and solver.split, solver
+        if val0 is None:
+            val0 = ev.rmse(model.eval_view(s0), "val")
+        vals = [h.val_rmse for h in rep.history]
+        log(f"(y) mesh {m}, 1 process x {mesh.size} shards: train_model "
+            f"wall {wall:.1f} s; epoch in the loop "
+            f"{[round(1e3 * h.seconds, 3) for h in rep.history]} ms; val "
+            f"RMSE at init {val0!r}, per epoch {vals!r}")
+        if not (len(vals) == params.max_iter and all(np.isfinite(vals))
+                and vals[-1] < val0):
+            raise AssertionError(f"(y) mesh {m}: val RMSE did not fall")
+        out[m] = (rep.state.u_fac.cpu().numpy(),
+                  rep.state.i_fac.cpu().numpy())
+        del rep, model, ev, solver
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
     """One of the two processes of (y) 2: (d)'s data, this rank's
     host-local rows, DenseBlockDSGDSolver on 2 of the 4 shards (gloo, the
     item blocks staged through host memory), train_model's first epoch
-    from its initial state; rank 0 writes the gathered factors."""
+    from its initial state; then the whole train matrix gathered once
+    from the host-local rows and train_model(mf_method=m, mesh) for m in
+    Y_COORD, 2 epochs each, this process solving its share of every
+    half-sweep. Rank 0 writes the factors."""
     from matfac_tpu_torch.parallel import distributed
     distributed.initialize(f"tcp://127.0.0.1:{port}", world_size=2,
                            rank=rank, backend="gloo")
@@ -4107,15 +4243,47 @@ def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
     if rank == 0:
         np.savez(os.path.join(out_dir, "two_process.npz"),
                  u_fac=st.u_fac.cpu().numpy(), i_fac=st.i_fac.cpu().numpy())
+    del solver, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole = distributed.whole_matrix(local)
+    assert whole is not local and all(np.array_equal(a, b) for a, b in (
+        (whole.indptr, data.train_mat.indptr),
+        (whole.indices, data.train_mat.indices),
+        (whole.values, data.train_mat.values)))
+    log(f"mesh worker {rank}: {local.nnz} host-local ratings, the whole "
+        f"train matrix ({whole.nnz}) gathered in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cdata = copy.copy(data)
+    cdata.train_mat = whole
+    for m in Y_COORD:
+        t0 = time.perf_counter()
+        rep, *_ = train_model(cdata, Params(**Y_COORD_PARAMS), algo="mf",
+                              mf_method=m, mesh=mesh, log_fn=lambda s: None)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        solved = (rep.solver._runs[0] if m == "alsdense"
+                  else rep.solver._solved[0])
+        log(f"mesh worker {rank}: {m} 2 epochs in "
+            f"{time.perf_counter() - t0:.1f} s; user rows (blocks) solved "
+            f"by each process {[len(x) for x in solved]}")
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"two_process_{m}.npz"),
+                     u_fac=rep.state.u_fac.cpu().numpy(),
+                     i_fac=rep.state.i_fac.cpu().numpy())
+        del rep
+        torch.cuda.empty_cache()
     distributed.barrier()
     torch.distributed.destroy_process_group()
     log(f"mesh worker {rank}: ok")
     return 0
 
 
-def _y_two_process(first, dev):
+def _y_two_process(first, coord, dev):
     """(y) 2: the first epoch as 2 processes x 2 shards on the one card
-    (gloo; this script's --mesh-worker), bit for bit (y) 1's."""
+    (gloo; this script's --mesh-worker), bit for bit (y) 1's; then in the
+    same two processes ALS, iALS++ and dense ALS under train_model(mesh),
+    bit for bit ``coord``, the 1-process runs of ``_y_coord``."""
     import socket
     os.makedirs(Y_DIR, exist_ok=True)
     s = socket.socket()
@@ -4132,7 +4300,7 @@ def _y_two_process(first, dev):
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=400)[0])
+            outs.append(p.communicate(timeout=600)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4151,6 +4319,19 @@ def _y_two_process(first, dev):
         f"start-up and staging: bit for bit the 1-process epoch {same}")
     if not same:
         raise AssertionError("(y) 2-process epoch differs from 1-process")
+    for line in outs[0].splitlines() + outs[1].splitlines():
+        if "mesh worker" in line and ("gathered" in line or "epochs in"
+                                      in line):
+            log(f"(y) {line}")
+    for m in Y_COORD:
+        multi = np.load(os.path.join(Y_DIR, f"two_process_{m}.npz"))
+        same = (np.array_equal(multi["u_fac"], coord[m][0])
+                and np.array_equal(multi["i_fac"], coord[m][1]))
+        log(f"(y) mesh {m}, 2 processes x 2 shards (each its share of "
+            f"every half-sweep, the solved rows all-gathered over gloo), 2 "
+            f"epochs: bit for bit the 1-process run {same}")
+        if not same:
+            raise AssertionError(f"(y) mesh {m}: 2 processes differ from 1")
 
 
 def _y_codes(data, dev):
@@ -4218,24 +4399,8 @@ def _y_block(data, dev):
         f"epoch in the loop {[1e3 * h.seconds for h in rep.history]!r} ms")
     assert len(vals) == params.max_iter and all(np.isfinite(vals)) and \
         rep.best_metric < val0, vals
-    u_blk, i_blk = solver.stage_factors(s0)
-    sched = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.SU,
-                              solver.SI, solver.S // solver.bs)
-    args = (*sched, params.learn_rate, *solver.streams(0, 0))
-    kw = solver.sweep_kwargs()
-    kern = lambda: bsk.block_sgd_diag_epoch(
-        u_blk[0].clone(), i_blk[0].clone(), *args, **kw,
-        slices=None if solver.slices is None else solver.slices[0][0])
-    plain = lambda: bsk.block_sweep_diag(u_blk[0].clone(),
-                                         i_blk[0].clone(), *args, **kw)
-    a, r, ratio = _errors(kern(), plain(), BF16_RTOL, BF16_ATOL)
-    k_ms, p_ms = _alternate(kern, plain)
-    log(f"(y) one shard-round of the one-hot engine (shard 0, round 0, "
-        f"{sched[0].shape[0]} diag rounds of {solver.SI} lanes) kernel vs "
-        f"plain: max_abs {a:.3e} max_rel {r:.3e} err/tol {ratio:.3e}; "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events)")
-    if ratio > 1.0:
-        raise AssertionError("(y) block shard-round: kernel vs plain")
+    a, k_ms, p_ms = _block_round_vs_plain("(y)", solver, s0,
+                                          params.learn_rate)
     return dict(launches=n_diag, max_abs_err=a, ms=k_ms, plain_ms=p_ms)
 
 
@@ -4341,11 +4506,52 @@ def _y_eval(data, dense, dev):
     return launches, err
 
 
+def _y_scaling(dev) -> dict:
+    """(y) 6: scripts/torch_scaling_curve.py's run() with its phase split
+    at Y_CURVE_SHARDS shards of the card (scatter, one-hot and dense
+    block DSGD; full, nopermute and permuteonly epochs), printed; counts
+    zeroed around it; then one dense and one one-hot shard-round at 4
+    shards of the curve's data held against their plain versions. Returns
+    {kernel: (launches, max abs error)}."""
+    spec = importlib.util.spec_from_file_location("torch_scaling_curve",
+                                                  SCALING_SCRIPT)
+    sc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sc)
+    t0 = time.perf_counter()
+    drk.dense_rows_epoch.launches = 0
+    _zero_block_counts()
+    rows = sc.run(phase_split=True, shards=Y_CURVE_SHARDS, dev=dev,
+                  epochs=Y_CURVE_EPOCHS, log=lambda s: log(f"(y) {s}"))
+    torch.cuda.synchronize()
+    stripe = drk.dense_rows_epoch.launches
+    (n_row, n_diag, n_cell), _ = _block_counts()
+    for line in sc.table(rows, True).splitlines():
+        log(f"(y) {line}")
+    log(f"(y) scaling curve launches: stripe {stripe}, diag {n_diag} (row "
+        f"{n_row}, cell {n_cell}); {time.perf_counter() - t0:.1f} s")
+    if stripe == 0 or n_diag == 0 or n_row or n_cell:
+        raise AssertionError("(y) the scaling curve did not run through the "
+                             "stripe and diag kernels alone")
+    data, params, iu, ii, model = sc.curve_problem()
+    mesh = _y_mesh(dev)
+    s0 = shard_state(init_state(params, data.n_users, data.n_items,
+                                device=dev), mesh)
+    dense = sc.make_solver("densedsgd", model, params, data, iu, ii, mesh)
+    a_dense = _dense_round_vs_plain("(y) curve", dense, s0, params)
+    del dense
+    block = sc.make_solver("blockdsgd", model, params, data, iu, ii, mesh)
+    a_block, _, _ = _block_round_vs_plain("(y) curve", block, s0,
+                                          params.learn_rate)
+    return {"stripe": (stripe, a_dense), "diag": (n_diag, a_block)}
+
+
 def phase_mesh(data: Data, dev="cuda") -> dict:
     """(y): the multi-device engines on a 4-shard mesh of the one card.
     Returns the launches and worst errors of each kernel on this path."""
     dense = _y_dense(data, dev)
-    _y_two_process(dense["first"], dev)
+    coord = _y_coord(data, dev)
+    _y_two_process(dense["first"], coord, dev)
+    del coord
     n_codes = _y_codes(data, dev)
     topk_n, topk_err = _y_eval(data, dense, dev)
     del dense["rep"], dense["ev"]
@@ -4354,8 +4560,10 @@ def phase_mesh(data: Data, dev="cuda") -> dict:
     torch.cuda.empty_cache()
     _y_dsgd(data, dev)
     torch.cuda.empty_cache()
+    curve = _y_scaling(dev)
+    torch.cuda.empty_cache()
     return dict(dense=dense, codes=n_codes, block=block,
-                topk=(topk_n, topk_err))
+                topk=(topk_n, topk_err), curve=curve)
 
 
 NO_LIBRARY = "none: no one PyTorch call computes this function"
@@ -4449,9 +4657,11 @@ def main() -> int:
     kernels = [
         entry("dense_rows<f32|bf16 R; int8|bf16|f32 W>", SOURCE,
               "matfac_tpu/ops/dense_row_kernel.py:108",
-              d["launches"] + cli_k["stripe"][0] + y["dense"]["launches"],
+              d["launches"] + cli_k["stripe"][0] + y["dense"]["launches"]
+              + y["curve"]["stripe"][0],
               max(float_err, d["max_abs_err"], l_["max_abs_err"],
-                  cli_k["stripe"][1], y["dense"]["max_abs_err"]), d["ms"],
+                  cli_k["stripe"][1], y["dense"]["max_abs_err"],
+                  y["curve"]["stripe"][1]), d["ms"],
               d["plain_ms"], (d["bound_ms"], d["bound_by"]),
               d["library_ms"], stripe_lib),
         entry("dense_rows<int8 codes>", SOURCE,
@@ -4486,9 +4696,11 @@ def main() -> int:
               *g["radix"][2:]),
         entry("block_sgd<diag>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148",
-              n_i + cli_k["diag"][0] + y["block"]["launches"],
+              n_i + cli_k["diag"][0] + y["block"]["launches"]
+              + y["curve"]["diag"][0],
               max(block["diag"], err_i, err_j, cli_k["diag"][1],
-                  y["block"]["max_abs_err"]), k_i, p_i, bound_i),
+                  y["block"]["max_abs_err"], y["curve"]["diag"][1]), k_i,
+              p_i, bound_i),
         entry("block_sgd<row>", BLOCK_SOURCE,
               "matfac_tpu/ops/block_sgd_kernel.py:148", n_k,
               max(block["row"], err_k), k_k, p_k, bound_k),

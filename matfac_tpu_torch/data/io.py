@@ -8,9 +8,10 @@ on the device.
 
 GKlib text CSR format (as read by ``gk_csr_Read(..., GK_CSR_FMT_CSR,
 GK_CSR_IS_VAL, 0)``, datastruct.cpp:16): line ``i`` holds row ``i`` as
-whitespace-separated ``col val`` pairs with 0-indexed columns. The JAX
-package parses it with an optional native helper and falls back to numpy;
-the port keeps the numpy parser, which reads the same matrix.
+whitespace-separated ``col val`` pairs with 0-indexed columns. As in the
+JAX package, ``read_csr`` parses it with the native host library
+(``utils/native.py``, the port's own build of the same C++), and with the
+numpy line parser where that library is absent or refuses the file.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from matfac_tpu_torch.data.csr import RatingMatrix
+from matfac_tpu_torch.utils import native
 
 
 def read_csr(path: str, with_values: bool = True,
@@ -29,8 +31,23 @@ def read_csr(path: str, with_values: bool = True,
     """Read a GKlib-text CSR file (gk_csr_Read analog).
 
     ``with_values=False`` reads an index-only file (one token per entry);
-    the values are set to 1.0.
+    the values are set to 1.0. The native parser reads the file first; a
+    file it refuses goes through the line parser, which names the fault.
     """
+    parsed = native.parse_csr_text(path, with_values)
+    if parsed is not None:
+        indptr, cols, vals = parsed
+    else:
+        indptr, cols, vals = _parse_lines(path, with_values)
+    if ncols is None:
+        ncols = int(cols.max()) + 1 if len(cols) else 0
+    return RatingMatrix(indptr, cols.astype(np.int32),
+                        vals.astype(np.float32), ncols)
+
+
+def _parse_lines(path: str, with_values: bool):
+    """(indptr, cols, vals) of a GKlib-text CSR file, line by line in
+    numpy: the fallback of the native parser."""
     indptr_l = [0]
     cols_l, vals_l = [], []
     with open(path, "r") as f:
@@ -54,10 +71,7 @@ def read_csr(path: str, with_values: bool = True,
                 np.zeros(0, dtype=np.float32))
     else:
         vals = np.ones(len(cols), dtype=np.float32)
-    if ncols is None:
-        ncols = int(cols.max()) + 1 if len(cols) else 0
-    return RatingMatrix(indptr, cols.astype(np.int32),
-                        vals.astype(np.float32), ncols)
+    return indptr, cols, vals
 
 
 def write_csr(mat: RatingMatrix, path: str, with_values: bool = True) -> None:

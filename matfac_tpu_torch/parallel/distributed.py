@@ -14,11 +14,16 @@ processes sharing a card always run on gloo.
 
 Host metadata (frequency counts, cell sizes, the staging ladder's choices)
 goes through ``allgather`` (``all_gather_object``); tensors through
-``ring_exchange`` and ``allgather_blocks``.
+``ring_exchange`` and ``allgather_blocks``. The coordinate solvers under a
+mesh across processes (ALS, iALS++, dense ALS) split each half-sweep's
+batches of rows with ``balanced_split``, read the whole train matrix
+through ``whole_matrix`` and share their solved rows with
+``allgather_rows``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -126,6 +131,72 @@ def allgather_blocks(local: torch.Tensor) -> torch.Tensor:
     out = [torch.empty_like(buf) for _ in range(process_count())]
     dist.all_gather(out, buf)
     return torch.cat(out).to(local.device)
+
+
+def balanced_split(work: Sequence[float], parts: int) -> List[range]:
+    """Contiguous runs of ``len(work)`` batches, one a part, balanced by
+    work: batch j goes to the part into whose [p W / parts, (p + 1) W /
+    parts) its cumulative start falls (W the total). A run may be empty."""
+    w = np.asarray(work, np.float64)
+    start = np.cumsum(w) - w
+    total = float(w.sum())
+    owner = (np.minimum((start * parts) // total, parts - 1).astype(np.int64)
+             if total > 0 else np.zeros(len(w), np.int64))
+    bounds = np.searchsorted(owner, np.arange(parts + 1), side="left")
+    return [range(int(bounds[p]), int(bounds[p + 1])) for p in range(parts)]
+
+
+def allgather_rows(table: torch.Tensor, ids: Sequence[torch.Tensor]) -> None:
+    """Share solved rows, in place: process p solved rows ``ids[p]`` of
+    ``table`` (every process passes the same list); afterwards every
+    process holds every process's rows. A no-op in one process."""
+    if not multiprocess():
+        return
+    dev = _comm_device()
+    me = process_index()
+    most = max(int(i.numel()) for i in ids)
+    buf = torch.zeros((most,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=dev)
+    buf[: ids[me].numel()] = table[ids[me]].to(dev)
+    out = [torch.empty_like(buf) for _ in range(process_count())]
+    dist.all_gather(out, buf)
+    for p, rows in enumerate(out):
+        if p != me and ids[p].numel():
+            table[ids[p]] = rows[: ids[p].numel()].to(table.device)
+
+
+def whole_matrix(mat):
+    """The whole rating matrix on every process: ``mat`` itself where every
+    process holds the same matrix (or in one process), else the union of
+    the processes' host-local rows, each row's entries in their order.
+    Raises ValueError where two processes hold entries of one row."""
+    if not multiprocess():
+        return mat
+    h = hashlib.sha256()
+    for a in (mat.indptr, mat.indices, mat.values):
+        h.update(np.ascontiguousarray(a).tobytes())
+    digests = allgather(np.frombuffer(h.digest(), np.uint8))
+    if (digests == digests[0]).all():
+        return mat
+    parts: List = [None] * process_count()
+    dist.all_gather_object(parts, (mat.indptr, mat.indices, mat.values,
+                                   mat.ncols))
+    n_rows = max(len(p[0]) for p in parts) - 1
+    held = np.zeros(n_rows, np.int64)
+    for indptr, *_ in parts:
+        held[: len(indptr) - 1] += np.diff(indptr) > 0
+    if (held > 1).any():
+        raise ValueError(
+            f"{int((held > 1).sum())} rows hold entries on more than one "
+            "process: host-local rows must not overlap")
+    rows = np.concatenate([np.repeat(np.arange(len(p[0]) - 1), np.diff(p[0]))
+                           for p in parts])
+    order = np.argsort(rows, kind="stable")
+    cols = np.concatenate([p[1] for p in parts])[order]
+    vals = np.concatenate([p[2] for p in parts])[order]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=n_rows))]).astype(np.int64)
+    return type(mat)(indptr, cols, vals, max(p[3] for p in parts))
 
 
 def host_user_range(n_users: int, n_shards: int, shard_id: int

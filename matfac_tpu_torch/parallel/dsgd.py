@@ -49,6 +49,9 @@ from matfac_tpu_torch.parallel import distributed
 from matfac_tpu_torch.parallel.mesh import Mesh
 
 
+EPOCH_MODES = ("full", "nopermute", "permuteonly")
+
+
 def _cdiv(a, b):
     return -(-a // b)
 
@@ -206,18 +209,30 @@ class ShardedTables:
         self._last_u_view, self._last_i_view = u_ret, i_ret
         return state._replace(u_fac=u_ret, i_fac=i_ret)
 
-    def epoch(self, state: MFState, lr: float) -> MFState:
-        return self.epoch_with(state, lr, self.draw_schedule())
+    def epoch(self, state: MFState, lr: float,
+              mode: str = "full") -> MFState:
+        return self.epoch_with(state, lr, self.draw_schedule(), mode)
 
-    def epoch_with(self, state: MFState, lr: float, schedule) -> MFState:
+    def epoch_with(self, state: MFState, lr: float, schedule,
+                   mode: str = "full") -> MFState:
         """One epoch: N rounds, each shard-round of every local shard then
         the rotation, on ``schedule`` (``draw_schedule``'s form; the tests
-        pass the JAX key chain's draws)."""
+        pass the JAX key chain's draws). ``mode`` (JAX's phase-attribution
+        variants, for scripts/torch_scaling_curve.py --phase-split): "full"
+        trains; "nopermute" runs the same rounds without the rotation, each
+        shard keeping its own item block (pure per-shard compute);
+        "permuteonly" runs only the rotations (the exchange and the loop).
+        The draws are the same in every mode; only "full" trains."""
+        if mode not in EPOCH_MODES:
+            raise ValueError(f"mode {mode!r} not in {EPOCH_MODES}")
         u_blk, i_blk = self._tables(state)
         for t in range(self.n_shards):
-            for j, b in enumerate(self.local_blocks):
-                self.shard_round(j, b, t, u_blk[j], i_blk[j], lr, schedule)
-            i_blk = self.rotate(i_blk)
+            if mode != "permuteonly":
+                for j, b in enumerate(self.local_blocks):
+                    self.shard_round(j, b, t, u_blk[j], i_blk[j], lr,
+                                     schedule)
+            if mode != "nopermute":
+                i_blk = self.rotate(i_blk)
         return self._views(state, u_blk, i_blk)
 
 

@@ -24,6 +24,15 @@ not positive definite where JAX's returns NaN; ``cholesky_ex`` is used and
 a failed factor becomes NaN, so the bf16 ridge retry and the train loop's
 NaN rollback see what they see in JAX. The port updates its own copies of
 the factor tables in place; the state it is given is left as it was.
+
+``split=True`` (``train_model(mesh=...)``; JAX row-shards the tables and
+lets SPMD split the solve): each process solves a contiguous run of each
+half-sweep's batches, balanced by work, and all-gathers the solved rows
+(``parallel.distributed``). The batches stay those of one device (the
+bucket chunks; the dense solver's row blocks): on the card a batched
+product or factorization may sum in another order at another batch count,
+so only batches of the same rows and shape give every process count the
+bits of one device.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import RowBucket, bucketed_rows
 from matfac_tpu_torch.models.base import MFState
+from matfac_tpu_torch.parallel import distributed
 
 
 def solve_spd_cg(gram: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
@@ -117,14 +127,18 @@ CHUNK_ELEMS = 1 << 28
 class ALSSolver:
     """Owns the bucketed row / column layouts and runs one ALS sweep per
     epoch (user pass then item pass, like modelMF.cpp:795-880).
-    ``cg_iters`` > 0: warm-started CG solves; 0: exact Cholesky solves."""
+    ``cg_iters`` > 0: warm-started CG solves; 0: exact Cholesky solves.
+    ``split``: solve this process's share of the rows and all-gather the
+    rest (a mesh run across processes; the module docstring says how)."""
 
     def __init__(self, model, params: Params, train_mat,
                  invalid_users: np.ndarray, invalid_items: np.ndarray,
-                 cg_iters: int = 0, device="cuda", **_):
+                 cg_iters: int = 0, device="cuda", split: bool = False,
+                 **_):
         self.model = model
         self.params = params
         self.cg_iters = cg_iters
+        self.split = split
         self.device = torch.device(device)
         self.reg_exp = float(getattr(params, "reg_exponent", 0.0))
         self.u_buckets: List[RowBucket] = bucketed_rows(
@@ -141,17 +155,37 @@ class ALSSolver:
                 yield b.row_ids[s0:e0], b.cols[s0:e0], b.vals[s0:e0], \
                     b.mask[s0:e0]
 
+        idx = lambda a: torch.from_numpy(
+            np.asarray(a, np.int64)).to(self.device)
+
         def stage(ids, cols, vals, mask):
             # a real row has a rated entry; dummy rows are all-masked
             sel = np.nonzero(mask.sum(axis=1) > 0)[0]
-            idx = lambda a: torch.from_numpy(
-                np.asarray(a, np.int64)).to(self.device)
             f32 = lambda a: torch.from_numpy(a).to(self.device)
             return (idx(ids), idx(cols), f32(vals), f32(mask), idx(sel),
                     idx(ids[sel]))
 
-        self._stage = [[stage(*c) for b in bs for c in chunks(b)]
-                       for bs in (self.u_buckets, self.i_buckets)]
+        me, procs = ((distributed.process_index(),
+                      distributed.process_count()) if split else (0, 1))
+        self._stage, self._solved = [], []
+        for bs in (self.u_buckets, self.i_buckets):
+            cs = [c for b in bs for c in chunks(b)]
+            # work a batch: its Gram (rows x cap x k^2) and its solve
+            # (rows x k^3 / 3)
+            runs = distributed.balanced_split(
+                [c[1].size + len(c[0]) * k / 3 for c in cs], procs)
+            self._stage.append([stage(*cs[j]) for j in runs[me]])
+            # each process's solved rows, for the all-gather
+            real = lambda c: c[0][c[3].sum(axis=1) > 0]
+            self._solved.append([idx(np.concatenate(
+                [real(cs[j]) for j in run] + [np.zeros(0, np.int64)]))
+                for run in runs])
+
+    def _share(self, side: int, table: torch.Tensor) -> None:
+        """All-gather the rows the processes solved on ``side`` (0: users,
+        1: items) into ``table``, under ``split``."""
+        if self.split:
+            distributed.allgather_rows(table, self._solved[side])
 
     def epoch(self, state: MFState, lr: float) -> MFState:
         del lr   # ALS has no step size and draws nothing
@@ -159,9 +193,11 @@ class ALSSolver:
         for chunk in self._stage[0]:
             _solve_bucket(u_fac, i_fac, *chunk, float(self.params.u_reg),
                           cg_iters=self.cg_iters, reg_exp=self.reg_exp)
+        self._share(0, u_fac)
         for chunk in self._stage[1]:
             _solve_bucket(i_fac, u_fac, *chunk, float(self.params.i_reg),
                           cg_iters=self.cg_iters, reg_exp=self.reg_exp)
+        self._share(1, i_fac)
         return state._replace(u_fac=u_fac, i_fac=i_fac)
 
 
@@ -197,9 +233,10 @@ class SubspaceALSSolver(ALSSolver):
     generator (``draw``); ``epoch_with`` takes one, e.g. JAX's."""
 
     def __init__(self, model, params: Params, train_mat, invalid_users,
-                 invalid_items, block_dim: int = 16, device="cuda", **_):
+                 invalid_items, block_dim: int = 16, device="cuda",
+                 split: bool = False, **_):
         super().__init__(model, params, train_mat, invalid_users,
-                         invalid_items, device=device)
+                         invalid_items, device=device, split=split)
         if self.reg_exp:
             raise ValueError(
                 "reg_exponent (per-row lambda) is implemented in the "
@@ -243,9 +280,11 @@ class SubspaceALSSolver(ALSSolver):
         for chunk in self._stage[0]:
             _subspace_solve_bucket(u_fac, i_fac, *chunk, blocks,
                                    float(self.params.u_reg), self.d)
+        self._share(0, u_fac)
         for chunk in self._stage[1]:
             _subspace_solve_bucket(i_fac, u_fac, *chunk, blocks,
                                    float(self.params.i_reg), self.d)
+        self._share(1, i_fac)
         return state._replace(u_fac=u_fac, i_fac=i_fac)
 
 
@@ -282,7 +321,8 @@ def dense_als_sweep(target: torch.Tensor, source: torch.Tensor,
                     dense_vals: torch.Tensor, reg: float, blk: int,
                     transposed: bool = False, cg_iters: int = 0,
                     packed: bool = True, gram_int8: bool = False,
-                    mask8: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask8: Optional[torch.Tensor] = None,
+                    blocks: Optional[range] = None) -> torch.Tensor:
     """Dense masked-Gram ALS sweep (JAX's ``_dense_als_sweep``): for each
     block of ``blk`` target rows,
 
@@ -299,7 +339,8 @@ def dense_als_sweep(target: torch.Tensor, source: torch.Tensor,
     the Gram product in int8 x int8 -> int32 (the 0/1 mask is exact; QQ is
     quantized with symmetric per-column scales) from ``mask8``, the int8
     mask pre-staged in this sweep's own orientation; it needs
-    ``cg_iters`` > 0. Returns the new [n_rows, k] table."""
+    ``cg_iters`` > 0. Returns the new [n_rows, k] table, or with ``blocks``
+    the new rows of those row blocks only."""
     if gram_int8 and cg_iters <= 0:
         raise ValueError("gram_int8 requires cg_iters > 0 "
                          "(see DenseALSSolver)")
@@ -333,7 +374,7 @@ def dense_als_sweep(target: torch.Tensor, source: torch.Tensor,
         qq = qq.to(mm_dtype)
     eye = _eye(k, dev)
     sols = []
-    for s in range(n_rows // blk):
+    for s in (range(n_rows // blk) if blocks is None else blocks):
         rows = slice(s * blk, (s + 1) * blk)
         if transposed:
             wv = dense_vals[:, rows]                       # [n_src, blk]
@@ -368,6 +409,8 @@ def dense_als_sweep(target: torch.Tensor, source: torch.Tensor,
             gram_j = gram + torch.where(bad, ridge, 0.0)[:, None, None] * eye
             chol = torch.where(bad[:, None, None], cholesky_nan(gram_j), chol)
         sols.append(chol_solve(chol, b))
+    if not sols:
+        return target[:0].clone()
     return torch.cat(sols).to(target.dtype)
 
 
@@ -384,7 +427,7 @@ class DenseALSSolver:
                  invalid_users, invalid_items, row_block: int = 1024,
                  dense_dtype=None, cg_iters: int = 0,
                  packed: bool = True, gram_int8: bool = False,
-                 device="cuda", **_):
+                 device="cuda", split: bool = False, **_):
         """cg_iters > 0: warm-started CG solves instead of Cholesky; 0
         (default) = exact solves, the reference's ldlt
         (modelMF.cpp:836,874).
@@ -394,7 +437,11 @@ class DenseALSSolver:
 
         gram_int8 needs cg_iters > 0: the quantization error is absolute
         per column, so a low-count row's Gram can go indefinite past the
-        ridge retry; warm CG degrades gracefully instead."""
+        ridge retry; warm CG degrades gracefully instead.
+
+        split: each process solves a contiguous run of the row blocks of
+        each sweep and all-gathers the rest (every process stages the
+        whole dense matrix: the item sweep reads every user row)."""
         self.model = model
         self.params = params
         self.cg_iters = cg_iters
@@ -413,6 +460,7 @@ class DenseALSSolver:
                 "would silently train flat lambda")
         n_users, n_items = model.n_users, model.n_items
         self.row_block = row_block
+        self.split = split
         # the guard counts the padded allocation
         self.nu_pad = -(-n_users // row_block) * row_block
         self.ni_pad = -(-n_items // row_block) * row_block
@@ -441,6 +489,26 @@ class DenseALSSolver:
             self.mask_cols = self.mask_rows.t().contiguous()
         else:
             self.mask_rows = self.mask_cols = None
+        # each process's run of row blocks a sweep (all of them unsplit)
+        procs = distributed.process_count() if split else 1
+        self._runs = [distributed.balanced_split([1] * (n // row_block),
+                                                 procs)
+                      for n in (self.nu_pad, self.ni_pad)]
+
+    def _sweep(self, side: int, target, source, reg, **kw) -> torch.Tensor:
+        """One sweep of ``side`` (0: users, 1: items): under ``split``
+        this process's row blocks, the rest all-gathered."""
+        if not self.split:
+            return dense_als_sweep(target, source, self.dense, reg,
+                                   self.row_block, **kw)
+        runs, blk = self._runs[side], self.row_block
+        own = runs[distributed.process_index()]
+        out = target.clone()
+        out[own.start * blk: own.stop * blk] = dense_als_sweep(
+            target, source, self.dense, reg, blk, blocks=own, **kw)
+        distributed.allgather_rows(out, [torch.arange(
+            r.start * blk, r.stop * blk, device=out.device) for r in runs])
+        return out
 
     def epoch(self, state: MFState, lr: float) -> MFState:
         del lr   # no step size, no draws
@@ -452,10 +520,8 @@ class DenseALSSolver:
         i_fac = pad(state.i_fac, self.ni_pad - n_items)
         kw = dict(cg_iters=self.cg_iters, packed=self.packed,
                   gram_int8=self.gram_int8)
-        u_fac = dense_als_sweep(u_fac, i_fac, self.dense,
-                                float(self.params.u_reg), self.row_block,
-                                mask8=self.mask_rows, **kw)
-        i_fac = dense_als_sweep(i_fac, u_fac, self.dense,
-                                float(self.params.i_reg), self.row_block,
-                                transposed=True, mask8=self.mask_cols, **kw)
+        u_fac = self._sweep(0, u_fac, i_fac, float(self.params.u_reg),
+                            mask8=self.mask_rows, **kw)
+        i_fac = self._sweep(1, i_fac, u_fac, float(self.params.i_reg),
+                            transposed=True, mask8=self.mask_cols, **kw)
         return state._replace(u_fac=u_fac[:n_users], i_fac=i_fac[:n_items])

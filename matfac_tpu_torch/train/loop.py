@@ -25,6 +25,7 @@ Best-on-validation is what gets checkpointed (modelMF.cpp:135-146).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -492,10 +493,12 @@ def train_model(data, params: Params, algo: str = "mf",
     -> DenseBlockDSGDSolver (falling back to mesh "blocksgd" on its
     ValueError, logged), "blocksgd" -> BlockDSGDSolver (DSGDShardedSolver
     for Poisson-sampled ranks), the sgd spellings -> DSGDShardedSolver,
-    "als" / "ialspp" / "alsdense" -> the single-device solver on the
+    "als" / "ialspp" / "alsdense" -> the coordinate solver on the
     process's mesh device (JAX row-shards the tables and lets SPMD spread
-    the same math; across processes this raises NotImplementedError,
-    ROADMAP queue 1, item 19), the evaluator cut over the mesh; bias
+    the same math; across processes each process reads the whole train
+    matrix, gathered once where it holds only its host-local rows, solves
+    its share of each half-sweep's rows and all-gathers the rest, ``split``
+    in ``solvers/als.py``), the evaluator cut over the mesh; bias
     models, adaptive-dropout sampled ranks and per-side gates are refused.
     On a multi-process run the train matrix may be each process's
     host-local rows: the frequencies are summed over the processes before
@@ -653,10 +656,14 @@ def train_model(data, params: Params, algo: str = "mf",
             log_fn(f"mesh densesgd unavailable ({e}); falling back "
                    "to mesh blocksgd")
             m = "blocksgd"
-    if mesh is not None and m in _COORD[:3] and distributed.multiprocess():
-        raise NotImplementedError(
-            f"mesh '{m}' across processes is ROADMAP queue 1, item 19: "
-            "each process would run the whole solve")
+    split = mesh is not None and m in _COORD[:3]
+    if split and distributed.multiprocess():
+        # every process solves rows of both sides: it reads the whole
+        # train matrix (the evaluator's objective too)
+        whole = distributed.whole_matrix(data.train_mat)
+        if whole is not data.train_mat:
+            data = copy.copy(data)
+            data.train_mat = whole
     if solver is not None:
         pass
     elif mesh is not None and m == "blocksgd":
@@ -708,13 +715,13 @@ def train_model(data, params: Params, algo: str = "mf",
     elif m == "als":
         # exact Cholesky solves (cg_iters=0), as the JAX front door builds it
         solver = ALSSolver(model, params, data.train_mat, inval_u, inval_i,
-                           device=device)
+                           device=device, split=split)
     elif m == "ialspp":
         solver = SubspaceALSSolver(model, params, data.train_mat, inval_u,
-                                   inval_i, device=device)
+                                   inval_i, device=device, split=split)
     elif m == "alsdense":
         solver = DenseALSSolver(model, params, data.train_mat, inval_u,
-                                inval_i, device=device)
+                                inval_i, device=device, split=split)
     elif m == "ccd":
         if not data.train_mat.is_sorted():
             raise ValueError("CCD requires sorted CSR (main.cpp:1245)")

@@ -13,6 +13,8 @@ cosine graph is held to the native library's path edge for edge, values
 at rtol 1e-6.
 """
 
+import os
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -53,9 +55,19 @@ from matfac_tpu_torch.eval.metrics import Evaluator as TEvaluator
 from matfac_tpu_torch.models.base import EvalView as TView
 from matfac_tpu_torch.ops.ppr import PPREngine as TPPR
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_native_ref import load_native_ref  # noqa: E402
+
 RTOL, ATOL = 1e-5, 1e-6          # float32 products, both packages
 PPR_RTOL, PPR_ATOL = 1e-4, 1e-6  # float32 power iteration
 COS_RTOL = 1e-6                  # float32 roundings of float64 cosines
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _native_ref():
+    """JAX's native library loads before any test here reads it: its
+    cosine graph is the reference (torch_native_ref.py says why)."""
+    load_native_ref()
 
 
 @pytest.fixture(autouse=True, scope="module")

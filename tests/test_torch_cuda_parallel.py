@@ -4,7 +4,8 @@ under DenseBlockDSGDSolver, the diag entry of csrc/block_sgd.cu under
 BlockDSGDSolver) against its plain version on the same CUDA tensors, the
 scatter DSGD and the sharded top-N against the CPU, and a 2-process gloo
 run with both processes' shards on the one card equal to a 1-process run
-bit for bit (the dense path, whose kernel is deterministic). Every test
+bit for bit (the dense path, whose kernel is deterministic, and ALS,
+iALS++ and dense ALS under train_model(mesh=...)). Every test
 here is marked ``cuda`` and skips without a CUDA device. This file imports
 no JAX:
 
@@ -35,7 +36,8 @@ from matfac_tpu_torch.utils import freq
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from torch_mesh_worker import problem, train  # noqa: E402
+from torch_mesh_worker import (COORD_MODES, problem, small_batches,  # noqa: E402,E501
+                               train, train_coord)
 
 
 def _cuda():
@@ -161,11 +163,13 @@ def test_sharded_topk_on_card_equals_one_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dense_float", "dense_codes"])
-def test_two_process_run_on_one_card(tmp_path, mode):
+@pytest.mark.parametrize("mode", ["dense_float", "dense_codes", "als",
+                                  "ialspp", "alsdense"])
+def test_two_process_run_on_one_card(tmp_path, monkeypatch, mode):
     """Two gloo processes, 4 of the 8 shards each, all on the one card (the
-    item blocks exchanged through host memory): the factors one process
-    trains on the card, bit for bit."""
+    item blocks, or the coordinate solvers' solved rows, exchanged through
+    host memory): the factors one process trains on the card, bit for
+    bit."""
     dev = _cuda()
     worker = os.path.join(HERE, "torch_mesh_worker.py")
     env = dict(os.environ)
@@ -187,6 +191,12 @@ def test_two_process_run_on_one_card(tmp_path, mode):
     iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
                                       data.n_items)
     mesh = make_mesh((8,), ("u",), devices=[dev] * 8)
+    if mode in COORD_MODES:
+        small_batches(monkeypatch.setattr)
+        rep = train_coord(data, params, mode, mesh)
+        assert np.array_equal(rep.state.u_fac.cpu().numpy(), multi["u_fac"])
+        assert np.array_equal(rep.state.i_fac.cpu().numpy(), multi["i_fac"])
+        return
     solver = solver_fn(model_fn(), data.train_mat, iu, ii, mesh)
     state = train(solver, params, data.n_users, data.n_items, dev=dev)
     assert np.array_equal(state.u_fac.cpu().numpy(), multi["u_fac"])

@@ -1,7 +1,7 @@
 """The port imports torch, never jax and nothing of matfac_tpu: importing
-every module of matfac_tpu_torch, chip_smoke.py and the port's scripts in
-a fresh interpreter leaves jax and matfac_tpu unloaded, and no source file
-of the port imports either."""
+every module of matfac_tpu_torch, chip_smoke.py and the port's scripts and
+examples in a fresh interpreter leaves jax and matfac_tpu unloaded, and no
+source file of the port imports either."""
 
 import pathlib
 import re
@@ -14,7 +14,8 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "")
     for p in PKG.rglob("*.py"))
-SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
+SCRIPTS = sorted(list((ROOT / "scripts").glob("torch_*.py"))
+                 + list((ROOT / "examples").glob("torch_*.py")))
 PORT_FILES = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + SCRIPTS + [ROOT / "tests" / "torch_mesh_worker.py"])
 
@@ -66,8 +67,13 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.parallel", "matfac_tpu_torch.parallel.mesh",
             "matfac_tpu_torch.parallel.distributed",
             "matfac_tpu_torch.parallel.dsgd",
-            "matfac_tpu_torch.parallel.block_dsgd"} <= set(MODULES)
+            "matfac_tpu_torch.parallel.block_dsgd",
+            "matfac_tpu_torch.utils.native"} <= set(MODULES)
     assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
+    assert {ROOT / "scripts" / f"torch_{s}.py" for s in (
+        "scaling_curve", "block_dsgd", "dense_bdsgd", "longtail_dsgd")} | {
+        ROOT / "examples" / f"torch_{s}.py" for s in (
+            "multichip_dsgd", "train_eval_serve")} <= set(SCRIPTS)
     proc = _import_all_then(
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib'))\n"

@@ -63,7 +63,8 @@ NOISE = 0.05
 CPU = torch.device("cpu")
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from torch_mesh_worker import problem, train  # noqa: E402
+from torch_mesh_worker import (COORD_MODES, problem, small_batches,  # noqa: E402,E501
+                               train, train_coord)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,6 +196,51 @@ def _run(solver, params, n_users, n_items, lr, epochs):
     for _ in range(epochs):
         state = solver.epoch(state, lr)
     return state
+
+
+def test_balanced_split():
+    split = distributed.balanced_split
+    assert split([1, 1, 1, 1, 4], 2) == [range(0, 4), range(4, 5)]
+    assert split([], 3) == [range(0, 0)] * 3
+    assert split([0, 0], 2) == [range(0, 2), range(2, 2)]
+    rng = np.random.default_rng(0)
+    for parts in (1, 2, 3, 8):
+        work = rng.integers(1, 100, 37)
+        runs = split(work, parts)
+        assert len(runs) == parts
+        assert [j for r in runs for j in r] == list(range(37))
+        loads = [int(work[r.start:r.stop].sum()) for r in runs]
+        # each part within one batch of its even share
+        assert max(loads) <= work.sum() / parts + work.max()
+
+
+@pytest.mark.parametrize("method", ["als", "als_cg", "ialspp", "alsdense"])
+def test_split_solvers_in_one_process_equal_unsplit(setup, monkeypatch,
+                                                    method):
+    """In one process the split solvers (all batches this process's, the
+    all-gather a no-op) train the bits of the unsplit ones, through the
+    same batches (JAX's bucket chunks, cut small here; 16-row blocks of
+    the dense matrix)."""
+    from matfac_tpu_torch.solvers import als
+    monkeypatch.setattr(als, "CHUNK_ELEMS", 64)
+    S = setup
+    d, p = S["data"], S["params"]
+    cls, kw = {"als": (als.ALSSolver, {}),
+               "als_cg": (als.ALSSolver, dict(cg_iters=3)),
+               "ialspp": (als.SubspaceALSSolver, {}),
+               "alsdense": (als.DenseALSSolver, dict(row_block=16))}[method]
+    make = lambda split: cls(S["model"], p, d.train_mat, S["iu"], S["ii"],
+                             device="cpu", split=split, **kw)
+    a, b = make(False), make(True)
+    if method != "alsdense":
+        assert len(b._stage[0]) == len(a._stage[0]) > 1
+        assert torch.equal(torch.cat(b._solved[0]),
+                           torch.cat([c[5] for c in a._stage[0]]))
+    sa = sb = init_state(p, d.n_users, d.n_items, device="cpu")
+    for _ in range(2):
+        sa, sb = a.epoch(sa, 0.0), b.epoch(sb, 0.0)
+    assert torch.equal(sa.u_fac, sb.u_fac) and torch.equal(sa.i_fac,
+                                                           sb.i_fac)
 
 
 # ----------------------------------------------------------------------
@@ -667,6 +713,72 @@ def test_dense_block_dsgd_matches_manual_round(setup, n, mm_bf16, rtol,
     close(st_t, st_j, rtol, atol)
 
 
+# ----------------------------------------------------------------------
+# the phase-attribution epochs (scripts/scaling_curve.py --phase-split)
+# ----------------------------------------------------------------------
+
+def _jax_mode_epochs(js, mode, st_j, key, epochs=2):
+    """``epochs`` epochs of the JAX solver built in ``mode``; returns the
+    state and the epoch keys."""
+    js._epoch = js._build_epoch(mode)
+    keys = []
+    for _ in range(epochs):
+        key, ek = jax.random.split(key)
+        keys.append(ek)
+        st_j = js.epoch(st_j, 0.02, ek)
+    return st_j, keys
+
+
+@pytest.mark.parametrize("mode", ["nopermute", "permuteonly"])
+@pytest.mark.parametrize("solver", ["dsgd", "dsgd_tmfdropout", "block",
+                                    "dense"])
+def test_phase_modes_match_jax(setup, solver, mode):
+    """Each mesh solver's "nopermute" (the rounds without the item-block
+    rotation) and "permuteonly" (the rotation alone) epochs against JAX's
+    ``_build_epoch(mode)`` on the 8-shard mesh, the port fed the same
+    draws: f32 products at JAX's atol 2e-5 / rtol 1e-4, as for "full".
+    permuteonly leaves the tables as they were; nopermute trains them."""
+    S = setup
+    d = S["data"]
+    n, m = d.n_users, d.n_items
+    if solver.startswith("dsgd"):
+        uf, itf = _freqs(d)
+        kw = dict(fac_dim=4, u_reg=0.001, i_reg=0.001, learn_rate=0.02,
+                  seed=5, batch_size=64, rho_rms=1.0, alpha=0.0)
+        p, jp = Params(**kw), JParams(**kw)
+        models = ((ModelPoissonDropout(p, n, m, uf, itf),
+                   JPois(jp, n, m, uf, itf)) if solver == "dsgd_tmfdropout"
+                  else (ModelMF(p, n, m), JModelMF(jp, n, m)))
+        ts, js = _dsgd_pair(S, *models, p, jp, batch_size=64)
+        draws = lambda ek: _jax_dsgd_draws(js, ek)
+    elif solver == "block":
+        p = S["jparams"]
+        ts, js = _block_pair(S, S["model"], S["jmodel"], mm_bf16=False)
+        draws = lambda ek: _jax_block_draws(js, ek)
+    else:
+        p = S["jparams"]
+        ts, js = _dense_pair(S, n=8, sub_bu=8, mm_bf16=False)
+        draws = lambda ek: _jax_dense_draws(ts.SU, ts.n_shards, ek)
+    st_j0 = j_init_state(p, n, m)
+    st_j, keys = _jax_mode_epochs(js, mode, st_j0, jax.random.PRNGKey(2))
+    st_t = tstate(st_j0)
+    for ek in keys:
+        st_t = ts.epoch_with(st_t, 0.02, draws(ek), mode=mode)
+    close(st_t, st_j, 1e-4, 2e-5)
+    moved = not np.array_equal(st_t.u_fac.numpy(), np.asarray(st_j0.u_fac))
+    assert moved == (mode == "nopermute")
+
+
+def test_phase_modes_are_checked(setup):
+    S = setup
+    ts = DSGDShardedSolver(S["model"], S["params"], S["data"].train_mat,
+                           S["iu"], S["ii"], tmesh(2))
+    st = init_state(S["params"], S["data"].n_users, S["data"].n_items,
+                    device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        ts.epoch(st, 0.02, mode="commonly")
+
+
 def test_dense_block_dsgd_converges_on_mesh(setup):
     S = setup
     d = S["data"]
@@ -884,12 +996,15 @@ def _free_port():
 
 
 @pytest.mark.parametrize("mode", ["dsgd", "tmfdropout", "block",
-                                  "dense_float", "dense_codes"])
-def test_two_process_run_equals_one_process(tmp_path, mode):
+                                  "dense_float", "dense_codes", "als",
+                                  "ialspp", "alsdense"])
+def test_two_process_run_equals_one_process(tmp_path, monkeypatch, mode):
     """Two gloo processes, each staging only its host-local rows and its 4
     of 8 shards, train the factors one process trains on the 8-shard mesh,
     bit for bit (block: and the sharded checkpoint round-trips across both
-    processes)."""
+    processes). The coordinate modes train through train_model(mesh=...):
+    each process gathers the whole train matrix from the host-local rows,
+    solves its share of every half-sweep and all-gathers the rest."""
     worker = os.path.join(HERE, "torch_mesh_worker.py")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -913,6 +1028,14 @@ def test_two_process_run_equals_one_process(tmp_path, mode):
     multi = np.load(str(tmp_path / f"multi_{mode}.npz"))
 
     data, params, model_fn, solver_fn = problem(mode)
+    if mode in COORD_MODES:
+        small_batches(monkeypatch.setattr)
+        rep = train_coord(data, params, mode, tmesh(8))
+        assert np.array_equal(rep.state.u_fac.numpy(), multi["u_fac"])
+        assert np.array_equal(rep.state.i_fac.numpy(), multi["i_fac"])
+        # both processes solved user rows
+        assert len(multi["solved"]) == 2 and min(multi["solved"]) > 0
+        return
     iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
                                       data.n_items)
     solver = solver_fn(model_fn(), data.train_mat, iu, ii, tmesh(8))

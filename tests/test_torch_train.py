@@ -358,32 +358,6 @@ def test_resume_survives_missing_best_file(tmp_path):
     assert np.isfinite(rep.best_metric)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mf_method="als", processes=2), "item 19")])
-def test_unported_paths_raise_naming_their_roadmap_item(kw, item,
-                                                        monkeypatch):
-    """What is left unported raises NotImplementedError naming its ROADMAP
-    item: ALS under a mesh across processes (each process would run the
-    whole solve). The paths that train (the default sgd, TMF and
-    TMF+Dropout on densesgd, 'auto' for every model, ALS, CCD, sgdparsvd,
-    BPR and its hybrid on both pairwise engines, the othersrc models,
-    tests/test_torch_othersrc.py, and the mesh paths,
-    tests/test_torch_parallel.py) are cases of the parity tests."""
-    from matfac_tpu_torch.parallel import distributed
-    from matfac_tpu_torch.parallel.mesh import make_mesh
-    data, p = _data()
-    kw = dict(kw)
-    p = p.replace(**kw.pop("params", {}))
-    if kw.pop("processes", 1) > 1:
-        kw["mesh"] = make_mesh((2,), ("u",), devices=[torch.device("cpu")] * 2)
-        # a stand-in for the second process: the collectives of one
-        monkeypatch.setattr(distributed, "multiprocess", lambda: True)
-        monkeypatch.setattr(distributed, "allgather",
-                            lambda x: np.asarray(x)[None])
-    with pytest.raises(NotImplementedError, match=item):
-        train_model(data, p, device="cpu", log_fn=lambda s: None, **kw)
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(algo="tmfdropout", mf_method="blocksgd"), "static per-pair ranks"),
     (dict(algo="tmf", mf_method="als"), "coordinate family"),

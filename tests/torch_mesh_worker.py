@@ -8,14 +8,54 @@ for comparison with one process running the same problem. Mode "block"
 also round-trips the trained state through ``save_sharded`` /
 ``restore_sharded`` with both processes taking part.
 
+The coordinate modes (als, ialspp, alsdense) train through
+``train_model(mesh=...)`` from the host-local rows instead: each process
+gathers the whole train matrix, solves its share of each half-sweep's rows
+and all-gathers the rest (``small_batches`` cuts the dense solver's row
+blocks small enough that both processes solve rows of every side).
+
 Usage: python torch_mesh_worker.py <port> <rank> <out_dir> <mode> [dev]
-(mode: dsgd, tmfdropout, block, dense_float, dense_codes; dev: cpu, the
-default, or cuda: both processes' shards on the one card, the tables and
-tiles on it, the exchange through host memory)
+(mode: dsgd, tmfdropout, block, dense_float, dense_codes, als, ialspp,
+alsdense; dev: cpu, the default, or cuda: both processes' shards on the
+one card, the tables and tiles on it, the exchange through host memory)
 """
 
+import copy
 import os
 import sys
+
+COORD_MODES = ("als", "ialspp", "alsdense")
+
+
+def small_batches(setattr_):
+    """Cut the dense ALS solver's row blocks to 16 rows, so that both
+    processes solve some (the bucketed solvers' batches, a bucket each
+    here, already fall to both); ``setattr_`` is ``setattr`` or pytest's
+    ``monkeypatch.setattr``."""
+    from matfac_tpu_torch.solvers import als
+    from matfac_tpu_torch.train import loop
+
+    class Dense16(als.DenseALSSolver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, row_block=16, **kw)
+    setattr_(loop, "DenseALSSolver", Dense16)
+
+
+def solved_per_process(solver):
+    """How many user rows (bucketed) or user row blocks (dense) each
+    process solves a sweep."""
+    if hasattr(solver, "_runs"):
+        return [len(r) for r in solver._runs[0]]
+    return [len(i) for i in solver._solved[0]]
+
+
+def train_coord(data, params, mode, mesh):
+    """train_model(algo="mf", mf_method=mode, mesh=mesh) for 2 epochs;
+    returns the report."""
+    from matfac_tpu_torch.train.loop import train_model
+    rep, *_ = train_model(data, params.replace(max_iter=2), algo="mf",
+                          mf_method=mode, mesh=mesh, log_fn=lambda s: None)
+    return rep
 
 
 def problem(mode):
@@ -99,6 +139,20 @@ def main():
                                              rank)
     local_mat = RatingMatrix.from_coo(r, c, v, n_users, n_items)
     mesh = make_mesh((8,), ("u",), devices=[torch.device(dev)] * 4)
+    if mode in COORD_MODES:
+        small_batches(setattr)
+        local = copy.copy(data)
+        local.train_mat = local_mat
+        rep = train_coord(local, params, mode, mesh)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"multi_{mode}.npz"),
+                     u_fac=rep.state.u_fac.cpu().numpy(),
+                     i_fac=rep.state.i_fac.cpu().numpy(),
+                     solved=solved_per_process(rep.solver))
+        distributed.barrier()
+        torch.distributed.destroy_process_group()
+        print("WORKER_OK", rank)
+        return
     solver = solver_fn(model_fn(), local_mat, iu, ii, mesh)
     assert solver.local_blocks == list(range(4 * rank, 4 * rank + 4)), \
         solver.local_blocks
