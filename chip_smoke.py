@@ -37,6 +37,15 @@ Phases, in order; any failure raises and the script exits non-zero:
       memory;
   (e) main path, code tiles: the ML-20M shape (138,000 x 27,000, ~20M
       half-star ratings), k=64;
+  (z) the flagship at a cut depth, after (e) on (e)'s data (which is
+      scripts/torch_ml20m_flagship.py's make_data): its run_k at k 64 for
+      Z_MAX_ITER epochs with text checkpoints every Z_SAVE_ITER: the loop
+      stops with a reason and keeps the best-on-val state, the stripe
+      kernel's launches against the plan, the text checkpoint read back
+      (val RMSE within 1e-5 of the best), the full-catalog HR@10 of the
+      JAX script over every user through the fused top-N kernel (launches
+      against the plan), that kernel held against topk_plain on
+      Z_HELD_USERS users, and each phase's wall;
   (f) top-N kernel vs plain: csrc/topk.cu against topk_plain on the same
       CUDA tensors at k = 32, 64, 128 and n = 1, 10, 100, 127, 128, 129,
       1000 (the fused route up to FUSED_MAX_N = 128, here with catalog
@@ -61,13 +70,14 @@ Phases, in order; any failure raises and the script exits non-zero:
       run), val HR@10 after each epoch through the fused top-N kernel on
       the CDF-truncated view (launches counted around each run), that
       kernel held against topk_plain on the truncated best view, 4 steps
-      held against the CPU copy of the solver on the same draws and masks;
+      held against the CPU copy of the solver on the same draws and masks,
+      two runs of one epoch on the same draws and masks bit-identical;
   (s) the dense-stripe BPR engine at (g)'s data: train_model(algo="bpr",
       bpr_engine="dense") for 3 epochs at one negative a positive, then 2
       epochs of the panel epoch at panel_q=128 (TrainLoopHR), val HR@10
       each epoch through the fused kernel; 1 stripe held against the CPU
-      copy on the same draws; whether two runs of an epoch repeat bit for
-      bit;
+      copy on the same draws; two runs of an epoch (both engines' epochs)
+      bit-identical;
   (h) one-hot cell kernel vs plain: csrc/block_sgd.cu against the plain
       PyTorch versions on the same CUDA tensors: the row schedule, the diag
       schedule (with a dummy lane) and fused_cell_update's single cell;
@@ -98,8 +108,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       one epoch replayed with the drawn order and round uniforms;
   (o) the scatter engine, train_model's default method, for algo "mf"
       and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
-      epoch's time, batches and CUDA kernels, and whether two runs of an
-      epoch are bit-identical, logged;
+      epoch's time, batches and CUDA kernels; two runs of an epoch
+      bit-identical (every scatter sums in a fixed order,
+      ops/scatter.index_add_ordered_); the epoch timed in turns with
+      Tensor.index_add_ (atomics) in place of the ordered sums, a
+      measurement of what the fixed order costs that no engine runs;
   (p) the coordinate family's ALS on (d)'s data with bench.py's Params
       (k 64, reg 0.01), 2 epochs each: train_model(mf_method="auto")
       (exact bucketed ALS), ALSSolver(cg_iters=6), SubspaceALSSolver,
@@ -108,7 +121,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   (q) CCD on the same data: train_model for ccd++ (2 epochs), ccd++ with
       ccd_group_dims=4 and ccd++freqadap (1 each), ccd (2); two runs of
       one CCD++ and one CCD epoch must be bit-identical;
-  (t) SVD-initialised SGD on (d)'s data: svd_init at k 64 timed, its
+  (t) SVD-initialised SGD on (d)'s data: svd_init at k 64 timed twice,
+      the two bit-identical, its
       leading singular pair checked on the card and a 20,000-user slice
       held against the CPU with one test matrix; train_model(mf_method=
       "sgdparsvd") for 2 epochs: val RMSE falls from the SVD start, 4
@@ -132,8 +146,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       ALS, one epoch, bit for bit ALS on one device; train_model(
       mf_method="blocksgd", mesh=...) for 2 epochs (BlockDSGDSolver, one
       diag launch a shard-round, every cell finished, a shard-round
-      against block_sweep_diag); TMF+Dropout on the scatter DSGD, 2
-      epochs; val RMSE falls in each run; scripts/torch_scaling_curve.py's
+      against block_sweep_diag); TMF+Dropout on the scatter DSGD, 1
+      epoch, two runs of an epoch bit-identical, and the same epoch in
+      the two --mesh-worker processes bit for bit the 1-process run;
+      val RMSE falls in each run; scripts/torch_scaling_curve.py's
       phase split (full, nopermute and permuteonly epochs of the three
       DSGD solvers at 1, 2 and 4 shards), printed, with one dense and one
       one-hot shard-round at its shapes against their plain versions;
@@ -152,7 +168,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       report lines, epoch ms, idle share, peak memory, checkpoint seconds
       and val metric before and after (it must improve); one stripe
       epoch, one one-hot epoch and the top-10 / top-1000 passes of these
-      runs held against their plain versions, and the ranking run's
+      runs held against their plain versions, one tmf_bias and one
+      increment epoch run twice bit-identical, and the ranking run's
       quartile_ranking_report; the read half: tmf_bias's text checkpoint
       read back with load_full onto the card (biases and mu equal the
       files', val RMSE within 1e-5 of the best) and (d)'s best factors
@@ -173,6 +190,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   (x) the quality harness at a cut depth: scripts/torch_quality_report.py's
       nine solvers at --maxiter 30 on the card, each best val RMSE within
       0.01 of the JAX package's at that depth (QUALITY_JAX);
+  (mb) scripts/torch_microbench.py --quick, printed: the primitive rates,
+      the scatter chain through the ordered sums and through index_add_;
   (m) the toolchain probes (csrc/bisect_probes.cu) at the JAX probes'
       shapes, each once against its plain version (exact), then timed.
 (d), (e) and (l) check that every stripe went through the kernel (launch count),
@@ -251,6 +270,7 @@ from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
 from matfac_tpu_torch.solvers import als
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
+from matfac_tpu_torch.solvers import sgd as sgd_mod
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt_mod
 from matfac_tpu_torch.train import loop as loop_mod
@@ -1687,13 +1707,22 @@ def _bpr_partial_masks(solver, border, bits, steps: int):
 
 
 def _twice(tag: str, what: str, run):
-    """Two runs of one epoch from one state with one set of draws: bit-
-    identical or not, and the largest difference (logged)."""
-    a, b = run(), run()
+    """Two runs of one epoch from one state with one set of draws: every
+    table bit-identical (the engines sum in a fixed order), or the run
+    fails. Returns the largest difference (0.0)."""
+    return _same_bits(tag, what, run(), run())
+
+
+def _same_bits(tag: str, what: str, a, b):
+    """``_twice`` on two runs' states ``a`` and ``b``."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
     diff = max(float((x.float() - y.float()).abs().max())
-               for x, y in zip(a[:2], b[:2]))
+               for x, y in zip(a, b) if x.numel())
     log(f"({tag}) {what}: two runs of one epoch on the card bit-identical "
-        f"{diff == 0.0} (largest difference {diff:.3e})")
+        f"{same} (largest difference {diff:.3e}) {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"({tag}) {what}: two runs of one epoch differ")
     return diff
 
 
@@ -1932,13 +1961,20 @@ def phase_sgdparsvd(data: Data, dev="cuda") -> dict:
     params = Params(**dict(CELLS["d"][1], max_iter=2))
     k = params.fac_dim
     mat = data.train_mat
-    ms = []
+    ms, runs = [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        u0, v0, sv = svd_init(mat, k, device=dev)
+        runs.append(svd_init(mat, k, device=dev))
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
+    u0, v0, sv = runs[0]
+    same = all(np.array_equal(a, b) for a, b in zip(*runs))
+    log(f"(t) svd_init twice on the card bit-identical {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("(t) two runs of svd_init differ")
+    del runs
     rr = min(k + 8, mat.nrows, mat.ncols)
     bound = svd_bound(mat, rr, 6)
     # on the card: A v_j against s_j u_j
@@ -1994,6 +2030,8 @@ def phase_sgdparsvd(data: Data, dev="cuda") -> dict:
         _held("t", f"sgdparsvd, 4 batches of {solver.batch_size}, {what}",
               a, b, SCATTER_TOL)
     del cpu, st_c, st_g
+    _twice("t", "sgdparsvd", lambda: solver.epoch_with(
+        rep.state, params.learn_rate, border))
     out = _time_epoch("t", "sgdparsvd (scatter SGD, per-dim reg)",
                       lambda: solver.epoch_with(rep.state, params.learn_rate,
                                                 border), sgd_bound(solver))
@@ -2271,10 +2309,12 @@ def phase_block_vs_plain(dev="cuda") -> dict:
     return worst
 
 
-def _alternate(kernel, plain, reps: int = 1):
+def _alternate(kernel, plain, reps: int = 1, warm: bool = True):
     """(kernel ms, plain ms), CUDA events over ``reps`` calls, in turns
-    plain, kernel, kernel, plain, after one warm call of each."""
-    kernel(), plain()
+    plain, kernel, kernel, plain, after one warm call of each (``warm``;
+    a caller that has just run both passes False)."""
+    if warm:
+        kernel(), plain()
     torch.cuda.synchronize()
     p_ms = [_cuda_ms(plain, reps)]
     k_ms = [_cuda_ms(kernel, reps), _cuda_ms(kernel, reps)]
@@ -2306,7 +2346,7 @@ def _replay(tag: str, solver, state, lr: float, sched):
         raise AssertionError(f"({tag}) kernel disagrees with the plain "
                              f"version on the path's streams (rtol {rtol}, "
                              f"atol {atol})")
-    k_ms, p_ms = _alternate(kernel, plain)
+    k_ms, p_ms = _alternate(kernel, plain, warm=False)
     return a, k_ms, p_ms
 
 
@@ -2638,15 +2678,31 @@ def _device_kernels(fn):
     return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
 
 
-def phase_scatter(data: Data, dev="cuda"):
+@contextlib.contextmanager
+def _atomic_scatter():
+    """A measurement only: the scatter engine's sums through
+    ``Tensor.index_add_`` (atomics on the card, in no fixed order) in place
+    of ``index_add_ordered_``, to time what the fixed order costs. No
+    engine of the port has this route."""
+    real = sgd_mod.index_add_ordered_
+    sgd_mod.index_add_ordered_ = lambda t, dim, index, src: t.index_add_(
+        dim, index, src)
+    try:
+        yield
+    finally:
+        sgd_mod.index_add_ordered_ = real
+
+
+def phase_scatter(data: Data, dev="cuda") -> dict:
     """(o): train_model(data, params) -- the default mf_method, the scatter
     engine -- for algo "mf" and "tmfdropout" on (d)'s data, 2 epochs each:
     val RMSE falls; then one epoch alone from the initial state (CUDA
     events), its batches and the CUDA kernels it launches (torch.profiler;
-    idle share = 1 - their device time / the epoch's), and whether two
-    runs of one epoch with the same batch order and masks are
-    bit-identical (logged, not required: index_add_ sums colliding rows
-    with atomics)."""
+    idle share = 1 - their device time / the epoch's); two runs of one
+    epoch with the same batch order and masks must be bit-identical; and
+    the epoch timed in turns (ordered, atomic, atomic, ordered) with
+    ``_atomic_scatter``. Returns {algo: (ordered ms, atomic ms)}."""
+    costs = {}
     for algo in ("mf", "tmfdropout"):
         params = Params(**dict(CELLS["d"][1], max_iter=2))
         t0 = time.perf_counter()
@@ -2676,16 +2732,26 @@ def phase_scatter(data: Data, dev="cuda"):
         torch.cuda.synchronize()
         ms = [_cuda_ms(epoch) for _ in range(2)]
         n_kern, dev_ms = _device_kernels(epoch)
-        same = all(torch.equal(x, y) for x, y in zip(epoch(), epoch()))
         log(f"(o) {algo} scatter epoch alone (CUDA events): {ms!r} ms = "
             f"{solver.nnz / np.mean(ms) * 1e3:.4e} ratings/s; "
             f"{n_kern} CUDA kernels an epoch "
             f"({n_kern / solver.n_batches:.1f} a batch), device busy "
-            f"{dev_ms:.3f} ms, idle share {1 - dev_ms / np.mean(ms):.3f}; "
-            f"two runs of one epoch (same order and masks) bit-identical: "
-            f"{same}")
+            f"{dev_ms:.3f} ms, idle share {1 - dev_ms / np.mean(ms):.3f}")
+        _twice("o", f"{algo} (same order and masks)", epoch)
+        ordered, atomic = [_cuda_ms(epoch)], []
+        with _atomic_scatter():
+            epoch()
+            atomic += [_cuda_ms(epoch) for _ in range(2)]
+            n_at, dev_at = _device_kernels(epoch)
+        ordered.append(_cuda_ms(epoch))
+        costs[algo] = (float(np.mean(ordered)), float(np.mean(atomic)))
+        log(f"(o) {algo} the fixed order's cost, in turns (CUDA events): "
+            f"ordered sums {ordered!r} ms, atomic index_add_ {atomic!r} ms "
+            f"(device busy {dev_at:.3f} ms, {n_at} kernels), ordered / "
+            f"atomic {costs[algo][0] / costs[algo][1]:.3f}")
         del rep, solver, ev
         torch.cuda.empty_cache()
+    return costs
 
 
 # ----------------------------------------------------------------------
@@ -3115,6 +3181,19 @@ def phase_cli(data: Data, dev="cuda", best_d=None) -> dict:
                 f"{np.bincount(inc.rank_i).nonzero()[0].tolist()}")
         if tag == "dropoutmf_ordered":
             assert tuple(model.eval_view(s0).u_fac.shape) == (n, 128)
+        if tag == "increment":
+            _twice("u", tag, r["replay"])
+        if tag == "tmf_bias":
+            assert isinstance(solver, SGDSolver)
+            border = solver.batch_order()
+            gen0 = solver._mask_gen.get_state()
+
+            def again():
+                solver._mask_gen.set_state(gen0)
+                return solver.epoch_with(rep.state, params.learn_rate,
+                                         border)
+
+            _twice("u", tag, again)
         del r, rep, model, ev, solver
         torch.cuda.empty_cache()
     log(f"(u) phase {time.perf_counter() - t_phase:.1f} s")
@@ -3897,8 +3976,6 @@ def phase_probes(dev="cuda") -> dict:
 # (x): the quality harness at a cut depth
 # ----------------------------------------------------------------------
 
-QUALITY_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "scripts", "torch_quality_report.py")
 # scripts/torch_quality_report.py's nine solvers at --maxiter 30, the
 # depth of the JAX package's own chip rerun (BASELINE.md:255-257). Each
 # solver's best val RMSE is held within QUALITY_TOL of the JAX package's
@@ -3926,10 +4003,7 @@ def phase_quality(dev="cuda") -> list:
     QUALITY_MAXITER through the port's train_model on the card; each best
     val RMSE within QUALITY_TOL of QUALITY_JAX's band. Prints the table
     beside JAX's; returns the rows."""
-    spec = importlib.util.spec_from_file_location("torch_quality_report",
-                                                  QUALITY_SCRIPT)
-    qr = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(qr)
+    qr = _load_script("torch_quality_report")
     t0 = time.perf_counter()
     data = qr.quality_data()
     rows = qr.run(data, QUALITY_MAXITER, dev, log=lambda s: log(f"(x) {s}"))
@@ -3976,10 +4050,23 @@ Y_COORD_PARAMS = dict(CELLS["d"][1], max_iter=2)
 Y_COORD_SOLVERS = {"als": als.ALSSolver, "ialspp": als.SubspaceALSSolver,
                    "alsdense": als.DenseALSSolver}
 # (y) 6: scripts/torch_scaling_curve.py's phase split
-SCALING_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "scripts", "torch_scaling_curve.py")
 Y_CURVE_SHARDS = (1, 2, 4)
 Y_CURVE_EPOCHS = 2
+# (y) 5: TMF+Dropout on the scatter DSGD, 1 epoch (~13 s on the ordered
+# sums). Steps of 2,048 ratings at lr 0.01: the DSGD engine sums a batch's
+# gradients without collision normalization (as JAX's), so a hot item of a
+# 16,384-rating step at (d)'s lr 0.05 takes many steps at once.
+Y_DSGD_PARAMS = dict(CELLS["d"][1], max_iter=1, batch_size=2048,
+                     learn_rate=0.01)
+
+
+def _y_dsgd_run(data, mesh):
+    """train_model(algo="tmfdropout", mf_method="sgd", mesh): the scatter
+    DSGD with Poisson ranks drawn per (round, shard), keyed by the
+    global shard, so 2 processes draw what 1 process draws."""
+    return train_model(data, Params(**Y_DSGD_PARAMS), algo="tmfdropout",
+                       mf_method="sgd", mesh=mesh,
+                       log_fn=lambda s: log(f"(y) {s}"))
 
 
 def _y_mesh(dev, n=Y_SHARDS):
@@ -4216,7 +4303,8 @@ def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
     from its initial state; then the whole train matrix gathered once
     from the host-local rows and train_model(mf_method=m, mesh) for m in
     Y_COORD, 2 epochs each, this process solving its share of every
-    half-sweep. Rank 0 writes the factors."""
+    half-sweep; then (y) 5's scatter DSGD from the host-local rows. Rank 0
+    writes the factors."""
     from matfac_tpu_torch.parallel import distributed
     distributed.initialize(f"tcp://127.0.0.1:{port}", world_size=2,
                            rank=rank, backend="gloo")
@@ -4273,6 +4361,20 @@ def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
                      i_fac=rep.state.i_fac.cpu().numpy())
         del rep
         torch.cuda.empty_cache()
+    # host-local rows: train_model sums the frequencies behind the
+    # Poisson ranks over the processes
+    ldata = copy.copy(data)
+    ldata.train_mat = local
+    t0 = time.perf_counter()
+    rep, *_ = _y_dsgd_run(ldata, mesh)
+    log(f"mesh worker {rank}: tmfdropout scatter DSGD "
+        f"{Y_DSGD_PARAMS['max_iter']} epoch(s) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "two_process_dsgd.npz"),
+                 u_fac=rep.state.u_fac.cpu().numpy(),
+                 i_fac=rep.state.i_fac.cpu().numpy())
+    del rep
     distributed.barrier()
     torch.distributed.destroy_process_group()
     log(f"mesh worker {rank}: ok")
@@ -4321,7 +4423,7 @@ def _y_two_process(first, coord, dev):
         raise AssertionError("(y) 2-process epoch differs from 1-process")
     for line in outs[0].splitlines() + outs[1].splitlines():
         if "mesh worker" in line and ("gathered" in line or "epochs in"
-                                      in line):
+                                      in line or "epoch(s) in" in line):
             log(f"(y) {line}")
     for m in Y_COORD:
         multi = np.load(os.path.join(Y_DIR, f"two_process_{m}.npz"))
@@ -4405,19 +4507,14 @@ def _y_block(data, dev):
 
 
 def _y_dsgd(data, dev):
-    """(y) 5: TMF+Dropout on the scatter DSGD (train_model(algo=
-    "tmfdropout", mf_method="sgd", mesh)), 2 epochs: Poisson ranks drawn
-    per (round, shard); val RMSE falls; epoch ms and idle share (one
-    timed epoch, one profiled: the epoch is host-bound, seconds long).
-    Steps of 2,048 ratings at lr 0.01: the DSGD engine sums a batch's
-    gradients without collision normalization (as JAX's), so a hot item
-    of a 16,384-rating step at (d)'s lr 0.05 takes many steps at once."""
-    params = Params(**dict(CELLS["d"][1], max_iter=2, batch_size=2048,
-                           learn_rate=0.01))
+    """(y) 5: TMF+Dropout on the scatter DSGD (``_y_dsgd_run``), 2 epochs:
+    Poisson ranks drawn per (round, shard); val RMSE falls; the trained
+    tables bit for bit the 2 processes x 2 shards run of ``mesh_worker``;
+    two runs of an epoch bit-identical; epoch ms and idle share (one
+    timed epoch, one profiled: the epoch is host-bound, seconds long)."""
+    params = Params(**Y_DSGD_PARAMS)
     mesh = _y_mesh(dev)
-    rep, model, ev, _ = train_model(data, params, algo="tmfdropout",
-                                    mf_method="sgd", mesh=mesh,
-                                    log_fn=lambda s: log(f"(y) {s}"))
+    rep, model, ev, _ = _y_dsgd_run(data, mesh)
     solver = rep.solver
     assert type(solver).__name__ == "DSGDShardedSolver"
     assert solver.sample_poisson
@@ -4431,7 +4528,19 @@ def _y_dsgd(data, dev):
         solver._resident = None
         return solver.epoch_with(s0, params.learn_rate, sched)
 
-    ms, busy, idle, _ = _busy_idle(epoch)
+    multi = np.load(os.path.join(Y_DIR, "two_process_dsgd.npz"))
+    same = (np.array_equal(multi["u_fac"], rep.state.u_fac.cpu().numpy())
+            and np.array_equal(multi["i_fac"],
+                               rep.state.i_fac.cpu().numpy()))
+    log(f"(y) tmfdropout scatter DSGD, {params.max_iter} epoch(s) as 2 "
+        f"processes x 2 shards (the --mesh-worker processes): bit for bit "
+        f"the 1-process run "
+        f"{same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("(y) scatter DSGD: 2 processes differ from 1")
+    runs = []      # the timed and the profiled epoch, compared
+    ms, busy, idle, _ = _busy_idle(lambda: runs.append(epoch()) or runs[-1])
+    _same_bits("y", "tmfdropout scatter DSGD", *runs)
     log(f"(y) tmfdropout scatter DSGD: S={solver.S} bs={solver.bs} "
         f"({solver.S // solver.bs} steps a shard-round); val RMSE at init "
         f"{val0!r}, per epoch {vals!r}; epoch alone (CUDA events) "
@@ -4513,10 +4622,7 @@ def _y_scaling(dev) -> dict:
     zeroed around it; then one dense and one one-hot shard-round at 4
     shards of the curve's data held against their plain versions. Returns
     {kernel: (launches, max abs error)}."""
-    spec = importlib.util.spec_from_file_location("torch_scaling_curve",
-                                                  SCALING_SCRIPT)
-    sc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sc)
+    sc = _load_script("torch_scaling_curve")
     t0 = time.perf_counter()
     drk.dense_rows_epoch.launches = 0
     _zero_block_counts()
@@ -4566,6 +4672,110 @@ def phase_mesh(data: Data, dev="cuda") -> dict:
                 topk=(topk_n, topk_err), curve=curve)
 
 
+# ----------------------------------------------------------------------
+# (z): the flagship at a cut depth; (mb): the microbenchmarks
+# ----------------------------------------------------------------------
+
+SCRIPTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts")
+# scripts/torch_ml20m_flagship.py's run at k 64, cut from 60 epochs: a
+# text checkpoint at epoch 5 and at the end, the loop's evals every 5
+Z_MAX_ITER, Z_SAVE_ITER = 6, 5
+Z_HELD_USERS = 2048
+
+
+def _load_script(name: str):
+    """A script of scripts/ as a module (its main not run)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(SCRIPTS_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_flagship(flag, data: Data, dev="cuda") -> dict:
+    """(z): ``flag.run_k`` (scripts/torch_ml20m_flagship.py) on its own
+    data at k 64, Z_MAX_ITER epochs, text checkpoints every Z_SAVE_ITER,
+    the counts zeroed just before and read just after: the loop stops
+    with a reason and keeps the best-on-val state; the stripe kernel's
+    launches (int8 codes) and the fused top-N kernel's (the HR@10 pass
+    and its warm-up over every user) against the plan; the text
+    checkpoint read back onto the card (factors only, as the reference's
+    plain MF writes: ``load_full`` finds no biases and ``load_facs``
+    reads it), val RMSE within 1e-5 of the best; the top-10 of
+    Z_HELD_USERS users on the best view, kernel against topk_plain; each
+    phase's wall. Returns the launches and worst errors."""
+    params = flag.flagship_params(64, Z_MAX_ITER, Z_SAVE_ITER)
+    prefix = os.path.join(RUN_DIR, "flagship", "ml20m_k64")
+    n, m = data.n_users, data.n_items
+    drk.dense_rows_epoch.launches = 0
+    tk.topk_catalog.launches = 0
+    torch.cuda.synchronize()
+    out = flag.run_k(data, params, prefix, dev, hr=True,
+                     log=lambda s: log(f"(z) {s}"))
+    torch.cuda.synchronize()
+    stripe, topk = drk.dense_rows_epoch.launches, tk.topk_catalog.launches
+    rep, model, ev, walls = out["rep"], out["model"], out["ev"], \
+        out["walls"]
+    solver = rep.solver
+    vals = [h.val_rmse for h in rep.history]
+    epochs = walls["n_epochs"]
+    want_stripe = epochs * drk.epoch_launches(solver.NU, 64, solver.mm_bf16)
+    want_topk = 2 * tk.pass_launches(n, m, 10)
+    ok = (solver.R_rows.dtype == torch.int8 and rep.stop_reason
+          and rep.best_iter >= 0 and rep.best_metric == min(vals)
+          and np.isfinite(vals).all()
+          and epochs == Z_MAX_ITER and stripe == want_stripe
+          and tk.fused_plan(n, m, 10)["route"] == "fused"
+          and topk == want_topk)
+    log(f"(z) flagship at k 64, {epochs} epochs: stop={rep.stop_reason}, "
+        f"best epoch {rep.best_iter}, val per logged epoch {vals!r}, best "
+        f"{rep.best_metric!r}, test {out['test']!r}; {out['n_ckpt']} "
+        f"checkpoint files; stripe launches {stripe} (plan {want_stripe}, "
+        f"R {solver.R_rows.dtype}), top-N launches {topk} (plan "
+        f"{want_topk}); HR@10 {out['hr10']!r}; walls {walls} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(z) the flagship run is not as planned")
+    sig = ckpt_mod.model_signature(params, n, m)
+    s0 = init_state(params, n, m, device=dev)
+    t0 = time.perf_counter()
+    back = ckpt_mod.load_facs(s0, prefix, sig)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    val = ev.rmse(model.eval_view(back), "val")
+    ok = (ckpt_mod.load_full(s0, prefix, sig) is None
+          and back.u_fac.device.type == torch.device(dev).type
+          and abs(val - rep.best_metric) <= 1e-5)
+    log(f"(z) the text checkpoint read back onto the card in {load_s:.2f} "
+        f"s (factors only: load_full None, load_facs): val RMSE {val!r} "
+        f"against the best {rep.best_metric!r} (|diff| "
+        f"{abs(val - rep.best_metric):.2e} <= 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(z) the flagship checkpoint did not read back")
+    scorer = out["scorer"]
+    view = model.eval_view(rep.best_state)
+    args = dict(u_fac=view.u_fac, i_fac=view.i_fac, i_bias=view.i_bias,
+                u_bias=view.u_bias, mu=view.mu,
+                invalid=scorer.invalid_items_dev, indptr=scorer.indptr,
+                indices=scorer.indices,
+                users=scorer._all_users[:Z_HELD_USERS])
+    ok, err, held = topk_agree(tk.topk_catalog(**args, n=10),
+                               tk.topk_plain(**args, n=10), False)
+    log(f"(z) top-10 of {Z_HELD_USERS} users on the best view, kernel vs "
+        f"plain: max_abs {err:.3e}, ids held at {held:.4f} of slots "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(z) top-10 kernel vs plain")
+    return {"stripe": (stripe, 0.0), "fused": (topk, err)}
+
+
+def phase_microbench(dev="cuda") -> dict:
+    """(mb): scripts/torch_microbench.py --quick on the card, printed."""
+    return _load_script("torch_microbench").run(
+        dev, quick=True, log=lambda s: log(f"(mb) {s}"))
+
+
 NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 
@@ -4596,8 +4806,17 @@ def main() -> int:
     lap("d")
     w = phase_cell_grid(data_d)
     lap("w")
-    e = run_cell("e")
+    flag = _load_script("torch_ml20m_flagship")
+    t0 = time.perf_counter()
+    data_e = flag.make_data()
+    log(f"data {data_e} made by scripts/torch_ml20m_flagship.py in "
+        f"{time.perf_counter() - t0:.1f} s")
+    e = run_cell("e", data_e)
     lap("e")
+    z = phase_flagship(flag, data_e)
+    del data_e
+    torch.cuda.empty_cache()
+    lap("z")
     err_f = phase_topk_vs_plain()
     lap("f")
     data_g = bench_data(**BPR_CELL[0])
@@ -4638,6 +4857,8 @@ def main() -> int:
     lap("v")
     phase_quality()
     lap("x")
+    phase_microbench()
+    lap("mb")
     probes = phase_probes()
     lap("m")
 
@@ -4666,7 +4887,7 @@ def main() -> int:
               d["library_ms"], stripe_lib),
         entry("dense_rows<int8 codes>", SOURCE,
               "matfac_tpu/ops/dense_row_kernel.py:231",
-              e["launches"] + y["codes"],
+              e["launches"] + y["codes"] + z["stripe"][0],
               max(worst["codes"], exact["codes"], e["max_abs_err"]), e["ms"],
               e["plain_ms"], (e["bound_ms"], e["bound_by"]),
               e["library_ms"], stripe_lib),
@@ -4686,9 +4907,10 @@ def main() -> int:
         entry("topk_catalog<fused>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118",
               g["fused"][0] + hyb["launches"] + dbpr["launches"]
-              + cli_k["fused"][0] + y["topk"][0],
+              + cli_k["fused"][0] + y["topk"][0] + z["fused"][0],
               max(err_f, g["fused"][1], hyb["max_abs_err"],
-                  cli_k["fused"][1], y["topk"][1]), *g["fused"][2:]),
+                  cli_k["fused"][1], y["topk"][1], z["fused"][1]),
+              *g["fused"][2:]),
         entry("topk_catalog<radix>", TOPK_SOURCE,
               "matfac_tpu/ops/topk_kernel.py:118",
               g["radix"][0] + cli_k["radix"][0],

@@ -47,6 +47,9 @@ from matfac_tpu_torch.solvers.als import (ALSSolver, DenseALSSolver,
                                           SubspaceALSSolver)
 from matfac_tpu_torch.solvers.ccd import CCDPPSolver, CCDSolver
 
-__all__ = ["Params", "RatingMatrix", "Data", "split_train_test_val",
-           "low_rank_ratings", "ALSSolver", "SubspaceALSSolver",
-           "DenseALSSolver", "CCDPPSolver", "CCDSolver"]
+__version__ = "0.1.0"
+
+__all__ = ["Params", "RatingMatrix", "Data", "__version__",
+           "split_train_test_val", "low_rank_ratings", "ALSSolver",
+           "SubspaceALSSolver", "DenseALSSolver", "CCDPPSolver",
+           "CCDSolver"]

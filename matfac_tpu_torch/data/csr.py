@@ -193,3 +193,15 @@ class RatingMatrix:
         return (f"RatingMatrix(nrows={self.nrows}, ncols={self.ncols}, "
                 f"nnz={self.nnz})")
 
+
+def mats_equal(a: RatingMatrix, b: RatingMatrix,
+               check_values: bool = True, tol: float = 0.0) -> bool:
+    """Structural (+value) equality — compMat analog (util.cpp:964-987)."""
+    if a.shape != b.shape or a.nnz != b.nnz:
+        return False
+    if not (np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)):
+        return False
+    if check_values:
+        return bool(np.all(np.abs(a.values - b.values) <= tol))
+    return True

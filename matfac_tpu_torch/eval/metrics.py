@@ -73,6 +73,13 @@ def sse(view: EvalView, coo: CooDevice,
     return float(total), n
 
 
+def weighted_sse(view: EvalView, coo: CooDevice,
+                 weights: torch.Tensor) -> float:
+    """IFWMF objective data term (modelInvPopMF.cpp:22-32): the weighted
+    sum of squared errors alone, JAX's ``weighted_sse``."""
+    return sse(view, coo, weights)[0]
+
+
 def rmse_value(view: EvalView, coo: CooDevice) -> float:
     s, n = sse(view, coo)
     return float(np.sqrt(s / max(n, 1)))

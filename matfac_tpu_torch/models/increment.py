@@ -9,9 +9,11 @@ last snapshot and stops growing (:251-316).
 
 The epoch is the JAX engine's scan over minibatches as an eager loop: each
 batch gathers its rows, predicts and updates at the truncated rank, and
-adds the updates into the tables with ``index_add_``. The rank tables
-change between epochs and are arguments of the epoch. Growth, rollback and
-stop run on the host, line for line as in the JAX package.
+adds the updates into the tables in a fixed order
+(``ops/scatter.index_add_ordered_``), as are the probe sums that decide
+which entities grow. The rank tables change between epochs and are
+arguments of the epoch. Growth, rollback and stop run on the host, line
+for line as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import coo_batches
 from matfac_tpu_torch.models.base import MFState, ModelMF, init_state, rank_mask
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 
 INC_ITER = 5      # modelIncrement.h, the reference's constants
 INC_STEP = 5
@@ -70,8 +73,8 @@ def increment_epoch(state: MFState, rows, cols, vals, valid, rank_u, rank_i,
               + 2.0 * u_reg * v[:, None] * pu) * m
         gi = (-2.0 * (v * diff)[:, None] * pu
               + 2.0 * i_reg * v[:, None] * qi) * m
-        U.index_add_(0, u, (-lr * gu).to(U.dtype))
-        I.index_add_(0, i, (-lr * gi).to(I.dtype))
+        index_add_ordered_(U, 0, u, (-lr * gu).to(U.dtype))
+        index_add_ordered_(I, 0, i, (-lr * gi).to(I.dtype))
     return state._replace(u_fac=U, i_fac=I)
 
 
@@ -89,8 +92,8 @@ def probe_rmse(state: MFState, rows, cols, vals, rank_u, rank_i,
     def per_entity(idx, n):
         s = torch.zeros(n, dtype=torch.float32, device=d2.device)
         c = torch.zeros(n, dtype=torch.float32, device=d2.device)
-        s.index_add_(0, idx, d2)
-        c.index_add_(0, idx, ones)
+        index_add_ordered_(s, 0, idx, d2)
+        index_add_ordered_(c, 0, idx, ones)
         return torch.where(c > 0, torch.sqrt(s / torch.clamp(c, min=1)),
                            -1.0)
 

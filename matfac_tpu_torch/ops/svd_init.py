@@ -4,8 +4,9 @@ The reference's SVDLIBC Lanczos wrapper (svdFrmSvdlibCSREig,
 svdFrmsvdlib.cpp:69-134, and the binary-pattern variant
 svdFrmSvdlibCSRSparsityEig, :202-262) becomes a randomized
 subspace-iteration SVD: the sparse products are COO segment sums
-(``index_add_``), the rest dense QR and SVD on the matrix's device. JAX
-computes the same with XLA; there is no Pallas kernel here.
+(``index_add_ordered_``, the same bits on every run), the rest dense QR
+and SVD on the matrix's device. JAX computes the same with XLA; there is
+no Pallas kernel here.
 
 Returns (u_fac, i_fac, singular_vals) as host arrays; ``pure_svd=True``
 scales the item factors by the singular values (the reference's pureSVD
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from matfac_tpu_torch.data.csr import RatingMatrix
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 
 
 def randomized_svd_coo(rows: torch.Tensor, cols: torch.Tensor,
@@ -33,11 +35,11 @@ def randomized_svd_coo(rows: torch.Tensor, cols: torch.Tensor,
 
     def a_mm(x):        # [n_cols, r] -> [n_rows, r]
         out = torch.zeros(n_rows, r, dtype=x.dtype, device=x.device)
-        return out.index_add_(0, rows, vals[:, None] * x[cols])
+        return index_add_ordered_(out, 0, rows, vals[:, None] * x[cols])
 
     def at_mm(y):       # [n_rows, r] -> [n_cols, r]
         out = torch.zeros(n_cols, r, dtype=y.dtype, device=y.device)
-        return out.index_add_(0, cols, vals[:, None] * y[rows])
+        return index_add_ordered_(out, 0, cols, vals[:, None] * y[rows])
 
     y = a_mm(omega)
     for _ in range(n_iter):

@@ -26,9 +26,9 @@ run) into whole tables, so the training loop sees plain tensors.
 and TMF ranks are staged in the stream; TMF+Dropout's Poisson ranks are
 drawn for each (round, shard) from a generator keyed by the epoch's draw,
 the round and the global shard id, so a 2-process run draws what a
-1-process run draws. On a CUDA device ``index_add_`` sums colliding rows
-in no fixed order, so two runs there need not be bit-identical; on the
-CPU they are.
+1-process run draws. Colliding rows are summed in a fixed order
+(``ops/scatter.index_add_ordered_``), so two runs are bit-identical on
+either device.
 
 Caller contract (multi-process), as in JAX: the model's own statistics
 (the frequency tables behind example_weight / pair_rank) must be global;
@@ -45,6 +45,7 @@ import torch
 
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 from matfac_tpu_torch.parallel import distributed
 from matfac_tpu_torch.parallel.mesh import Mesh
 
@@ -401,5 +402,5 @@ class DSGDShardedSolver(ShardedTables):
                   + 2.0 * u_reg * vmask[:, None] * pu) * m
             gi = (-2.0 * wd[:, None] * pu
                   + 2.0 * i_reg * vmask[:, None] * qi) * m
-            U.index_add_(0, u, -lr * gu)
-            I.index_add_(0, i, -lr * gi)
+            index_add_ordered_(U, 0, u, -lr * gu)
+            index_add_ordered_(I, 0, i, -lr * gi)

@@ -24,9 +24,9 @@ user's row and a negative that is a lower-rated item or a gap item
 The pairwise step (modelMFBPR.cpp:501-521), batched, from the factors at
 the batch's start: r_uij = <p_u, q_p - q_n>, c = -1 / (1 + e^r_uij),
 p_u -= lr (c (q_p - q_n) + 2 u_reg p_u), q_p -= lr (c p_u + 2 i_reg q_p),
-q_n -= lr (-c p_u + 2 i_reg q_n); duplicates add up (``index_add_``, as
-``.at[].add``), the item scatter over the fused [p; neg] index. A model
-with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in r_uij
+q_n -= lr (-c p_u + 2 i_reg q_n); duplicates add up in a fixed order
+(``index_add_ordered_``, as ``.at[].add``), the item scatter over the
+fused [p; neg] index. A model with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in r_uij
 and all three gradients; the mask of each step is drawn from the solver's
 second generator (``mask_gen``), or given to ``epoch_with``.
 
@@ -53,6 +53,7 @@ import torch
 
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 
 _WORD = 1 << 32
 
@@ -297,9 +298,9 @@ class BPRSolver:
         gu, gp, gn, r_uij, loss = bpr_pair_terms(
             pu, qp, qn, w, float(params.u_reg), float(params.i_reg), m)
         inv = ((-r_uij > float(params.eps)) & (w > 0)).sum()
-        st.u_fac.index_add_(0, u, (-lr * gu).to(st.u_fac.dtype))
-        st.i_fac.index_add_(0, torch.cat([p, neg]),
-                            (-lr * torch.cat([gp, gn])).to(st.i_fac.dtype))
+        index_add_ordered_(st.u_fac, 0, u, (-lr * gu).to(st.u_fac.dtype))
+        index_add_ordered_(st.i_fac, 0, torch.cat([p, neg]),
+                           (-lr * torch.cat([gp, gn])).to(st.i_fac.dtype))
         return loss, inv
 
     def epoch_with(self, state: MFState, lr: float, border, bits,

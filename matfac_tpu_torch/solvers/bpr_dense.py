@@ -31,11 +31,11 @@ constructor raises ValueError, and ``train_model`` falls back).
 Plain PyTorch on the tables' device, as JAX computes it with XLA (no
 Pallas kernel): the score product through ``mm_f32`` (bf16 operands, f32
 output on the card), so that the -60 fold keeps f32 precision; the two
-routing products in f32. Colliding (ul, j) entries add up: the per-draw
-epoch scatters with ``index_put_(accumulate=True)`` (sort-based on the
-card: two runs of an epoch were bit-identical on an H100), the panel epoch
-with ``index_add_`` (atomics on the card: two runs differ there, and the
-bf16 rounding of the next stripe's scores carries the difference on).
+routing products in f32. Colliding (ul, j) entries add up in a fixed
+order: the per-draw epoch scatters with ``index_put_(accumulate=True)``,
+the panel epoch with ``ops/scatter.index_add_ordered_`` (both the
+sort-based route on the card), so two runs of either epoch are
+bit-identical there too.
 Each epoch's draws, the stripe order ``row_of`` [NU] and the negatives
 ``js`` [NU, T, S] (``tiles`` [NU, nb] in panel mode), come from the
 solver's own ``torch.Generator`` (``draw``); ``epoch_with`` takes them as
@@ -52,6 +52,7 @@ import torch
 
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 from matfac_tpu_torch.solvers.als import mm_f32
 from matfac_tpu_torch.solvers.block_sgd import _balance_perm, _cdiv
 
@@ -290,14 +291,16 @@ class DenseBPRSolver:
             if panel:
                 C.index_put_((ul, ip), c.sum(dim=1), accumulate=True)
                 Cn = torch.zeros(self.bu * nb, Q, device=dev)
-                Cn.index_add_(0, ul * nb + sb, -c)
-                C.index_add_(1, cols, Cn.reshape(self.bu, nb * Q))
+                index_add_ordered_(Cn, 0, ul * nb + sb, -c)
+                index_add_ordered_(C, 1, cols, Cn.reshape(self.bu, nb * Q))
                 if self.collision_norm:
                     # realized per-tile counts on top of the rated ones
-                    nv_sb = torch.zeros(nb, device=dev).index_add_(
-                        0, sb, (w > 0).to(torch.float32))
-                    div_i = self.cnt_ip[ub].clone().index_add_(
-                        0, cols, (nv_sb / Q).repeat_interleave(Q))
+                    nv_sb = index_add_ordered_(
+                        torch.zeros(nb, device=dev), 0, sb,
+                        (w > 0).to(torch.float32))
+                    div_i = index_add_ordered_(
+                        self.cnt_ip[ub].clone(), 0, cols,
+                        (nv_sb / Q).repeat_interleave(Q))
             else:
                 C.index_put_((ul, ip), c.sum(dim=0), accumulate=True)
                 C.index_put_((ul.expand_as(j).reshape(-1), j.reshape(-1)),

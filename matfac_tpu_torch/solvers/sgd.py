@@ -9,16 +9,16 @@ fixed-size batches in a random order, and each batch applies
     q_i -= lr * m * (-2 w e p_u + 2 reg_i q_i)
 
 with every gradient computed at the batch's starting values and summed
-into the tables by ``index_add_`` (the scatter-add of the JAX engine): the
-deterministic analog of hogwild, modelMF.cpp:83-105's update with
-per-occurrence regularization. w is the model's example weight (IFWMF), m
+into the tables by ``index_add_ordered_`` (the scatter-add of the JAX
+engine, ``ops/scatter.py``): the deterministic analog of hogwild,
+modelMF.cpp:83-105's update with per-occurrence regularization. w is the model's example weight (IFWMF), m
 its rank mask (TMF; TMF+Dropout draws one per example from the solver's
 generator), and biases train beside the factors for bias models.
 
 Plain PyTorch on the tables' device: JAX computes this engine with XLA
-gathers and scatters, not a Pallas kernel. On a CUDA device
-``index_add_`` sums colliding rows with atomics in no fixed order, so two
-runs of an epoch there need not be bit-identical; on the CPU they are.
+gathers and scatters, not a Pallas kernel. Colliding rows are summed in a
+fixed order on either device, so two runs of an epoch are bit-identical
+and a resumed run continues exactly.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import coo_batches
 from matfac_tpu_torch.models.base import MFState
+from matfac_tpu_torch.ops.scatter import index_add_ordered_
 from matfac_tpu_torch.solvers.block_sgd import stage_batch_collision_counts
 
 
@@ -175,8 +176,8 @@ class SGDSolver:
                 if self.collision_norm:
                     gu = gu * self.inv_nu[sl][:, None]
                     gi = gi * self.inv_ni[sl][:, None]
-                U.index_add_(0, u, (-lr * gu).to(U.dtype))
-                I.index_add_(0, i, (-lr * gi).to(I.dtype))
+                index_add_ordered_(U, 0, u, (-lr * gu).to(U.dtype))
+                index_add_ordered_(I, 0, i, (-lr * gi).to(I.dtype))
             if model.use_bias:
                 gbu = -2.0 * wd + 2.0 * u_reg * ru * bu_old
                 gbi = -2.0 * wd + 2.0 * i_reg * ri * bi_old
@@ -185,6 +186,6 @@ class SGDSolver:
                 if self.collision_norm:
                     gbu = gbu * self.inv_nu[sl]
                     gbi = gbi * self.inv_ni[sl]
-                bu.index_add_(0, u, (-lr * gbu).to(bu.dtype))
-                bi.index_add_(0, i, (-lr * gbi).to(bi.dtype))
+                index_add_ordered_(bu, 0, u, (-lr * gbu).to(bu.dtype))
+                index_add_ordered_(bi, 0, i, (-lr * gbi).to(bi.dtype))
         return state._replace(u_fac=U, i_fac=I, u_bias=bu, i_bias=bi)

@@ -4,8 +4,9 @@ under DenseBlockDSGDSolver, the diag entry of csrc/block_sgd.cu under
 BlockDSGDSolver) against its plain version on the same CUDA tensors, the
 scatter DSGD and the sharded top-N against the CPU, and a 2-process gloo
 run with both processes' shards on the one card equal to a 1-process run
-bit for bit (the dense path, whose kernel is deterministic, and ALS,
-iALS++ and dense ALS under train_model(mesh=...)). Every test
+bit for bit (the dense path, whose kernel is deterministic, the scatter
+DSGD, whose sums take a fixed order, and ALS, iALS++ and dense ALS under
+train_model(mesh=...)). Every test
 here is marked ``cuda`` and skips without a CUDA device. This file imports
 no JAX:
 
@@ -126,8 +127,8 @@ def test_block_shard_round_kernel_vs_plain():
 @pytest.mark.cuda
 def test_dsgd_epoch_on_card_matches_cpu():
     """The scatter DSGD epoch (plain PyTorch) on the card against the CPU on
-    one schedule: rtol 1e-4 / atol 1e-6 (index_add_ sums collisions in
-    another order)."""
+    one schedule: rtol 1e-4 / atol 1e-6 (the card's products and
+    reductions round in another order)."""
     dev, data, p, model, iu, ii, mesh = _setup()
     cpu_mesh = make_mesh((4,), ("u",), devices=[torch.device("cpu")] * 4)
     s_card = DSGDShardedSolver(model, p, data.train_mat, iu, ii, mesh,
@@ -163,8 +164,9 @@ def test_sharded_topk_on_card_equals_one_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dense_float", "dense_codes", "als",
-                                  "ialspp", "alsdense"])
+@pytest.mark.parametrize("mode", ["dense_float", "dense_codes", "dsgd",
+                                  "tmfdropout", "als", "ialspp",
+                                  "alsdense"])
 def test_two_process_run_on_one_card(tmp_path, monkeypatch, mode):
     """Two gloo processes, 4 of the 8 shards each, all on the one card (the
     item blocks, or the coordinate solvers' solved rows, exchanged through

@@ -8,6 +8,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "matfac_tpu_torch"
 MODULES = sorted(
@@ -71,6 +73,9 @@ def test_every_module_is_importable_without_jax():
             "matfac_tpu_torch.utils.native"} <= set(MODULES)
     assert ROOT / "scripts" / "torch_cuda_bisect.py" in SCRIPTS
     assert {ROOT / "scripts" / f"torch_{s}.py" for s in (
+        "ml20m_flagship", "ml_parity_rows", "ccdpp_scale_parity",
+        "microbench")} <= set(SCRIPTS)
+    assert {ROOT / "scripts" / f"torch_{s}.py" for s in (
         "scaling_curve", "block_dsgd", "dense_bdsgd", "longtail_dsgd")} | {
         ROOT / "examples" / f"torch_{s}.py" for s in (
             "multichip_dsgd", "train_eval_serve")} <= set(SCRIPTS)
@@ -106,3 +111,15 @@ def test_no_source_file_imports_matfac_tpu():
     assert not pat.search("from matfac_tpu_torch.config import Params")
     offenders = [str(f) for f in PORT_FILES if pat.search(f.read_text())]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("pkg", ["", ".solvers", ".parallel", ".train",
+                                 ".models", ".data", ".eval", ".analysis"])
+def test_all_holds_the_jax_names(pkg):
+    """Each package's ``__all__`` holds the JAX package's, and every name
+    in it resolves (JAX's is read in this process, the port's too)."""
+    import importlib
+    jax_mod = importlib.import_module("matfac_tpu" + pkg)
+    port = importlib.import_module("matfac_tpu_torch" + pkg)
+    assert set(jax_mod.__all__) <= set(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
