@@ -1,0 +1,6 @@
+"""``enqueue_ms.ratings``'s reading on a BPR cell, which moves
+``train_pairs_per_s``."""
+
+from benchmark import harness
+
+read = harness.reader("enqueue_ms.ratings")

@@ -1,0 +1,6 @@
+"""``eval_ms.rmse``'s reading on the scatter engine's cell, which moves
+``sgd_ratings_per_s``."""
+
+from benchmark import harness
+
+read = harness.reader("eval_ms.rmse")

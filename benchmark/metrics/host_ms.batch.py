@@ -1,0 +1,6 @@
+"""``host_ms.serve``'s reading on the batch serving cell, which moves
+``topn_users_per_s``."""
+
+from benchmark import harness
+
+read = harness.reader("host_ms.serve")
