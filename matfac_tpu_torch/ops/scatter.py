@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from matfac_tpu_torch.train.profiler import span
+
 
 def index_add_ordered_(table: torch.Tensor, dim: int, index: torch.Tensor,
                        source: torch.Tensor) -> torch.Tensor:
@@ -28,8 +30,9 @@ def index_add_ordered_(table: torch.Tensor, dim: int, index: torch.Tensor,
     summed in a fixed order on every device; returns ``table``. A ``dim``
     other than 0 scatters along it through a view that moves it to the
     front (PyTorch then works on a contiguous copy of the table)."""
-    if table.device.type == "cpu":
-        return table.index_add_(dim, index, source)
-    view, src = table.movedim(dim, 0), source.movedim(dim, 0)
-    view.index_put_((index,), src, accumulate=True)
-    return table
+    with span("scatter.ordered"):
+        if table.device.type == "cpu":
+            return table.index_add_(dim, index, source)
+        view, src = table.movedim(dim, 0), source.movedim(dim, 0)
+        view.index_put_((index,), src, accumulate=True)
+        return table

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from matfac_tpu_torch.ops import _build
+from matfac_tpu_torch.train.profiler import count, span
 
 NEG_INF = float(np.float32(-3.0e38))   # the f32 value, exactly
 KERNELS_PER_CHUNK = 2   # radix route: score kernel + select kernel
@@ -158,7 +159,9 @@ def _check(u_fac, i_fac, i_bias, u_bias, mu, invalid, indptr, indices,
     if any(t.dtype != torch.float32 for t in tabs[:5]):
         raise ValueError("factors, biases and mu must be float32")
     if users.numel():
-        lo, hi = int(users.min()), int(users.max())
+        with span("topk.check_ids"):
+            lo, hi = int(users.min()), int(users.max())
+            count("card_syncs", 2)
         if lo < 0 or hi >= min(u_fac.shape[0], indptr.numel() - 1):
             raise ValueError(f"user ids must lie in [0, "
                              f"{min(u_fac.shape[0], indptr.numel() - 1)})")
@@ -245,7 +248,7 @@ def topk_catalog(u_fac: torch.Tensor, i_fac: torch.Tensor,
     out_i = torch.empty((B, n), dtype=torch.int32, device=u_fac.device)
     pl = fused_plan(B, i_fac.shape[0], n)
     if B:
-        with torch.cuda.device(u_fac.device):
+        with torch.cuda.device(u_fac.device), span("topk.launch"):
             (_fused if pl["route"] == "fused" else _radix)(
                 lib, tabs, out_s, out_i, n, pl)
     return out_s, out_i

@@ -25,6 +25,7 @@ from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.utils import freq as ufreq
 from matfac_tpu_torch.eval.ranking import CatalogScorer
 from matfac_tpu_torch.models.base import EvalView
+from matfac_tpu_torch.train.profiler import count, request, span
 
 
 class Recommender:
@@ -69,17 +70,22 @@ class Recommender:
         """(item_ids [len(users), n] int64, scores [len(users), n] f32):
         each user's train-rated and invalid items excluded; slots past the
         user's scorable items carry id -1."""
-        users = np.asarray(users, dtype=np.int64).reshape(-1)
-        if (users < 0).any() or (users >= self.n_users).any():
-            raise ValueError("user id out of range")
-        # cache keyed on view identity: replacing self.view (e.g. after
-        # more training) must drop the prepared copy, or stale factors
-        # would be served
-        if self._prepared_src is not self.view:
-            self._prepared = EvalView(*(t.to(torch.float32).contiguous()
-                                        for t in self.view))
-            self._prepared_src = self.view
-        ids = torch.from_numpy(users).to(self._prepared.u_fac.device)
-        scores, items = self._scorer.topk_users(self._prepared, ids, n)
-        return (items.cpu().numpy().astype(np.int64),
-                scores.cpu().numpy())
+        with request("serve.request"):
+            users = np.asarray(users, dtype=np.int64).reshape(-1)
+            if (users < 0).any() or (users >= self.n_users).any():
+                raise ValueError("user id out of range")
+            # cache keyed on view identity: replacing self.view (e.g.
+            # after more training) must drop the prepared copy, or stale
+            # factors would be served
+            if self._prepared_src is not self.view:
+                self._prepared = EvalView(*(t.to(torch.float32).contiguous()
+                                            for t in self.view))
+                self._prepared_src = self.view
+            with span("serve.ids_in"):
+                ids = torch.from_numpy(users).to(self._prepared.u_fac.device)
+            scores, items = self._scorer.topk_users(self._prepared, ids, n)
+            with span("serve.answers_out"):
+                out = (items.cpu().numpy().astype(np.int64),
+                       scores.cpu().numpy())
+                count("card_syncs", 2)
+            return out

@@ -69,6 +69,7 @@ from matfac_tpu_torch.ops.dense_row_kernel import (dense_cells_epoch,
                                                    dense_rows_epoch,
                                                    rank_hists,
                                                    stripe_counts)
+from matfac_tpu_torch.train.profiler import span
 
 
 def _cdiv(a, b):
@@ -590,31 +591,39 @@ class BlockSGDSolver:
                     use_mask=self.use_mask, mm_bf16=self.mm_bf16)
 
     def epoch(self, state: MFState, lr: float) -> MFState:
-        return self.epoch_with(state, lr, self.draw_schedule())
+        with span("stripes.epoch"):
+            with span("stripes.schedule"):
+                schedule = self.draw_schedule()
+            return self.epoch_with(state, lr, schedule)
 
     def epoch_with(self, state: MFState, lr: float, schedule) -> MFState:
         """One epoch on the given schedule (``draw_schedule``'s form; the
         tests pass the JAX solver's own draws)."""
         u_tab, i_tab = self._tables(state)
         if self.engine == "dense" and self.schedule == "diag":
-            dense_cells_epoch(u_tab, i_tab, schedule, lr, self.R_cells,
-                              self.W_cells, self.r_scale,
-                              float(self.params.u_reg),
-                              float(self.params.i_reg), self.collision_norm,
-                              self.mm_bf16, counts=self.counts)
-            return self._views(state, u_tab, i_tab)
-        if self.engine == "dense":
+            with span("stripes.launch"):
+                dense_cells_epoch(u_tab, i_tab, schedule, lr, self.R_cells,
+                                  self.W_cells, self.r_scale,
+                                  float(self.params.u_reg),
+                                  float(self.params.i_reg),
+                                  self.collision_norm, self.mm_bf16,
+                                  counts=self.counts)
+        elif self.engine == "dense":
             order, round_u = schedule
-            dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,
-                             self.W_rows, self.r_scale,
-                             float(self.params.u_reg),
-                             float(self.params.i_reg), self.collision_norm,
-                             self.mm_bf16, counts=self.counts,
-                             ranks=self.epoch_ranks(round_u),
-                             hists=self.hists)
-            return self._views(state, u_tab, i_tab)
-        sweep = (block_sgd_diag_epoch if self.schedule == "diag"
-                 else block_sgd_epoch)
-        sweep(u_tab, i_tab, *schedule, lr, *self.streams,
-              **self.sweep_kwargs(), slices=self.slices)
+            with span("stripes.schedule"):
+                ranks = self.epoch_ranks(round_u)
+            with span("stripes.launch"):
+                dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,
+                                 self.W_rows, self.r_scale,
+                                 float(self.params.u_reg),
+                                 float(self.params.i_reg),
+                                 self.collision_norm, self.mm_bf16,
+                                 counts=self.counts, ranks=ranks,
+                                 hists=self.hists)
+        else:
+            sweep = (block_sgd_diag_epoch if self.schedule == "diag"
+                     else block_sgd_epoch)
+            with span("stripes.launch"):
+                sweep(u_tab, i_tab, *schedule, lr, *self.streams,
+                      **self.sweep_kwargs(), slices=self.slices)
         return self._views(state, u_tab, i_tab)

@@ -54,6 +54,7 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
 from matfac_tpu_torch.ops.scatter import index_add_ordered_
+from matfac_tpu_torch.train.profiler import span
 
 _WORD = 1 << 32
 
@@ -317,20 +318,19 @@ class BPRSolver:
             masks[t], dtype=torch.float32, device=self.device))
         if self.mode == "posneg":
             for b in range(self.n_batches):
-                bl, bi = self._step(state, *self.sample_posneg(bits[b]), lr,
-                                    mask_of(b))
+                with span("bpr.sample"):
+                    drawn = self.sample_posneg(bits[b])
+                bl, bi = self._step(state, *drawn, lr, mask_of(b))
                 loss, inv = loss + bl, inv + bi
         else:
+            sample = (self.sample_rankgap if self.sampler == "rankgap"
+                      else self.sample_gap)
             # step t takes batch border[t] and the words bits[t]
             for t, b in enumerate(border.tolist()):
                 sl = slice(b * B, (b + 1) * B)
                 start, deg = self.pos_start[sl], self.pos_deg[sl]
-                if self.sampler == "rankgap":
-                    neg, ok = self.sample_rankgap(start, deg, bits[t, 0],
-                                                  bits[t, 1])
-                else:
-                    neg, ok = self.sample_gap(start, deg, bits[t, 0],
-                                              bits[t, 1])
+                with span("bpr.sample"):
+                    neg, ok = sample(start, deg, bits[t, 0], bits[t, 1])
                 w = self.pos_valid[sl] * ok.to(torch.float32)
                 bl, bi = self._step(state, self.pos_u[sl], self.pos_i[sl],
                                     neg, w, lr, mask_of(t))
@@ -339,4 +339,5 @@ class BPRSolver:
         return state
 
     def epoch(self, state: MFState, lr: float) -> MFState:
-        return self.epoch_with(state, lr, *self.draw())
+        with span("bpr.epoch"):
+            return self.epoch_with(state, lr, *self.draw())

@@ -33,6 +33,7 @@ from matfac_tpu_torch.data.batching import coo_batches
 from matfac_tpu_torch.models.base import MFState
 from matfac_tpu_torch.ops.scatter import index_add_ordered_
 from matfac_tpu_torch.solvers.block_sgd import stage_batch_collision_counts
+from matfac_tpu_torch.train.profiler import span
 
 
 class SGDSolver:
@@ -118,7 +119,8 @@ class SGDSolver:
             self._mask_gen.set_state(as_state(st["mask_gen"]))
 
     def epoch(self, state: MFState, lr: float) -> MFState:
-        return self.epoch_with(state, lr, self.batch_order())
+        with span("sgd.epoch"):
+            return self.epoch_with(state, lr, self.batch_order())
 
     def epoch_with(self, state: MFState, lr: float,
                    border: Sequence[int],

@@ -59,6 +59,7 @@ from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt
+from matfac_tpu_torch.train.profiler import span
 from matfac_tpu_torch.parallel import distributed
 from matfac_tpu_torch.parallel.block_dsgd import (BlockDSGDSolver,
                                                   DenseBlockDSGDSolver)
@@ -165,19 +166,22 @@ class TrainLoop:
             self.log_fn(f"resumed from {loop_path} at epoch {start_iter}")
         else:
             best_state = _snapshot(state)
-            prev_obj = self._objective(state)
-            best_val = self.ev.rmse(self.model.eval_view(state), "val")
+            with span("loop.check"):
+                prev_obj = self._objective(state)
+                best_val = self.ev.rmse(self.model.eval_view(state), "val")
 
         for it in range(start_iter, p.max_iter):
             t0 = time.perf_counter()
             state = self.solver.epoch(state, lr)
-            _sync(state)   # honest epoch timing
+            with span("loop.sync"):
+                _sync(state)   # honest epoch timing
             dt = time.perf_counter() - t0
 
             if it % p.obj_iter == 0 or it == p.max_iter - 1:
-                view = self.model.eval_view(state)
-                obj = self._objective(state)
-                val = self.ev.rmse(view, "val")
+                with span("loop.check"):
+                    view = self.model.eval_view(state)
+                    obj = self._objective(state)
+                    val = self.ev.rmse(view, "val")
 
                 # NaN rollback (model.cpp:1487-1498)
                 if not (np.isfinite(obj) and np.isfinite(val)):
@@ -328,14 +332,16 @@ class TrainLoopHR:
             self.log_fn(f"resumed from {loop_path} at epoch {start_iter}")
         else:
             best_state = _snapshot(state)
-            best_hr = self.metric_fn(self.model.eval_view(state))
+            with span("loop.check"):
+                best_hr = self.metric_fn(self.model.eval_view(state))
 
         for it in range(start_iter, p.max_iter):
             t0 = time.perf_counter()
             state = self.solver.epoch(state, lr)
-            _sync(state)
-            dt = time.perf_counter() - t0
-            loss = float(self.solver.last_loss)
+            with span("loop.sync"):
+                _sync(state)
+                dt = time.perf_counter() - t0
+                loss = float(self.solver.last_loss)
             if not np.isfinite(loss):
                 # the reference exits hard (modelMFBPR.cpp:527-530)
                 self.log_fn(f"epoch {it}: non-finite BPR loss {loss} — "
@@ -345,7 +351,8 @@ class TrainLoopHR:
             lr *= 0.9  # modelMFBPR.cpp:533
 
             if it % p.obj_iter == 0 or it == p.max_iter - 1:
-                hr = self.metric_fn(self.model.eval_view(state))
+                with span("loop.check"):
+                    hr = self.metric_fn(self.model.eval_view(state))
                 if hr > best_hr:
                     best_state = _snapshot(state)
                     best_hr = hr

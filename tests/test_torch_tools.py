@@ -9,8 +9,6 @@ at rtol 1e-5, and against a transcription of the reference script's loops
 at rtol 1e-5 as JAX's test holds JAX's.
 """
 
-import time
-
 import numpy as np
 import pytest
 import torch
@@ -19,7 +17,6 @@ from matfac_tpu import tools as jtools
 from matfac_tpu.data import movielens as jml
 from matfac_tpu.data.csr import RatingMatrix as JRM
 from matfac_tpu.data.synthetic import low_rank_ratings
-from matfac_tpu.train import profiler as jprof
 from matfac_tpu_torch import tools as ttools
 from matfac_tpu_torch.data import movielens as tml
 from matfac_tpu_torch.data.csr import RatingMatrix as TRM
@@ -77,28 +74,6 @@ def test_log_parsing_averaging_and_sweeps(tmp_path):
     for i in range(6):
         assert (tmp_path / "t" / f"j_{i}.sh").read_bytes() == \
             (tmp_path / "w" / f"j_{i}.sh").read_bytes()
-
-
-def test_throughput_meter_counts_the_devices_chips():
-    """The chip count comes from the device: 1 on the CPU; on a CUDA
-    device torch.cuda.device_count(), and no CUDA device raises."""
-    m = tprof.ThroughputMeter(nnz=1000, device="cpu")
-    assert m.n_chips == 1
-    j = jprof.ThroughputMeter(nnz=1000, n_chips=2)
-    t = tprof.ThroughputMeter(nnz=1000, n_chips=2, device="cpu")
-    for meter in (j, t):
-        for _ in range(3):
-            with meter:
-                time.sleep(0.005)
-        assert meter.ratings_per_sec > 0
-        assert meter.ratings_per_sec_per_chip == pytest.approx(
-            meter.ratings_per_sec / 2)
-    assert t.summary().split(" ")[:2] == j.summary().split(" ")[:2]
-    if torch.cuda.is_available():
-        assert tprof.device_count("cuda") == torch.cuda.device_count()
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            tprof.ThroughputMeter(nnz=1000)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
