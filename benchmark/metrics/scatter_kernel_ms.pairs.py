@@ -1,0 +1,6 @@
+"""``scatter_kernel_ms.sgd``'s reading on the BPR cell, which moves
+``train_pairs_per_s``."""
+
+from benchmark import harness
+
+read = harness.reader("scatter_kernel_ms.sgd")

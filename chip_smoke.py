@@ -108,11 +108,22 @@ Phases, in order; any failure raises and the script exits non-zero:
       one epoch replayed with the drawn order and round uniforms;
   (o) the scatter engine, train_model's default method, for algo "mf"
       and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
+      ordered scatter kernel launched once a batch side in those epochs
+      (counted from 0 at the front door's call); the
       epoch's time, batches and CUDA kernels; two runs of an epoch
       bit-identical (every scatter sums in a fixed order,
       ops/scatter.index_add_ordered_); the epoch timed in turns with
       Tensor.index_add_ (atomics) in place of the ordered sums, a
       measurement of what the fixed order costs that no engine runs;
+  (os) the ordered scatter kernel (csrc/ordered_scatter.cu) at the sgd
+      cell's two sides (16,384 ids over 138,493 users, uniform, and over
+      26,744 items by a 0.8 power law, k 64) and BPR's item side (131,072
+      ids over 10,677 items): bit for bit index_put_(accumulate=True) and
+      the plain version, f32 and bf16, staged and per-call plans; device
+      ms a call (torch.profiler) in turns against index_put_, the plain
+      version's ms, host us a call of each route, the bytes bound.
+      ``python3 chip_smoke.py --ordered-scatter`` runs (a), its build, (o)
+      and (os) alone;
   (p) the coordinate family's ALS on (d)'s data with bench.py's Params
       (k 64, reg 0.01), 2 epochs each: train_model(mf_method="auto")
       (exact bucketed ALS), ALSSolver(cg_iters=6), SubspaceALSSolver,
@@ -253,6 +264,7 @@ from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops import bisect_probes as bp
 from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
+from matfac_tpu_torch.ops import scatter as osc_mod
 from matfac_tpu_torch.ops import sgd_kernel as sk
 from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.eval.metrics import Evaluator
@@ -282,6 +294,7 @@ SOURCE = "matfac_tpu_torch/csrc/dense_rows.cu"
 TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
 BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
 PROBE_SOURCE = "matfac_tpu_torch/csrc/bisect_probes.cu"
+SCATTER_SOURCE = "matfac_tpu_torch/csrc/ordered_scatter.cu"
 HOST_SOURCE = "matfac_tpu_torch/csrc/native_host.cpp"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -362,13 +375,15 @@ def phase_build() -> float:
     then load each."""
     t0 = time.perf_counter()
     paths = _build.build_all(["dense_rows", "topk", "block_sgd",
-                              "bisect_probes", "native_host"])
-    for mod in (drk, tk, bsk, bp):
+                              "bisect_probes", "ordered_scatter",
+                              "native_host"])
+    for mod in (drk, tk, bsk, bp, osc_mod):
         mod.library()
     assert native.available()
     dt = time.perf_counter() - t0
     log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE}, "
-        f"{PROBE_SOURCE} and {HOST_SOURCE} ({_build.host_compiler()}): "
+        f"{PROBE_SOURCE}, {SCATTER_SOURCE} and {HOST_SOURCE} "
+        f"({_build.host_compiler()}): "
         f"{dt:.2f} s "
         f"({', '.join(p.name for p in paths.values())})")
     return dt
@@ -2685,8 +2700,8 @@ def _atomic_scatter():
     of ``index_add_ordered_``, to time what the fixed order costs. No
     engine of the port has this route."""
     real = sgd_mod.index_add_ordered_
-    sgd_mod.index_add_ordered_ = lambda t, dim, index, src: t.index_add_(
-        dim, index, src)
+    sgd_mod.index_add_ordered_ = lambda t, dim, index, src, plan=None: \
+        t.index_add_(dim, index, src)
     try:
         yield
     finally:
@@ -2701,16 +2716,27 @@ def phase_scatter(data: Data, dev="cuda") -> dict:
     idle share = 1 - their device time / the epoch's); two runs of one
     epoch with the same batch order and masks must be bit-identical; and
     the epoch timed in turns (ordered, atomic, atomic, ordered) with
-    ``_atomic_scatter``. Returns {algo: (ordered ms, atomic ms)}."""
-    costs = {}
+    ``_atomic_scatter``. The ordered scatter's launches are counted from 0
+    at each ``train_model`` call and must be one a batch side an epoch (2,
+    4 with biases). Returns {"costs": {algo: (ordered ms, atomic ms)},
+    "launches": the launches of the two ``train_model`` calls}."""
+    costs, launches = {}, 0
     for algo in ("mf", "tmfdropout"):
         params = Params(**dict(CELLS["d"][1], max_iter=2))
         t0 = time.perf_counter()
+        osc_mod.ordered_scatter.launches = 0
         rep, model, ev, _ = train_model(data, params, algo=algo, device=dev,
                                         log_fn=lambda s: log(f"(o) {s}"))
         wall = time.perf_counter() - t0
         solver = rep.solver
         assert isinstance(solver, SGDSolver)
+        n_os = osc_mod.ordered_scatter.launches
+        want = params.max_iter * (4 if model.use_bias else 2) \
+            * solver.n_batches
+        log(f"(o) {algo}: ordered scatter launches in train_model {n_os} "
+            f"(want {want}: a batch side an epoch)")
+        assert n_os == want, (n_os, want)
+        launches += n_os
         s0 = init_state(params, data.n_users, data.n_items, device=dev)
         val0 = ev.rmse(model.eval_view(s0), "val")
         vals = [h.val_rmse for h in rep.history]
@@ -2751,7 +2777,113 @@ def phase_scatter(data: Data, dev="cuda") -> dict:
             f"atomic {costs[algo][0] / costs[algo][1]:.3f}")
         del rep, solver, ev
         torch.cuda.empty_cache()
-    return costs
+    return {"costs": costs, "launches": launches}
+
+
+# ----------------------------------------------------------------------
+# (os): the ordered scatter kernel, csrc/ordered_scatter.cu
+# ----------------------------------------------------------------------
+
+# (tag, table rows, ids a call, k, item power law or None for uniform):
+# the sgd cell's two sides (ML-20M, batches of 16,384 at k 64; items by
+# the benchmark's 0.8 power law) and BPR's item side (ML-10M's 10,677
+# items, [positives; negatives] of a 65,536 batch, the same law)
+OS_CASES = (("sgd users", 138_493, 16_384, 64, None),
+            ("sgd items", 26_744, 16_384, 64, 0.8),
+            ("bpr items", 10_677, 131_072, 64, 0.8))
+OS_CALLS = 200   # calls a timing
+
+
+def _os_index(n_rows: int, n: int, law, gen: torch.Generator, dev):
+    if law is None:
+        return torch.randint(0, n_rows, (n,), generator=gen, device=dev)
+    w = 1.0 / torch.arange(1, n_rows + 1, device=dev,
+                           dtype=torch.float64) ** law
+    return torch.multinomial(w, n, replacement=True, generator=gen)
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn`` (no sync inside the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def phase_ordered_scatter(dev="cuda") -> dict:
+    """(os): the kernel of ``ops/scatter.index_add_ordered_`` at the
+    benchmark's shapes, f32 tables: bit for bit against
+    ``index_put_(accumulate=True)`` and the plain version with a staged
+    plan and one made per call (bf16 too); then, in turns on one table,
+    the device ms a call (torch.profiler: its kernels' time, the sort's
+    included) of the kernel (staged plan; plan made per call) and of
+    ``index_put_``, the plain version's ms, and the host us a call of
+    each of the three (each enqueued alone, no sync);
+    the bytes bound (each source row read once, each touched table row
+    read and written once, the int32 plan read once). Returns {case:
+    its numbers}."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for tag, n_rows, n, k, law in OS_CASES:
+        index = _os_index(n_rows, n, law, gen, dev)
+        hot = int(torch.bincount(index).max())
+        staged = osc_mod.stage_plans(index.view(1, -1), n_rows)[0]
+        err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            table = (torch.randn(n_rows, k, generator=gen, device=dev)
+                     * 0.1).to(dtype)
+            src = (torch.randn(n, k, generator=gen, device=dev)
+                   * 1e-3).to(dtype)
+            want = table.clone()
+            want.index_put_((index,), src, accumulate=True)
+            got = [osc_mod.index_add_ordered_(table.clone(), 0, index,
+                                              src, p)
+                   for p in (staged, None)]
+            plain = osc_mod.ordered_scatter_plain(
+                table.clone(), 0, src, osc_mod.plan_ordered(index))
+            torch.cuda.synchronize()
+            for g in got + [plain]:
+                assert torch.equal(g, want), (tag, dtype)
+            err = max(err, float((got[0].float() - plain.float()).abs()
+                                 .max()))
+        table = torch.randn(n_rows, k, generator=gen, device=dev) * 0.1
+        src = torch.randn(n, k, generator=gen, device=dev) * 1e-3
+        runs = {
+            "kernel, staged plan": lambda: osc_mod.index_add_ordered_(
+                table, 0, index, src, staged),
+            "kernel, plan per call": lambda: osc_mod.index_add_ordered_(
+                table, 0, index, src),
+            "index_put_": lambda: table.index_put_((index,), src,
+                                                   accumulate=True),
+        }
+        ms = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            # device time: back to back, the kernel outruns the host
+            ms[name].append(_device_kernels(
+                lambda: [runs[name]() for _ in range(OS_CALLS)])[1]
+                / OS_CALLS)
+        plain_ms = _cuda_ms(lambda: osc_mod.ordered_scatter_plain(
+            table, 0, src, staged), 3)
+        host = {name: _host_us(runs[name], OS_CALLS) for name in runs}
+        touched = int(torch.unique(index).numel())
+        nbytes = 4 * (n * k + 2 * touched * k) + 8 * n
+        bound = _bound(nbytes, 0.0, "f32")
+        card = {name: float(np.mean(v)) for name, v in ms.items()}
+        log(f"(os) {tag}: {n:,} ids over {n_rows:,} rows ({touched:,} "
+            f"touched, hottest {hot}), k {k}: bit for bit index_put_ and "
+            f"plain (f32, bf16; staged and per-call plans); device ms a "
+            f"call { {a: [round(x, 5) for x in v] for a, v in ms.items()} }; "
+            f"plain {plain_ms:.3f} ms; bound {bound[0]:.5f} ms "
+            f"({bound[1]}); host us a call {host!r}")
+        out[tag] = dict(ms=card["kernel, staged plan"],
+                        per_call_ms=card["kernel, plan per call"],
+                        library_ms=card["index_put_"], plain_ms=plain_ms,
+                        bound_ms=bound[0], bound_by=bound[1],
+                        host_us=host, max_abs_err=err)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -4779,6 +4911,45 @@ def phase_microbench(dev="cuda") -> dict:
 NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 
+def _os_entry(res: dict, launches: int) -> dict:
+    """The kernels-table entry of the ordered scatter: ``launches``, those
+    of (o)'s front-door runs, and the sgd cell's items case's times."""
+    r = res["sgd items"]
+    return {"name": "ordered_scatter<f32|bf16|f16|f64>", "route": "cuda",
+            "source": SCATTER_SOURCE,
+            "replaces": "none (XLA's scatter-add, .at[].add)",
+            "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for v in res.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library": "index_put_(accumulate=True), PyTorch's sort-based "
+                       "fixed-order sum"}
+
+
+def ordered_scatter_main() -> int:
+    """``--ordered-scatter``: phases (a), the build of the one source, (o)
+    on (d)'s data and (os) alone; prints the kernels-table entry and the
+    device."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    phase_env()
+    t0 = time.perf_counter()
+    osc_mod.library()
+    log(f"(b) build + load of {SCATTER_SOURCE}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    o = phase_scatter(bench_data(**CELLS["d"][0]))
+    res = phase_ordered_scatter()
+    print(json.dumps({"kernels": [_os_entry(res, o["launches"])],
+                      "cases": res}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to run",
@@ -4841,8 +5012,10 @@ def main() -> int:
     lap("l")
     n = phase_longtail_dense(data_d)
     lap("n")
-    phase_scatter(data_d)
+    o = phase_scatter(data_d)
     lap("o")
+    osc = phase_ordered_scatter()
+    lap("os")
     phase_als(data_d)
     lap("p")
     phase_ccd(data_d)
@@ -4929,6 +5102,7 @@ def main() -> int:
         entry("fused_cell_update", BLOCK_SOURCE,
               "matfac_tpu/ops/sgd_kernel.py:73", cell[0],
               max(block["cell"], cell[1]), cell[2], cell[3], cell[4]),
+        _os_entry(osc, o["launches"]),
     ] + [entry(f"probe<{name}>", PROBE_SOURCE,
                f"scripts/tpu_pallas_bisect.py:{PROBE_LINES[name]}", *res)
          for name, res in probes.items()]
@@ -4947,4 +5121,6 @@ if __name__ == "__main__":
         # one process of phase (y)'s 2-process run (started by the script)
         port, rank, out_dir, dev = sys.argv[2:6]
         sys.exit(mesh_worker(int(port), int(rank), out_dir, dev))
+    if sys.argv[1:2] == ["--ordered-scatter"]:
+        sys.exit(ordered_scatter_main())
     sys.exit(main())

@@ -25,10 +25,11 @@ The pairwise step (modelMFBPR.cpp:501-521), batched, from the factors at
 the batch's start: r_uij = <p_u, q_p - q_n>, c = -1 / (1 + e^r_uij),
 p_u -= lr (c (q_p - q_n) + 2 u_reg p_u), q_p -= lr (c p_u + 2 i_reg q_p),
 q_n -= lr (-c p_u + 2 i_reg q_n); duplicates add up in a fixed order
-(``index_add_ordered_``, as ``.at[].add``), the item scatter over the
-fused [p; neg] index. A model with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in r_uij
-and all three gradients; the mask of each step is drawn from the solver's
-second generator (``mask_gen``), or given to ``epoch_with``.
+(``index_add_ordered_``, as ``.at[].add``; a stream batch's user side in
+an order staged once), the item scatter over the fused [p; neg] index. A
+model with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in
+r_uij and all three gradients; the mask of each step is drawn from the
+solver's second generator (``mask_gen``), or given to ``epoch_with``.
 
 What the port keeps from the JAX package: each epoch's randomness is one
 batch order ``border`` [n_batches] and one tensor of 32-bit random words
@@ -53,7 +54,7 @@ import torch
 
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
-from matfac_tpu_torch.ops.scatter import index_add_ordered_
+from matfac_tpu_torch.ops.scatter import index_add_ordered_, stage_plans
 from matfac_tpu_torch.train.profiler import span
 
 _WORD = 1 << 32
@@ -131,6 +132,11 @@ class BPRSolver:
         self.n_pos = n
         self.batch_size = bs
         self.n_batches = len(pr_pad) // bs
+        # the user side's order of adds on the card, a stream batch's users
+        # being static (the CPU's index_add_ takes no plan)
+        self.u_plans = (stage_plans(self.pos_u.view(self.n_batches, bs),
+                                    int(model.n_users))
+                        if mode == "stream" and dev.type == "cuda" else None)
 
         # the full train rows (explicit zeros included), sorted per row
         nnz = train_mat.nnz
@@ -290,7 +296,8 @@ class BPRSolver:
         if "mask_gen" in st:
             self.mask_gen.set_state(as_state(st["mask_gen"]))
 
-    def _step(self, st: MFState, u, p, neg, w, lr: float, m=None):
+    def _step(self, st: MFState, u, p, neg, w, lr: float, m=None,
+              u_plan=None):
         params = self.params
         if m is None:
             m = self.model.triple_rank_mask(u, p, neg,
@@ -299,7 +306,8 @@ class BPRSolver:
         gu, gp, gn, r_uij, loss = bpr_pair_terms(
             pu, qp, qn, w, float(params.u_reg), float(params.i_reg), m)
         inv = ((-r_uij > float(params.eps)) & (w > 0)).sum()
-        index_add_ordered_(st.u_fac, 0, u, (-lr * gu).to(st.u_fac.dtype))
+        index_add_ordered_(st.u_fac, 0, u, (-lr * gu).to(st.u_fac.dtype),
+                           u_plan)
         index_add_ordered_(st.i_fac, 0, torch.cat([p, neg]),
                            (-lr * torch.cat([gp, gn])).to(st.i_fac.dtype))
         return loss, inv
@@ -333,7 +341,8 @@ class BPRSolver:
                     neg, ok = sample(start, deg, bits[t, 0], bits[t, 1])
                 w = self.pos_valid[sl] * ok.to(torch.float32)
                 bl, bi = self._step(state, self.pos_u[sl], self.pos_i[sl],
-                                    neg, w, lr, mask_of(t))
+                                    neg, w, lr, mask_of(t),
+                                    self.u_plans[b] if self.u_plans else None)
                 loss, inv = loss + bl, inv + bi
         self.last_loss, self.last_inversions = loss, inv
         return state

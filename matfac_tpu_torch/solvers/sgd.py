@@ -10,8 +10,9 @@ fixed-size batches in a random order, and each batch applies
 
 with every gradient computed at the batch's starting values and summed
 into the tables by ``index_add_ordered_`` (the scatter-add of the JAX
-engine, ``ops/scatter.py``): the deterministic analog of hogwild,
-modelMF.cpp:83-105's update with per-occurrence regularization. w is the model's example weight (IFWMF), m
+engine, ``ops/scatter.py``; on the card each batch's order of adds is
+staged once, since batch contents never change): the deterministic
+analog of hogwild, modelMF.cpp:83-105's update with per-occurrence regularization. w is the model's example weight (IFWMF), m
 its rank mask (TMF; TMF+Dropout draws one per example from the solver's
 generator), and biases train beside the factors for bias models.
 
@@ -31,7 +32,7 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import coo_batches
 from matfac_tpu_torch.models.base import MFState
-from matfac_tpu_torch.ops.scatter import index_add_ordered_
+from matfac_tpu_torch.ops.scatter import index_add_ordered_, stage_plans
 from matfac_tpu_torch.solvers.block_sgd import stage_batch_collision_counts
 from matfac_tpu_torch.train.profiler import span
 
@@ -83,6 +84,13 @@ class SGDSolver:
         self.batch_size = b.batch_size
         self.n_batches = b.n_batches
         self.nnz = b.nnz
+        # each static batch's order of adds, sorted once for both sides on
+        # the card (the CPU's index_add_ takes no plan)
+        self.u_plans = self.i_plans = None
+        if self.device.type == "cuda":
+            shape = (self.n_batches, self.batch_size)
+            self.u_plans = stage_plans(self.rows.view(shape), model.n_users)
+            self.i_plans = stage_plans(self.cols.view(shape), model.n_items)
         self.inv_nu = self.inv_ni = None
         if self.collision_norm:
             # an element whose entity has no valid occurrence is itself
@@ -146,6 +154,8 @@ class SGDSolver:
             sl = slice(b * B, (b + 1) * B)
             u, i, r, v = (self.rows[sl], self.cols[sl], self.vals[sl],
                           self.valid[sl])
+            up, ip = ((self.u_plans[b], self.i_plans[b]) if self.u_plans
+                      else (None, None))
             w = model.example_weight(u, i) * v
             if masks is not None:
                 m = torch.as_tensor(masks[t], dtype=torch.float32,
@@ -178,8 +188,8 @@ class SGDSolver:
                 if self.collision_norm:
                     gu = gu * self.inv_nu[sl][:, None]
                     gi = gi * self.inv_ni[sl][:, None]
-                index_add_ordered_(U, 0, u, (-lr * gu).to(U.dtype))
-                index_add_ordered_(I, 0, i, (-lr * gi).to(I.dtype))
+                index_add_ordered_(U, 0, u, (-lr * gu).to(U.dtype), up)
+                index_add_ordered_(I, 0, i, (-lr * gi).to(I.dtype), ip)
             if model.use_bias:
                 gbu = -2.0 * wd + 2.0 * u_reg * ru * bu_old
                 gbi = -2.0 * wd + 2.0 * i_reg * ri * bi_old
@@ -188,6 +198,6 @@ class SGDSolver:
                 if self.collision_norm:
                     gbu = gbu * self.inv_nu[sl]
                     gbi = gbi * self.inv_ni[sl]
-                index_add_ordered_(bu, 0, u, (-lr * gbu).to(bu.dtype))
-                index_add_ordered_(bi, 0, i, (-lr * gbi).to(bi.dtype))
+                index_add_ordered_(bu, 0, u, (-lr * gbu).to(bu.dtype), up)
+                index_add_ordered_(bi, 0, i, (-lr * gbi).to(bi.dtype), ip)
         return state._replace(u_fac=U, i_fac=I, u_bias=bu, i_bias=bi)

@@ -1,11 +1,19 @@
 """The scatter-add engines are reproducible on the card: colliding rows are
 summed in a fixed order (matfac_tpu_torch/ops/scatter.py), so two runs of
 an epoch give the same bits and a resumed run equals the uninterrupted
-one. Every test here is marked ``cuda`` and skips without a CUDA device.
-This file imports no JAX:
+one. The route is the hand-written kernel csrc/ordered_scatter.cu: it
+equals PyTorch's ``index_put_(accumulate=True)`` bit for bit on 2-D
+tables, with a staged plan as with one made per call, and so do the sgd
+and stream BPR epochs. Every test here is marked ``cuda`` and skips
+without a CUDA device. This file imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_scatter.py
 """
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,12 +25,18 @@ from matfac_tpu_torch.data.synthetic import synthetic_data
 from matfac_tpu_torch.models.base import MFState, ModelMF, init_state
 from matfac_tpu_torch.models.bpr import ModelMFBPR
 from matfac_tpu_torch.models.increment import train_increment
-from matfac_tpu_torch.ops.scatter import index_add_ordered_
+from matfac_tpu_torch.ops.scatter import (index_add_ordered_,
+                                          ordered_scatter,
+                                          ordered_scatter_plain,
+                                          plan_ordered, stage_plans)
 from matfac_tpu_torch.ops.svd_init import svd_init
 from matfac_tpu_torch.parallel.dsgd import DSGDShardedSolver
 from matfac_tpu_torch.parallel.mesh import make_mesh
+from matfac_tpu_torch.solvers import bpr as bpr_mod
+from matfac_tpu_torch.solvers import sgd as sgd_mod
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
+from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train.loop import train_model
 from matfac_tpu_torch.utils import freq
 
@@ -212,3 +226,187 @@ def test_svd_init_is_reproducible():
             for _ in range(2)]
     for a, b in zip(*runs):
         assert np.array_equal(a, b)
+
+
+def _put(table, dim, index, source, plan=None):
+    """The reference route: PyTorch's sort-based fixed-order sum."""
+    table.movedim(dim, 0).index_put_((index,), source.movedim(dim, 0),
+                                     accumulate=True)
+    return table
+
+
+def _hot_case(dtype, k, dim, dev, n_rows=3000, n=16_384, seed=0):
+    """A batch whose first row is hit about 6,000 times, the rest at
+    random; the table and source along ``dim``."""
+    rng = np.random.default_rng(seed)
+    idx = np.where(rng.random(n) < 6000 / n, 0, rng.integers(0, n_rows, n))
+    index = torch.from_numpy(idx.astype(np.int64)).to(dev)
+    table = torch.from_numpy(rng.normal(0, 1, (n_rows, k)).astype(
+        np.float32))
+    src = torch.from_numpy(rng.normal(0, 1e-2, (n, k)).astype(np.float32))
+    if dim == 1:
+        table, src = table.t().contiguous(), src.t().contiguous()
+    return table.to(dev, dtype), index, src.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_equals_index_put(dtype, k, dim):
+    """The kernel, with a plan made per call and with a staged int32 plan,
+    gives the bits of ``index_put_(accumulate=True)`` and of its plain
+    version on the card; one launch a call."""
+    dev = _cuda()
+    table, index, src = _hot_case(dtype, k, dim, dev)
+    want = _put(table.clone(), dim, index, src)
+    launches = ordered_scatter.launches
+    got = index_add_ordered_(table.clone(), dim, index, src)
+    staged = stage_plans(index.view(1, -1), table.shape[dim])[0]
+    got_staged = index_add_ordered_(table.clone(), dim, index, src, staged)
+    plain = ordered_scatter_plain(table.clone(), dim, src,
+                                  plan_ordered(index))
+    torch.cuda.synchronize()
+    assert ordered_scatter.launches == launches + 2
+    assert torch.equal(got, want)
+    assert torch.equal(got_staged, want)
+    assert torch.equal(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
+def test_kernel_on_strided_and_odd_shapes(dtype):
+    """k of 1, 3, 100 and 200 (scalar and vector lanes, several column
+    passes), a table whose rows are strided, a source that is a column
+    slice: the kernel equals its plain version bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    for k in (1, 3, 100, 200):
+        idx = np.where(rng.random(5000) < 0.3, 7, rng.integers(0, 90, 5000))
+        index = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        big = torch.from_numpy(rng.normal(0, 1, (90, k + 5))).to(dev, dtype)
+        table = big[:, 2:2 + k]
+        src = torch.from_numpy(rng.normal(0, 1e-2, (5000, k + 1))).to(
+            dev, dtype)[:, 1:]
+        plan = plan_ordered(index)
+        got = index_add_ordered_(table.clone(), 0, index, src)
+        strided = big.clone()
+        index_add_ordered_(strided[:, 2:2 + k], 0, index, src, plan)
+        want = ordered_scatter_plain(table.clone(), 0, src, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k
+        assert torch.equal(strided[:, 2:2 + k], want), k
+        assert torch.equal(strided[:, :2], big[:, :2]), k
+        assert torch.equal(strided[:, 2 + k:], big[:, 2 + k:]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_1d_tables_are_run_to_run_identical(dtype):
+    """A bias table: five calls give the same bits, which are the plain
+    version's (the adds in the index's order)."""
+    dev = _cuda()
+    table, index, src = _hot_case(dtype, 1, 0, dev)
+    table, src = table[:, 0].contiguous(), src[:, 0].contiguous()
+    plan = plan_ordered(index)
+    runs = [index_add_ordered_(table.clone(), 0, index, src, plan)
+            for _ in range(5)]
+    want = ordered_scatter_plain(table.clone(), 0, src, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert torch.equal(runs[0], want)
+
+
+@pytest.mark.cuda
+def test_a_staged_call_makes_no_host_sync():
+    dev = _cuda()
+    table, index, src = _hot_case(torch.float32, 64, 0, dev)
+    plan = stage_plans(index.view(1, -1), table.shape[0])[0]
+    index_add_ordered_(table, 0, index, src, plan)     # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            index_add_ordered_(table, 0, index, src, plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_an_id_out_of_range_traps():
+    """An id past the table stops the card's work in its process (the
+    kernel traps, as index_put_'s device assert does): the process fails
+    at its next sync and the table is never written past its end."""
+    _cuda()
+    code = textwrap.dedent("""
+        import torch
+        from matfac_tpu_torch.ops.scatter import index_add_ordered_
+        t = torch.zeros(10, 64, device="cuda")
+        i = torch.tensor([3, 10, 3], device="cuda")
+        index_add_ordered_(t, 0, i, torch.ones(3, 64, device="cuda"))
+        torch.cuda.synchronize()
+        print("no trap")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode != 0 and "no trap" not in out.stdout, out
+
+
+def _epoch_through(module, route, run):
+    """``run()`` with ``module.index_add_ordered_`` swapped for
+    ``route``."""
+    real = module.index_add_ordered_
+    module.index_add_ordered_ = route
+    try:
+        return run()
+    finally:
+        module.index_add_ordered_ = real
+
+
+@pytest.mark.cuda
+def test_sgd_epoch_equals_the_index_put_route():
+    """One SGDSolver epoch through the kernel and its staged plans equals,
+    bit for bit, the same epoch through ``index_put_(accumulate=True)``."""
+    dev = _cuda()
+    data = _data()
+    iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
+                                      data.n_items)
+    p = Params(fac_dim=64, u_reg=0.01, i_reg=0.01, seed=3, batch_size=512)
+    s = SGDSolver(ModelMF(p, data.n_users, data.n_items), p,
+                  data.train_mat, iu, ii, device=dev)
+    s0 = _on(_start(data.n_users, data.n_items, p.fac_dim), dev)
+    border = s.batch_order()
+    launches = ordered_scatter.launches
+    a = s.epoch_with(s0, 0.05, border)
+    torch.cuda.synchronize()
+    assert ordered_scatter.launches == launches + 2 * s.n_batches
+    b = _epoch_through(sgd_mod, _put,
+                       lambda: s.epoch_with(s0, 0.05, border))
+    torch.cuda.synchronize()
+    assert _same(a, b)
+    assert not torch.equal(a.u_fac, s0.u_fac)
+
+
+@pytest.mark.cuda
+def test_stream_bpr_epoch_equals_the_index_put_route():
+    """One stream BPR epoch (user side staged, item side sorted per call)
+    equals, bit for bit, the same epoch through
+    ``index_put_(accumulate=True)``."""
+    dev = _cuda()
+    data = _data()
+    iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
+                                      data.n_items)
+    p = Params(fac_dim=64, u_reg=0.001, i_reg=0.001, seed=3,
+               batch_size=512)
+    s = BPRSolver(ModelMFBPR(p, data.n_users, data.n_items), p,
+                  data.train_mat, iu, ii, device=dev)
+    border, bits = s.draw()
+    s0 = _start(data.n_users, data.n_items, p.fac_dim)
+    a = s.epoch_with(_on(s0, dev), 0.1, border, bits)
+    b = _epoch_through(bpr_mod, _put,
+                       lambda: s.epoch_with(_on(s0, dev), 0.1, border, bits))
+    torch.cuda.synchronize()
+    assert _same(a, b)
