@@ -104,8 +104,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       weights stage as bf16 W beside bf16 R;
   (n) the long-tail models on the stripe engine: train_model(algo="tmf"
       and "tmfdropout", mf_method="densesgd") on (d)'s data, 2 epochs
-      each, through the masked kernel; ranks not trivial, launches counted,
-      one epoch replayed with the drawn order and round uniforms;
+      each, through the masked kernel; then "tmfdropout" at k 128 on
+      half-star codes, 2,560 users a stripe and 26,744 items (the
+      benchmark cell's instantiation); ranks not trivial, launches
+      counted, one epoch replayed with the drawn order and round uniforms;
   (o) the scatter engine, train_model's default method, for algo "mf"
       and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
       ordered scatter kernel launched once a batch side in those epochs
@@ -345,6 +347,16 @@ CELLS = {
 CELLS["l"] = (CELLS["d"][0], dict(CELLS["d"][1], max_iter=2, rho_rms=1e4),
               "bf16+bfW")
 CELL_ALGO = {"d": "mf", "e": "mf", "l": "ifwmf"}
+# (n)'s k 128 run: the benchmark cell ml20m-tmfdropout-densesgd's kernel
+# instantiation (masked int8 codes at KP 128, 2,560 users a stripe, the
+# cell's 26,744 items padded to 26,752) on 22 stripes of half-star ratings
+# (1.51e9 one-byte slots: at 1.5e9 and over, the ladder stages codes), the
+# cell's mean of 144 a user, and its model's settings
+N_K128 = (dict(n_users=56_320, n_items=26_744, density=144 / 26_744,
+               noise=0.35, power_law=0.8, stars=True, val_pc=0.05),
+          dict(fac_dim=128, u_reg=0.005, i_reg=0.005, learn_rate=0.05,
+               seed=0, max_iter=2, obj_iter=1, disp_iter=1, rho_rms=1.0,
+               alpha=0.0))
 TILE_KINDS = ("f32+W", "bf16+W", "codes", "f32+fW", "bf16+bfW")
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -2594,16 +2606,24 @@ def phase_rows(data: Data, ev, inval, s0, dev="cuda"):
 
 def phase_longtail_dense(data: Data, dev="cuda") -> dict:
     """(n): train_model(algo="tmf" and "tmfdropout", mf_method="densesgd")
-    on (d)'s data, 2 epochs each, counts zeroed just before each run: the
-    masked stripe kernel on bf16 R + int8 W. Checks the launches, that the
-    ranks are not trivial and val RMSE falls; replays one epoch with the
-    solver's drawn order (and TMF+Dropout's round uniforms) through kernel
-    and plain, times both. Returns the kernels-line numbers (launches of
-    both runs; error, times and bound of TMF+Dropout's replay)."""
+    on (d)'s data, 2 epochs each, the masked stripe kernel on bf16 R + int8
+    W; then "tmfdropout" on N_K128's half-star data, the masked codes
+    instantiation at KP 128 with 2,560 users a stripe. Counts zeroed just
+    before each run. Checks the launches, that the ranks are not trivial
+    and val RMSE falls; replays one epoch with the solver's drawn order
+    (and TMF+Dropout's round uniforms) through kernel and plain, times
+    both. Returns the kernels-line numbers (launches of the three runs,
+    the worst replay error; times and bound of the k 64 TMF+Dropout
+    replay)."""
     out = {"launches": 0, "max_abs_err": 0.0}
-    for algo in ("tmf", "tmfdropout"):
-        params = Params(**dict(CELLS["d"][1], max_iter=2))
+    data_k128 = bench_data(**N_K128[0])
+    runs = (("tmf", data, CELLS["d"][1], "bf16+W"),
+            ("tmfdropout", data, CELLS["d"][1], "bf16+W"),
+            ("tmfdropout", data_k128, N_K128[1], "codes"))
+    for algo, data, params_kw, tiles in runs:
+        params = Params(**dict(params_kw, max_iter=2))
         k = params.fac_dim
+        tag = f"{algo} k {k}"
         drk.dense_rows_epoch.launches = 0
         t0 = time.perf_counter()
         rep, model, ev, _ = train_model(data, params, algo=algo,
@@ -2614,13 +2634,18 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
         solver = rep.solver
         assert isinstance(solver, BlockSGDSolver) and \
             solver.engine == "dense", "densesgd should not fall back here"
-        assert (solver.R_rows.dtype, solver.W_rows.dtype) == (
-            torch.bfloat16, torch.int8), "(d)'s data stages bf16 R + int8 W"
+        if tiles == "codes":
+            assert solver.R_rows.dtype == torch.int8 and \
+                solver.W_rows is None and (solver.bu, solver.n_items_pad) \
+                == (2560, 26_752), "N_K128 stages the cell's code tiles"
+        else:
+            assert (solver.R_rows.dtype, solver.W_rows.dtype) == (
+                torch.bfloat16, torch.int8), "(d)'s data stages bf16 R + W"
         Lu, Li = solver.rank_tabs
         order, round_u = solver.draw_schedule()
         ranks = solver.epoch_ranks(round_u)
         q = ranks[2]
-        log(f"(n) {algo}: staged NU={solver.NU} bu={solver.bu} ni_pad="
+        log(f"(n) {tag}: staged NU={solver.NU} bu={solver.bu} ni_pad="
             f"{solver.n_items_pad}; {'lambdas' if round_u is not None else 'ranks'}"
             f" of users min {int(Lu.min())} median "
             f"{float(Lu.float().median())}, of items min {int(Li.min())} "
@@ -2639,12 +2664,12 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
         s0 = init_state(params, data.n_users, data.n_items, device=dev)
         val0 = ev.rmse(model.eval_view(s0), "val")
         vals = [h.val_rmse for h in rep.history]
-        log(f"(n) {algo}: val RMSE at init {val0!r}, per epoch {vals!r}; "
+        log(f"(n) {tag}: val RMSE at init {val0!r}, per epoch {vals!r}; "
             f"epoch in the loop {[1e3 * h.seconds for h in rep.history]!r} "
             f"ms")
         assert all(np.isfinite(vals)) and rep.best_metric < val0, \
             (vals, val0)
-        err, k_ms, p_ms = _check_and_time(f"n, {algo}", solver, s0,
+        err, k_ms, p_ms = _check_and_time(f"n, {tag}", solver, s0,
                                           params.learn_rate, order=order,
                                           ranks=ranks)
         u3, i_tab = solver.stage_factors(s0)
@@ -2658,24 +2683,26 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
         names = ("u_bf16_kernel", "panel_kernel", "stripe_step_kernel")
         split = {tag: _kernel_ms(lambda: run(rk), names)
                  for tag, rk in (("masked", ranks), ("unmasked", None))}
-        log(f"(n) {algo} device ms an epoch by kernel (torch.profiler): "
+        log(f"(n) {tag} device ms an epoch by kernel (torch.profiler): "
             + "; ".join(f"{tag} " + ", ".join(f"{nm} {ms:.3f}"
                                                for nm, ms in d.items())
                         for tag, d in split.items()))
         bound = stripe_bound(solver, ranks)
         lib_ms = stripe_library_ms(solver)
-        log(f"(n) {algo} masked stripe epoch alone (CUDA events): kernel "
+        log(f"(n) {tag} masked stripe epoch alone (CUDA events): kernel "
             f"{k_ms:.3f} ms = {solver.nnz / k_ms * 1e3:.4e} ratings/s "
             f"(the unmasked kernel on the same tiles {unmasked:.3f} ms); "
             f"plain PyTorch {p_ms:.3f} ms; bound {bound[0]:.3f} ms "
             f"({bound[1]}); the three products as bf16 cuBLAS calls "
             f"{lib_ms:.3f} ms")
         out["launches"] += launches
-        out.update(max_abs_err=max(out["max_abs_err"], err), ms=k_ms,
-                   plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
-                   library_ms=lib_ms)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if algo == "tmfdropout" and k == CELLS["d"][1]["fac_dim"]:
+            out.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
+                       bound_by=bound[1], library_ms=lib_ms)
         del rep, solver, ev
         torch.cuda.empty_cache()
+    del data_k128
     return out
 
 

@@ -30,7 +30,9 @@ static ranks, ``visit_quantiles`` for Poisson draws). The kernel reads the
 masked regularization counts from suffix histograms of the tiles'
 lambdas, ``rank_hists``, which the solver stages once beside the counts.
 The masks are instantiated for int8 codes and int8 validity W only, the
-tiles of the 0/1-weight models that carry them.
+tiles of the 0/1-weight models that carry them. The rank checks and, on
+the card, the rank rows put in stripe order run in the span
+``stripes.ranks``.
 
 ``dense_cells_epoch`` is the same kernel's cell-grid entry, the port of
 the JAX dense engine's diag cell grid (``dense_sweep_diag``, which XLA
@@ -53,6 +55,7 @@ import torch
 from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_diag,
                                                     dense_sweep_rows)
+from matfac_tpu_torch.train.profiler import span
 
 Ranks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -288,7 +291,13 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
     NU, bu, k = u3.shape
     ni_pad = i_tab.shape[0]
     if ranks is not None:
-        _check_ranks(ranks, NU, bu, ni_pad, k, u3.device)
+        with span("stripes.ranks"):
+            _check_ranks(ranks, NU, bu, ni_pad, k, u3.device)
+            if u3.device.type != "cpu":
+                # the kernels read each stripe's rank row: that of its visit
+                Q = ranks[2]
+                Qs = torch.empty_like(Q)
+                Qs[row_order.to(device=Q.device, dtype=torch.int64)] = Q
     if u3.device.type == "cpu":
         Lu, Li, Q = ranks if ranks is not None else (None, None, None)
         return dense_sweep_rows(u3, i_tab, row_order, lr, R_rows, W_rows,
@@ -307,7 +316,7 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
     cnt_u, cnt_i = counts
     masks = [None] * 5
     if ranks is not None:
-        Lu, Li, Q = ranks
+        Lu, Li, _ = ranks
         if hists is None:
             hists = rank_hists(R_rows, W_rows, Lu, Li, k)
         hist_u, hist_i = hists
@@ -319,9 +328,6 @@ def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
             raise ValueError(f"hists must be contiguous int32 [{NU}, {bu}, "
                              f"{k}] and int16 [{NU}, {ni_pad}, {k}] on "
                              f"{u3.device}")
-        # the kernels read each stripe's rank row: that of its visit
-        Qs = torch.empty_like(Q)
-        Qs[row_order.to(device=Q.device, dtype=torch.int64)] = Q
         masks = [Lu.contiguous(), Li.contiguous(), Qs, hist_u, hist_i]
     # the stripe's user and item gradients (the kernels leave them zeroed)
     # and the bf16 copy of U

@@ -38,7 +38,8 @@ static ranks, TMF+Dropout its lambdas, whose ranks are redrawn at every
 stripe visit from one uniform a visit (the common-random-number Poisson
 quantiles, README deviation #15). On a CUDA device the suffix histograms
 the kernel reads its masked counts from are staged once with the tiles,
-and their bytes count toward ``dense_budget_bytes``.
+and their bytes count toward ``dense_budget_bytes``. The rank draw and its
+checks run in the span ``stripes.ranks``.
 
 Left out of the port, as TPU workarounds: the dummy factor block NU (the
 diag schedules' pad lanes are skipped), the panel-major relayout (a DMA
@@ -610,7 +611,8 @@ class BlockSGDSolver:
                                   counts=self.counts)
         elif self.engine == "dense":
             order, round_u = schedule
-            with span("stripes.schedule"):
+            with span("stripes.schedule" if self.rank_tabs is None
+                      else "stripes.ranks"):
                 ranks = self.epoch_ranks(round_u)
             with span("stripes.launch"):
                 dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,

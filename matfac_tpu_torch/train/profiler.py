@@ -7,8 +7,9 @@ The reference's only tracing is wall-clock per-epoch prints
   Chrome trace;
 * ``span()`` / ``request()`` / ``count()``: the program's spans and
   counters at its layer boundaries (the loop's sync and checks, a solver's
-  epoch, the ordered scatter, the BPR sampler, a serving request's card
-  waits), kept only while a ``torch.profiler`` records;
+  epoch, the ordered scatter, the BPR sampler, the stripe engine's rank
+  draw, a serving request's card waits), kept only while a
+  ``torch.profiler`` records;
 * ``records()`` / ``reset()``: what was kept in this process.
 
 A span rides on the profiler: while one records, it enters

@@ -343,10 +343,11 @@ def test_masked_kernel_matches_plain(mode, mm_bf16, collision_norm, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [10, 160])
+@pytest.mark.parametrize("k", [10, 128, 160])
 @pytest.mark.parametrize("mode", ["codes", "bf16+W"])
 def test_masked_kernel_padding_and_edges(mode, k):
-    """k = 10 (padded to 16 on the tensor cores) and 160 (the CUDA-core
+    """k = 10 (padded to 16 on the tensor cores), 128 (the widest
+    tensor-core instantiation, one CTA an SM) and 160 (the CUDA-core
     kernel), stripes of 130 users, a ragged 200-item catalog; Poisson rank
     rows, rtol 1e-3 / atol 1e-5."""
     dev = _cuda()
@@ -359,6 +360,57 @@ def test_masked_kernel_padding_and_edges(mode, k):
             R, W, r_scale)
     got, want = _masked_pair(args, _ranks(rng, NU, bu, ni, k, "poisson", dev),
                              True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["static", "poisson"])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("mode", MASK_MODES)
+def test_masked_kernel_at_k128_matches_plain(mode, mm_bf16, kind):
+    """TMF+Dropout's benchmark width, k 128 (KP 128 on the tensor cores,
+    one CTA an SM; the CUDA cores without mm_bf16): codes and int8 W,
+    static and Poisson rank rows, one epoch against the plain version at
+    the ragged shape of test_masked_kernel_matches_plain, rtol 1e-3 /
+    atol 1e-5."""
+    dev = _cuda()
+    rng = np.random.default_rng(48)
+    NU, bu, ni, k = 4, 100, 200, 128
+    R, W, r_scale = _tiles(mode, rng, (NU, bu, ni), dev)
+    scale = 0.03 if mm_bf16 else 0.3
+    u3 = torch.from_numpy(scale * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(scale * rng.normal(size=(ni, k))).float()
+    args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
+            R, W, r_scale)
+    before = tdrk.dense_rows_epoch.launches
+    got, want = _masked_pair(args, _ranks(rng, NU, bu, ni, k, kind, dev),
+                             mm_bf16)
+    assert tdrk.dense_rows_epoch.launches - before == \
+        tdrk.epoch_launches(NU, k, mm_bf16)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_masked_codes_at_the_cell_stripe_height():
+    """The benchmark cell's stripes: 2,560 users a stripe (the int16 item
+    histograms count up to it) at k 128 on half-star codes with Poisson
+    rank rows, a 1,000-item catalog, against the plain version at rtol
+    1e-3 / atol 1e-5; the histograms' largest count is the densest item's
+    in a stripe."""
+    dev = _cuda()
+    rng = np.random.default_rng(49)
+    NU, bu, ni, k = 2, 2560, 1000, 128
+    R, _, r_scale = _tiles("codes", rng, (NU, bu, ni), dev, density=0.3)
+    u3 = torch.from_numpy(0.03 * rng.normal(size=(NU, bu, k))).float()
+    i_tab = torch.from_numpy(0.03 * rng.normal(size=(ni, k))).float()
+    args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
+            R, None, r_scale)
+    ranks = _ranks(rng, NU, bu, ni, k, "poisson", dev)
+    hist_u, hist_i = tdrk.rank_hists(R, None, ranks[0], ranks[1], k)
+    assert int(hist_i[:, :, 0].max()) == int((R != 0).sum(1).max())
+    got, want = _masked_pair(args, ranks, True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
 
@@ -388,7 +440,7 @@ def test_masked_kernel_bf16_rounding_exact(mode, collision_norm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [64, 160])
+@pytest.mark.parametrize("k", [64, 128, 160])
 @pytest.mark.parametrize("mm_bf16", [False, True])
 @pytest.mark.parametrize("mode", MASK_MODES)
 def test_full_rank_masks_equal_the_unmasked_kernel(mode, mm_bf16, k):
