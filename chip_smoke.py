@@ -109,14 +109,21 @@ Phases, in order; any failure raises and the script exits non-zero:
       benchmark cell's instantiation); ranks not trivial, launches
       counted, one epoch replayed with the drawn order and round uniforms;
   (o) the scatter engine, train_model's default method, for algo "mf"
-      and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; the
-      ordered scatter kernel launched once a batch side in those epochs
+      and "tmfdropout" on (d)'s data, 2 epochs each: val RMSE falls; one
+      fused step (csrc/sgd_step.cu) launched a batch in those epochs
       (counted from 0 at the front door's call); the
       epoch's time, batches and CUDA kernels; two runs of an epoch
-      bit-identical (every scatter sums in a fixed order,
-      ops/scatter.index_add_ordered_); the epoch timed in turns with
-      Tensor.index_add_ (atomics) in place of the ordered sums, a
-      measurement of what the fixed order costs that no engine runs;
+      bit-identical (every scatter sums in a fixed order); the epoch timed
+      in turns with the eager step (ops/sgd_step.sgd_step_plain, the
+      route before the fused step) in its place;
+  (ss) the fused step at the sgd cell's shape (batches of 16,384 over
+      138,493 users, uniform, and 26,744 items by a 0.8 power law, k 64,
+      1,038 batches): its gradient kernel's device ms a batch beside its
+      bytes bound, the step's and the eager step's ms a batch in turns,
+      the host us a batch, two runs of an epoch bit-identical, one launch
+      a batch, and the largest gap of the tables after 3 epochs against
+      the eager route. ``python3 chip_smoke.py --sgd-step`` runs (a), the
+      build of the two sources, (ss) and (o) alone;
   (os) the ordered scatter kernel (csrc/ordered_scatter.cu) at the sgd
       cell's two sides (16,384 ids over 138,493 users, uniform, and over
       26,744 items by a 0.8 power law, k 64) and BPR's item side (131,072
@@ -268,6 +275,7 @@ from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
 from matfac_tpu_torch.ops import scatter as osc_mod
 from matfac_tpu_torch.ops import sgd_kernel as sk
+from matfac_tpu_torch.ops import sgd_step as step_mod
 from matfac_tpu_torch.ops import topk_kernel as tk
 from matfac_tpu_torch.eval.metrics import Evaluator
 from matfac_tpu_torch.eval.ranking import CatalogScorer
@@ -284,7 +292,6 @@ from matfac_tpu_torch.solvers.block_sgd import (BlockSGDSolver,
 from matfac_tpu_torch.solvers import als
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
-from matfac_tpu_torch.solvers import sgd as sgd_mod
 from matfac_tpu_torch.solvers.sgd import SGDSolver
 from matfac_tpu_torch.train import checkpoint as ckpt_mod
 from matfac_tpu_torch.train import loop as loop_mod
@@ -297,6 +304,7 @@ TOPK_SOURCE = "matfac_tpu_torch/csrc/topk.cu"
 BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
 PROBE_SOURCE = "matfac_tpu_torch/csrc/bisect_probes.cu"
 SCATTER_SOURCE = "matfac_tpu_torch/csrc/ordered_scatter.cu"
+STEP_SOURCE = "matfac_tpu_torch/csrc/sgd_step.cu"
 HOST_SOURCE = "matfac_tpu_torch/csrc/native_host.cpp"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -388,13 +396,13 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     paths = _build.build_all(["dense_rows", "topk", "block_sgd",
                               "bisect_probes", "ordered_scatter",
-                              "native_host"])
-    for mod in (drk, tk, bsk, bp, osc_mod):
+                              "sgd_step", "native_host"])
+    for mod in (drk, tk, bsk, bp, osc_mod, step_mod):
         mod.library()
     assert native.available()
     dt = time.perf_counter() - t0
     log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE}, "
-        f"{PROBE_SOURCE}, {SCATTER_SOURCE} and {HOST_SOURCE} "
+        f"{PROBE_SOURCE}, {SCATTER_SOURCE}, {STEP_SOURCE} and {HOST_SOURCE} "
         f"({_build.host_compiler()}): "
         f"{dt:.2f} s "
         f"({', '.join(p.name for p in paths.values())})")
@@ -2721,18 +2729,15 @@ def _device_kernels(fn):
 
 
 @contextlib.contextmanager
-def _atomic_scatter():
-    """A measurement only: the scatter engine's sums through
-    ``Tensor.index_add_`` (atomics on the card, in no fixed order) in place
-    of ``index_add_ordered_``, to time what the fixed order costs. No
-    engine of the port has this route."""
-    real = sgd_mod.index_add_ordered_
-    sgd_mod.index_add_ordered_ = lambda t, dim, index, src, plan=None: \
-        t.index_add_(dim, index, src)
+def _eager_step(solver):
+    """``solver``'s epochs through the eager step (``sgd_step_plain`` on
+    the card, its scatters by the staged plans: the route before the fused
+    step), as a yardstick."""
+    solver.step.epoch = solver.step.epoch_plain
     try:
         yield
     finally:
-        sgd_mod.index_add_ordered_ = real
+        del solver.step.epoch
 
 
 def phase_scatter(data: Data, dev="cuda") -> dict:
@@ -2742,28 +2747,36 @@ def phase_scatter(data: Data, dev="cuda") -> dict:
     events), its batches and the CUDA kernels it launches (torch.profiler;
     idle share = 1 - their device time / the epoch's); two runs of one
     epoch with the same batch order and masks must be bit-identical; and
-    the epoch timed in turns (ordered, atomic, atomic, ordered) with
-    ``_atomic_scatter``. The ordered scatter's launches are counted from 0
-    at each ``train_model`` call and must be one a batch side an epoch (2,
-    4 with biases). Returns {"costs": {algo: (ordered ms, atomic ms)},
-    "launches": the launches of the two ``train_model`` calls}."""
-    costs, launches = {}, 0
+    the epoch through the fused and the eager step (``_eager_step``)
+    from one start, order and masks, the tables within 1e-5 of the
+    largest entry, and timed in turns (fused, eager, eager, fused). The
+    fused step's launches and the ordered scatter launches it reports are
+    counted from 0 at each ``train_model`` call and must be one a batch an
+    epoch and one a batch side (2, 4 with biases). Returns {"costs":
+    {algo: (fused ms, eager ms)}, "launches": the fused steps of the two
+    ``train_model`` calls, "scatters": the ordered scatter launches they
+    made, "max_abs_err": the largest fused-eager gap}."""
+    costs, launches, scatters, gaps = {}, 0, 0, []
     for algo in ("mf", "tmfdropout"):
         params = Params(**dict(CELLS["d"][1], max_iter=2))
         t0 = time.perf_counter()
-        osc_mod.ordered_scatter.launches = 0
+        step_mod.SGDStep.launches = step_mod.SGDStep.scatter_launches = 0
         rep, model, ev, _ = train_model(data, params, algo=algo, device=dev,
                                         log_fn=lambda s: log(f"(o) {s}"))
         wall = time.perf_counter() - t0
         solver = rep.solver
         assert isinstance(solver, SGDSolver)
-        n_os = osc_mod.ordered_scatter.launches
-        want = params.max_iter * (4 if model.use_bias else 2) \
-            * solver.n_batches
-        log(f"(o) {algo}: ordered scatter launches in train_model {n_os} "
-            f"(want {want}: a batch side an epoch)")
-        assert n_os == want, (n_os, want)
-        launches += n_os
+        n_step = step_mod.SGDStep.launches
+        n_sc = step_mod.SGDStep.scatter_launches
+        want = params.max_iter * solver.n_batches
+        sides = 4 if model.use_bias else 2
+        log(f"(o) {algo}: fused step launches in train_model {n_step} "
+            f"(want {want}: one a batch an epoch), the ordered scatter "
+            f"launches they reported {n_sc} (want {sides * want})")
+        assert n_step == want, (n_step, want)
+        assert n_sc == sides * want, (n_sc, sides * want)
+        launches += n_step
+        scatters += n_sc
         s0 = init_state(params, data.n_users, data.n_items, device=dev)
         val0 = ev.rmse(model.eval_view(s0), "val")
         vals = [h.val_rmse for h in rep.history]
@@ -2791,20 +2804,156 @@ def phase_scatter(data: Data, dev="cuda") -> dict:
             f"({n_kern / solver.n_batches:.1f} a batch), device busy "
             f"{dev_ms:.3f} ms, idle share {1 - dev_ms / np.mean(ms):.3f}")
         _twice("o", f"{algo} (same order and masks)", epoch)
-        ordered, atomic = [_cuda_ms(epoch)], []
-        with _atomic_scatter():
+        got = epoch()
+        with _eager_step(solver):
+            want_st = epoch()
+        torch.cuda.synchronize()
+        gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want_st) if a.numel())
+        top = max(float(b.float().abs().max()) for b in want_st if b.numel())
+        log(f"(o) {algo} one epoch, fused against eager from one start, "
+            f"order and masks: largest table gap {gap:.3e} (largest entry "
+            f"{top:.3e})")
+        assert gap <= 1e-5 * max(top, 1.0), (gap, top)
+        gaps.append(gap)
+        del got, want_st
+        fused, eager = [_cuda_ms(epoch)], []
+        with _eager_step(solver):
             epoch()
-            atomic += [_cuda_ms(epoch) for _ in range(2)]
-            n_at, dev_at = _device_kernels(epoch)
-        ordered.append(_cuda_ms(epoch))
-        costs[algo] = (float(np.mean(ordered)), float(np.mean(atomic)))
-        log(f"(o) {algo} the fixed order's cost, in turns (CUDA events): "
-            f"ordered sums {ordered!r} ms, atomic index_add_ {atomic!r} ms "
-            f"(device busy {dev_at:.3f} ms, {n_at} kernels), ordered / "
-            f"atomic {costs[algo][0] / costs[algo][1]:.3f}")
+            eager += [_cuda_ms(epoch) for _ in range(2)]
+            n_e, dev_e = _device_kernels(epoch)
+        fused.append(_cuda_ms(epoch))
+        costs[algo] = (float(np.mean(fused)), float(np.mean(eager)))
+        log(f"(o) {algo} fused and eager steps, in turns (CUDA events): "
+            f"fused {fused!r} ms, eager {eager!r} ms (device busy "
+            f"{dev_e:.3f} ms, {n_e} kernels), eager / fused "
+            f"{costs[algo][1] / costs[algo][0]:.3f}")
         del rep, solver, ev
         torch.cuda.empty_cache()
-    return {"costs": costs, "launches": launches}
+    return {"costs": costs, "launches": launches, "scatters": scatters,
+            "max_abs_err": max(gaps)}
+
+
+# ----------------------------------------------------------------------
+# (ss): the fused sgd step, csrc/sgd_step.cu, at the sgd cell's shape
+# ----------------------------------------------------------------------
+
+# the benchmark cell ml20m-mf-sgd: ML-20M's rated users and items, its
+# 17.0M train ratings (1,038 batches of 16,384), k 64, lr 0.005, reg 0.002
+SS_SHAPE = dict(n_users=138_493, n_items=26_744, n_ratings=17_000_000,
+                law=0.8)
+SS_PARAMS = dict(fac_dim=64, u_reg=0.002, i_reg=0.002, learn_rate=0.005,
+                 seed=0, batch_size=16_384)
+SS_EPOCHS = 3
+
+
+def _ss_matrix(n_users, n_items, n_ratings, law, seed=0) -> RatingMatrix:
+    """Half-star ratings, users uniform, items by a ``law`` power law (ids
+    may repeat within a user: the step does not care)."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n_items + 1, dtype=np.float64) ** law
+    users = np.sort(rng.integers(0, n_users, n_ratings))
+    items = rng.choice(n_items, n_ratings, p=w / w.sum()).astype(np.int32)
+    vals = (rng.integers(1, 11, n_ratings) * 0.5).astype(np.float32)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(users,
+                                                        minlength=n_users))])
+    return RatingMatrix(indptr, items, vals, n_items)
+
+
+def sgd_step_bound(solver, k: int, esize: int = 4) -> tuple:
+    """A batch of the gradient kernel: each example's two table rows read
+    and two scratch rows written once, its two int64 ids and its rating,
+    valid flag and f32 weight read once."""
+    return _bound(solver.batch_size * (4 * k * esize + 2 * 8 + 3 * 4),
+                  0.0, "f32")
+
+
+def phase_sgd_step(dev="cuda") -> dict:
+    """(ss): the fused step at the sgd cell's shape (``SS_SHAPE``,
+    ``SS_PARAMS``): one epoch's launches; its gradient kernel's and
+    scatters' device ms (torch.profiler) a batch beside the bytes bound;
+    the epoch's ms through the fused and the eager step in turns (CUDA
+    events) and each one's host us a batch (enqueue without a sync); two
+    runs of an epoch bit-identical; then ``SS_EPOCHS`` epochs from one
+    start through each route, same orders: the largest gap of the tables.
+    Returns the kernels-table numbers."""
+    t0 = time.perf_counter()
+    mat = _ss_matrix(**SS_SHAPE)
+    params = Params(**SS_PARAMS)
+    nu, ni = SS_SHAPE["n_users"], SS_SHAPE["n_items"]
+    none = np.zeros(nu, bool), np.zeros(ni, bool)
+    solver = SGDSolver(ModelMF(params, nu, ni), params, mat, *none,
+                       device=dev)
+    k, lr, nb = params.fac_dim, params.learn_rate, solver.n_batches
+    s0 = init_state(params, nu, ni, device=dev)
+    border = solver.batch_order()
+    epoch = lambda: solver.epoch_with(s0, lr, border)
+    log(f"(ss) {nb} batches of {solver.batch_size} over {nu:,} x {ni:,}, "
+        f"k {k}, staged in {time.perf_counter() - t0:.1f} s")
+    n0, s0_sc = step_mod.SGDStep.launches, step_mod.SGDStep.scatter_launches
+    epoch()
+    torch.cuda.synchronize()
+    n_step = step_mod.SGDStep.launches - n0
+    n_sc = step_mod.SGDStep.scatter_launches - s0_sc
+    log(f"(ss) one epoch: {n_step} fused steps, {n_sc} ordered scatters")
+    assert (n_step, n_sc) == (nb, 2 * nb), (n_step, n_sc, nb)
+    _twice("ss", "fused step", epoch)
+    dev_ms = {n: v / nb for n, v in _kernel_ms(
+        epoch, ["sgd_grad_kernel", "ordered_scatter_kernel"]).items()}
+    bound = sgd_step_bound(solver, k)
+
+    def host_us(run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / nb * 1e6
+
+    fused, eager = [_cuda_ms(epoch)], []
+    host = {"fused": [host_us(epoch)], "eager": []}
+    with _eager_step(solver):
+        epoch()
+        eager += [_cuda_ms(epoch) for _ in range(2)]
+        host["eager"].append(host_us(epoch))
+        eager_dev = _kernel_ms(epoch, ["elementwise", "gather", "reduce",
+                                       "ordered_scatter_kernel"])
+    fused.append(_cuda_ms(epoch))
+    host["fused"].append(host_us(epoch))
+    log(f"(ss) device ms a batch: gradient kernel "
+        f"{dev_ms['sgd_grad_kernel']:.5f} (bound {bound[0]:.5f}, "
+        f"{bound[1]}: {bound[0] / dev_ms['sgd_grad_kernel']:.1%}), "
+        f"scatters {dev_ms['ordered_scatter_kernel']:.5f}; the eager "
+        f"step's by kernel family an epoch {eager_dev!r} ms")
+    log(f"(ss) an epoch in turns (CUDA events): fused {fused!r} ms, eager "
+        f"{eager!r} ms; host us a batch {host!r}; "
+        f"{solver.nnz / np.mean(fused) * 1e3:.4e} ratings/s fused")
+    orders = [solver.batch_order() for _ in range(SS_EPOCHS)]
+
+    def run():
+        st = s0
+        for o in orders:
+            st = solver.epoch_with(st, lr, o)
+        return st
+
+    got = run()
+    with _eager_step(solver):
+        want = run()
+    torch.cuda.synchronize()
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want) if a.numel())
+    top = max(float(b.float().abs().max()) for b in want if b.numel())
+    log(f"(ss) after {SS_EPOCHS} epochs, fused against eager from one start "
+        f"and one order: largest table gap {gap:.3e} (largest entry "
+        f"{top:.3e})")
+    assert gap <= 1e-5 * max(top, 1.0), gap
+    del solver, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=gap,
+                ms=dev_ms["sgd_grad_kernel"],
+                step_ms=float(np.mean(fused)) / nb,
+                plain_ms=float(np.mean(eager)) / nb, bound_ms=bound[0],
+                bound_by=bound[1])
 
 
 # ----------------------------------------------------------------------
@@ -3847,6 +3996,15 @@ def _cpu_copy(solver):
     if hasattr(solver, "_stage"):
         c._stage = [[tuple(t.cpu() for t in ch) for ch in side]
                     for side in solver._stage]
+    if isinstance(solver, SGDSolver):
+        # the batch views and the step hold the stream too (CPU tables
+        # take the step's plain route)
+        c.batches = [tuple(t.cpu() for t in bt) for bt in solver.batches]
+        c.step = copy.copy(solver.step)
+        for key, v in vars(solver.step).items():
+            if torch.is_tensor(v):
+                setattr(c.step, key, v.cpu())
+        c.step.u_plans = c.step.i_plans = None    # the CPU reads none
     c.device = torch.device("cpu")
     return c
 
@@ -4940,7 +5098,8 @@ NO_LIBRARY = "none: no one PyTorch call computes this function"
 
 def _os_entry(res: dict, launches: int) -> dict:
     """The kernels-table entry of the ordered scatter: ``launches``, those
-    of (o)'s front-door runs, and the sgd cell's items case's times."""
+    the fused steps of (o)'s front-door runs reported enqueuing (counted
+    from 0 at each), and the sgd cell's items case's times."""
     r = res["sgd items"]
     return {"name": "ordered_scatter<f32|bf16|f16|f64>", "route": "cuda",
             "source": SCATTER_SOURCE,
@@ -4952,6 +5111,46 @@ def _os_entry(res: dict, launches: int) -> dict:
             "library_ms": r["library_ms"],
             "library": "index_put_(accumulate=True), PyTorch's sort-based "
                        "fixed-order sum"}
+
+
+def _ss_entry(ss: dict, o: dict) -> dict:
+    """The kernels-table entry of the fused sgd step: launches, those of
+    (o)'s front-door runs (counted from 0 at each); the largest gap to the
+    eager step, (o)'s and (ss)'s; (ss)'s times a batch (card ms: the
+    gradient kernel; plain ms: the eager step)."""
+    return {"name": "sgd_step<f32|bf16>", "route": "cuda",
+            "source": STEP_SOURCE,
+            "replaces": "none (XLA's gathers, products and scatter-add)",
+            "launches": o["launches"],
+            "max_abs_err": max(ss["max_abs_err"], o["max_abs_err"]),
+            "ms": ss["ms"],
+            "step_ms": ss["step_ms"], "plain_ms": ss["plain_ms"],
+            "bound_ms": ss["bound_ms"], "bound_by": ss["bound_by"],
+            "library_ms": None, "library": NO_LIBRARY}
+
+
+def sgd_step_main() -> int:
+    """``--sgd-step``: phases (a), the build of the two sources, (ss) and
+    (o) on (d)'s data; prints the kernels-table entry and the device."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    phase_env()
+    t0 = time.perf_counter()
+    _build.build_all(["ordered_scatter", "sgd_step"])
+    osc_mod.library(), step_mod.library()
+    log(f"(b) build + load of {SCATTER_SOURCE} and {STEP_SOURCE}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    ss = phase_sgd_step()
+    o = phase_scatter(bench_data(**CELLS["d"][0]))
+    print(json.dumps({"kernels": [_ss_entry(ss, o)],
+                      "ordered_scatter_launches": o["scatters"]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def ordered_scatter_main() -> int:
@@ -4969,7 +5168,7 @@ def ordered_scatter_main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     o = phase_scatter(bench_data(**CELLS["d"][0]))
     res = phase_ordered_scatter()
-    print(json.dumps({"kernels": [_os_entry(res, o["launches"])],
+    print(json.dumps({"kernels": [_os_entry(res, o["scatters"])],
                       "cases": res}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5041,6 +5240,8 @@ def main() -> int:
     lap("n")
     o = phase_scatter(data_d)
     lap("o")
+    ss = phase_sgd_step()
+    lap("ss")
     osc = phase_ordered_scatter()
     lap("os")
     phase_als(data_d)
@@ -5129,7 +5330,8 @@ def main() -> int:
         entry("fused_cell_update", BLOCK_SOURCE,
               "matfac_tpu/ops/sgd_kernel.py:73", cell[0],
               max(block["cell"], cell[1]), cell[2], cell[3], cell[4]),
-        _os_entry(osc, o["launches"]),
+        _os_entry(osc, o["scatters"]),
+        _ss_entry(ss, o),
     ] + [entry(f"probe<{name}>", PROBE_SOURCE,
                f"scripts/tpu_pallas_bisect.py:{PROBE_LINES[name]}", *res)
          for name, res in probes.items()]
@@ -5150,4 +5352,6 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(int(port), int(rank), out_dir, dev))
     if sys.argv[1:2] == ["--ordered-scatter"]:
         sys.exit(ordered_scatter_main())
+    if sys.argv[1:2] == ["--sgd-step"]:
+        sys.exit(sgd_step_main())
     sys.exit(main())

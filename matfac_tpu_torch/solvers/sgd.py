@@ -9,17 +9,20 @@ fixed-size batches in a random order, and each batch applies
     q_i -= lr * m * (-2 w e p_u + 2 reg_i q_i)
 
 with every gradient computed at the batch's starting values and summed
-into the tables by ``index_add_ordered_`` (the scatter-add of the JAX
-engine, ``ops/scatter.py``; on the card each batch's order of adds is
-staged once, since batch contents never change): the deterministic
-analog of hogwild, modelMF.cpp:83-105's update with per-occurrence regularization. w is the model's example weight (IFWMF), m
-its rank mask (TMF; TMF+Dropout draws one per example from the solver's
-generator), and biases train beside the factors for bias models.
+into the tables in a fixed order (the scatter-add of the JAX engine,
+``ops/scatter.py``; on the card each batch's order of adds is staged
+once, since batch contents never change): the deterministic analog of
+hogwild, modelMF.cpp:83-105's update with per-occurrence regularization.
+w is the model's example weight (IFWMF), m its rank mask (TMF;
+TMF+Dropout draws one per example from the solver's generator), and
+biases train beside the factors for bias models.
 
-Plain PyTorch on the tables' device: JAX computes this engine with XLA
-gathers and scatters, not a Pallas kernel. Colliding rows are summed in a
-fixed order on either device, so two runs of an epoch are bit-identical
-and a resumed run continues exactly.
+The step is ``ops/sgd_step.SGDStep``: on the CPU the eager PyTorch ops
+of ``sgd_step_plain`` (JAX computes this engine with XLA gathers and
+scatters, not a Pallas kernel); on the card one call a batch of the
+hand-written ``csrc/sgd_step.cu``, gradients and both ordered scatters.
+Colliding rows are summed in a fixed order on either device, so two runs
+of an epoch are bit-identical and a resumed run continues exactly.
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ import torch
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import coo_batches
 from matfac_tpu_torch.models.base import MFState
-from matfac_tpu_torch.ops.scatter import index_add_ordered_, stage_plans
+from matfac_tpu_torch.ops.sgd_step import SGDStep
 from matfac_tpu_torch.solvers.block_sgd import stage_batch_collision_counts
-from matfac_tpu_torch.train.profiler import span
+from matfac_tpu_torch.train.profiler import count, span
 
 
 class SGDSolver:
@@ -84,13 +87,10 @@ class SGDSolver:
         self.batch_size = b.batch_size
         self.n_batches = b.n_batches
         self.nnz = b.nnz
-        # each static batch's order of adds, sorted once for both sides on
-        # the card (the CPU's index_add_ takes no plan)
-        self.u_plans = self.i_plans = None
-        if self.device.type == "cuda":
-            shape = (self.n_batches, self.batch_size)
-            self.u_plans = stage_plans(self.rows.view(shape), model.n_users)
-            self.i_plans = stage_plans(self.cols.view(shape), model.n_items)
+        # each batch's ids and valid flags, as views made once
+        shape = (self.n_batches, self.batch_size)
+        self.batches = list(zip(self.rows.view(shape), self.cols.view(shape),
+                                self.valid.view(shape)))
         self.inv_nu = self.inv_ni = None
         if self.collision_norm:
             # an element whose entity has no valid occurrence is itself
@@ -102,6 +102,14 @@ class SGDSolver:
                 0.0).astype(np.float32)).to(self.device)
             self.inv_nu = inv(rn, model.n_users)
             self.inv_ni = inv(cn, model.n_items)
+        # on the card the step stages each static batch's order of adds
+        # once, both sides
+        self.step = SGDStep(self.rows, self.cols, self.vals, self.valid,
+                            self.batch_size, self.inv_nu, self.inv_ni,
+                            self.reg_scale_u, self.reg_scale_i,
+                            self.reg_vec, params.u_reg, params.i_reg,
+                            model.use_factors, model.use_bias,
+                            model.n_users, model.n_items)
         self.seed = params.seed if seed is None else seed
         self._order_gen = torch.Generator().manual_seed(self.seed + 43)
         # sampled ranks are drawn where the indices live
@@ -140,22 +148,16 @@ class SGDSolver:
         (a sampled-rank model draws from the solver's mask generator).
         Returns a new state; the given one is left as it was."""
         model = self.model
-        p = self.params
-        B = self.batch_size
-        if self.reg_vec is not None:
-            u_reg = i_reg = self.reg_vec[None, :]
-        else:
-            u_reg, i_reg = float(p.u_reg), float(p.i_reg)
-        lr = float(lr)
-        U, I = state.u_fac.clone(), state.i_fac.clone()
-        bu, bi = state.u_bias.clone(), state.i_bias.clone()
+        # row-major copies (an SVD start may be column-major): the step
+        # reads and writes whole rows
+        U, I, bu, bi = (t.clone(memory_format=torch.contiguous_format)
+                        for t in state[:4])
+        step = self.step.epoch(U, I, bu, bi, float(lr))
         sampled = getattr(model, "stochastic_rank", False)
-        for t, b in enumerate(torch.as_tensor(border).tolist()):
-            sl = slice(b * B, (b + 1) * B)
-            u, i, r, v = (self.rows[sl], self.cols[sl], self.vals[sl],
-                          self.valid[sl])
-            up, ip = ((self.u_plans[b], self.i_plans[b]) if self.u_plans
-                      else (None, None))
+        border = torch.as_tensor(border).tolist()
+        count("sgd.batches", len(border))
+        for t, b in enumerate(border):
+            u, i, v = self.batches[b]
             w = model.example_weight(u, i) * v
             if masks is not None:
                 m = torch.as_tensor(masks[t], dtype=torch.float32,
@@ -164,40 +166,5 @@ class SGDSolver:
                 m = model.update_rank_mask(u, i, generator=self._mask_gen)
             else:
                 m = model.update_rank_mask(u, i)
-            side = model.update_side_masks(u, i)
-            pu, qi = U[u].float(), I[i].float()
-            bu_old, bi_old = bu[u].float(), bi[i].float()
-            pred = torch.zeros_like(r)
-            if model.use_factors:
-                pred = ((pu if m is None else pu * m) * qi).sum(dim=1)
-            if model.use_bias:
-                pred = pred + bu_old + bi_old
-            diff = r - pred
-            ru = v if self.reg_scale_u is None else self.reg_scale_u[u] * v
-            ri = v if self.reg_scale_i is None else self.reg_scale_i[i] * v
-            wd = w * diff
-            if model.use_factors:
-                gu = -2.0 * wd[:, None] * qi + 2.0 * u_reg * (ru[:, None] * pu)
-                gi = -2.0 * wd[:, None] * pu + 2.0 * i_reg * (ri[:, None] * qi)
-                if m is not None:
-                    gu, gi = gu * m, gi * m
-                if side is not None:
-                    # per-side gates on the whole gradient, prediction
-                    # untouched (othersrc modelMFLoc.cpp:124-159)
-                    gu, gi = gu * side[0], gi * side[1]
-                if self.collision_norm:
-                    gu = gu * self.inv_nu[sl][:, None]
-                    gi = gi * self.inv_ni[sl][:, None]
-                index_add_ordered_(U, 0, u, (-lr * gu).to(U.dtype), up)
-                index_add_ordered_(I, 0, i, (-lr * gi).to(I.dtype), ip)
-            if model.use_bias:
-                gbu = -2.0 * wd + 2.0 * u_reg * ru * bu_old
-                gbi = -2.0 * wd + 2.0 * i_reg * ri * bi_old
-                if side is not None:
-                    gbu, gbi = gbu * side[0][:, 0], gbi * side[1][:, 0]
-                if self.collision_norm:
-                    gbu = gbu * self.inv_nu[sl]
-                    gbi = gbi * self.inv_ni[sl]
-                index_add_ordered_(bu, 0, u, (-lr * gbu).to(bu.dtype), up)
-                index_add_ordered_(bi, 0, i, (-lr * gbi).to(bi.dtype), ip)
+            step(b, w, m, model.update_side_masks(u, i))
         return state._replace(u_fac=U, i_fac=I, u_bias=bu, i_bias=bi)

@@ -4,7 +4,7 @@ an epoch give the same bits and a resumed run equals the uninterrupted
 one. The route is the hand-written kernel csrc/ordered_scatter.cu: it
 equals PyTorch's ``index_put_(accumulate=True)`` bit for bit on 2-D
 tables, with a staged plan as with one made per call, and so do the sgd
-and stream BPR epochs. Every test here is marked ``cuda`` and skips
+engine's fused steps and the stream BPR epochs. Every test here is marked ``cuda`` and skips
 without a CUDA device. This file imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_scatter.py
@@ -33,7 +33,6 @@ from matfac_tpu_torch.ops.svd_init import svd_init
 from matfac_tpu_torch.parallel.dsgd import DSGDShardedSolver
 from matfac_tpu_torch.parallel.mesh import make_mesh
 from matfac_tpu_torch.solvers import bpr as bpr_mod
-from matfac_tpu_torch.solvers import sgd as sgd_mod
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
@@ -368,8 +367,9 @@ def _epoch_through(module, route, run):
 
 @pytest.mark.cuda
 def test_sgd_epoch_equals_the_index_put_route():
-    """One SGDSolver epoch through the kernel and its staged plans equals,
-    bit for bit, the same epoch through ``index_put_(accumulate=True)``."""
+    """Each batch of one SGDSolver epoch: the fused step's scatters, by the
+    staged plans, equal ``index_put_(accumulate=True)`` of the step's own
+    gradient rows onto the batch's starting tables, bit for bit."""
     dev = _cuda()
     data = _data()
     iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
@@ -377,17 +377,21 @@ def test_sgd_epoch_equals_the_index_put_route():
     p = Params(fac_dim=64, u_reg=0.01, i_reg=0.01, seed=3, batch_size=512)
     s = SGDSolver(ModelMF(p, data.n_users, data.n_items), p,
                   data.train_mat, iu, ii, device=dev)
-    s0 = _on(_start(data.n_users, data.n_items, p.fac_dim), dev)
-    border = s.batch_order()
-    launches = ordered_scatter.launches
-    a = s.epoch_with(s0, 0.05, border)
-    torch.cuda.synchronize()
-    assert ordered_scatter.launches == launches + 2 * s.n_batches
-    b = _epoch_through(sgd_mod, _put,
-                       lambda: s.epoch_with(s0, 0.05, border))
-    torch.cuda.synchronize()
-    assert _same(a, b)
-    assert not torch.equal(a.u_fac, s0.u_fac)
+    U, I, bu, bi, _ = _on(_start(data.n_users, data.n_items, p.fac_dim),
+                          dev)
+    U0 = U.clone()
+    step = s.step.epoch(U, I, bu, bi, 0.05)
+    gu, gi, _, _ = s.step._scratch
+    B = s.batch_size
+    for b in s.batch_order().tolist():
+        sl = slice(b * B, (b + 1) * B)
+        want_u, want_i = U.clone(), I.clone()
+        step(b, s.valid[sl].clone(), None, None)
+        want_u.index_put_((s.rows[sl],), gu, accumulate=True)
+        want_i.index_put_((s.cols[sl],), gi, accumulate=True)
+        torch.cuda.synchronize()
+        assert torch.equal(U, want_u) and torch.equal(I, want_i), b
+    assert not torch.equal(U, U0)
 
 
 @pytest.mark.cuda

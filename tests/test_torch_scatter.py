@@ -198,26 +198,27 @@ def _bpr_solver():
 
 
 def _stage_as_on_the_card(s):
-    """The plans a solver stages on a CUDA device, staged here on the CPU
-    from the solver's own static index (the CPU solver stages none)."""
+    """The plans a solver stages on a CUDA device (sgd: its step's),
+    staged here on the CPU from the solver's own static index (the CPU
+    solver stages none)."""
     if hasattr(s, "pos_u"):
         s.u_plans = stage_plans(s.pos_u.view(s.n_batches, s.batch_size),
                                 s.model.n_users)
         return
     shape = (s.n_batches, s.batch_size)
-    s.u_plans = stage_plans(s.rows.view(shape), s.model.n_users)
-    s.i_plans = stage_plans(s.cols.view(shape), s.model.n_items)
+    s.step.u_plans = stage_plans(s.rows.view(shape), s.model.n_users)
+    s.step.i_plans = stage_plans(s.cols.view(shape), s.model.n_items)
 
 
 def test_sgd_solver_stages_each_batch_stable_sort():
-    """On the CPU the solver stages nothing; the plans it would stage on
-    the card are each batch's stable sort, both sides."""
+    """On the CPU the solver's step stages nothing; the plans it would
+    stage on the card are each batch's stable sort, both sides."""
     s, _, _ = _sgd_solver()
-    assert s.u_plans is None and s.i_plans is None
+    assert s.step.u_plans is None and s.step.i_plans is None
     _stage_as_on_the_card(s)
     shape = (s.n_batches, s.batch_size)
-    _held_to_argsort(s.u_plans, s.rows.view(shape))
-    _held_to_argsort(s.i_plans, s.cols.view(shape))
+    _held_to_argsort(s.step.u_plans, s.rows.view(shape))
+    _held_to_argsort(s.step.i_plans, s.cols.view(shape))
 
 
 def test_bpr_solver_stages_the_user_side_of_each_batch():

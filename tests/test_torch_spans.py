@@ -145,9 +145,9 @@ def test_a_span_whose_body_raises_is_closed():
 @pytest.mark.parametrize("method", ["sgd", "densesgd", "bpr"])
 def test_a_training_loop_records_each_epoch(method, monkeypatch):
     """Under the profiler: one solver-epoch span and one ``loop.sync`` an
-    epoch; sgd's ``2 x batches`` ordered scatters an epoch inside its
-    epoch, BPR's sampler and three scatters a batch, the stripes'
-    schedule and launch."""
+    epoch; sgd's ``sgd.step`` a batch inside its epoch and, on the CPU,
+    its two ordered scatters inside the step, its batches counted; BPR's sampler and three
+    scatters a batch, the stripes' schedule and launch."""
     prof = _recorder()
     rep, solver = _train(method)
     prof.stop()
@@ -161,6 +161,11 @@ def test_a_training_loop_records_each_epoch(method, monkeypatch):
     n_scatter = names.count("scatter.ordered")
     if method == "sgd":
         assert n_scatter == 2 * solver.n_batches * EPOCHS
+        assert names.count("sgd.step") == solver.n_batches * EPOCHS
+        # the epochs' batches counted; the CPU's plain steps call no kernel
+        counts = tprof.records()["counts"]
+        assert counts.get("sgd.batches") == solver.n_batches * EPOCHS
+        assert "sgd.step" not in counts
     elif method == "bpr":
         assert names.count("bpr.sample") == solver.n_batches * EPOCHS
         assert n_scatter == 2 * solver.n_batches * EPOCHS
@@ -169,9 +174,11 @@ def test_a_training_loop_records_each_epoch(method, monkeypatch):
         assert names.count("stripes.launch") == EPOCHS
         assert names.count("stripes.schedule") == 2 * EPOCHS
     for s in spans:
-        if s.name in ("scatter.ordered", "bpr.sample", "stripes.launch",
+        if s.name in ("sgd.step", "bpr.sample", "stripes.launch",
                       "stripes.schedule"):
             assert s.parent == epoch
+        if s.name == "scatter.ordered":
+            assert s.parent == ("sgd.step" if method == "sgd" else epoch)
 
 
 def test_a_request_counts_four_card_syncs():
