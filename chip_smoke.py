@@ -46,6 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       JAX script over every user through the fused top-N kernel (launches
       against the plan), that kernel held against topk_plain on
       Z_HELD_USERS users, and each phase's wall;
+      ``python3 chip_smoke.py --stripes`` runs (a), the stripe source's
+      build, (c), (d), (w), (n), (e) and (z): every path of the stripe
+      kernel's ``StripeTiles``;
   (f) top-N kernel vs plain: csrc/topk.cu against topk_plain on the same
       CUDA tensors at k = 32, 64, 128 and n = 1, 10, 100, 127, 128, 129,
       1000 (the fused route up to FUSED_MAX_N = 128, here with catalog
@@ -430,10 +433,27 @@ def _tiles(kind: str, NU: int, bu: int, ni: int, gen: torch.Generator,
     return R.to(dev), W.to(dev), None
 
 
+def _stripe_epoch(u3, i_tab, order, lr, R, W, r_scale, cn, mm, ranks=None):
+    """One stripe epoch of freshly staged StripeTiles at REG on copies of
+    the tables; ``ranks`` (Lu, Li, C, u) as _ranks gives them, or None."""
+    tiles = drk.StripeTiles(R, W, r_scale, u3.shape[2], REG, REG, cn, mm,
+                            ranks=None if ranks is None else ranks[:2],
+                            pois_cdf=None if ranks is None else ranks[2])
+    return tiles.rows_epoch(u3.clone(), i_tab.clone(), order, lr,
+                            None if ranks is None else ranks[3])
+
+
+def _restaged(tiles, mm_bf16: bool):
+    """``tiles`` staged again with the products in the other precision."""
+    return drk.StripeTiles(tiles.R, tiles.W, tiles.r_scale, tiles.k,
+                           tiles.u_reg, tiles.i_reg, tiles.collision_norm,
+                           mm_bf16, NI=tiles.NI, ranks=tiles.ranks,
+                           pois_cdf=tiles.pois_cdf)
+
+
 def _epoch_pair(u3, i_tab, order, lr, R, W, r_scale, cn, mm):
     """(kernel result, plain result) from the same inputs."""
-    uk, ik = drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R,
-                                  W, r_scale, REG, REG, cn, mm)
+    uk, ik = _stripe_epoch(u3, i_tab, order, lr, R, W, r_scale, cn, mm)
     up, ip = dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R, W,
                               REG, REG, cn, mm, r_scale=r_scale)
     return (uk, ik), (up, ip)
@@ -505,9 +525,9 @@ def phase_codes_vs_float(dev="cuda") -> int:
             scale = SCALE_BF16 if mm else SCALE_F32
             for cn in (True, False):
                 lr = LR if cn else LR / COUNT_PER_USER
-                run = lambda R, W_, r_scale: drk.dense_rows_epoch(
+                run = lambda R, W_, r_scale: _stripe_epoch(
                     scale * u3, scale * i_tab, order, lr, R, W_, r_scale,
-                    REG, REG, cn, mm)
+                    cn, mm)
                 want = run(codes, None, 0.5)
                 for rtype, (R, W_) in floats.items():
                     got = run(R, W_, None)
@@ -586,27 +606,33 @@ MASK_KINDS = ("f32+W", "bf16+W", "codes")
 
 def _ranks(NU: int, bu: int, ni: int, k: int, kind: str,
            gen: torch.Generator, dev, full: bool = False):
-    """(Lu [NU, bu], Li [ni], Q [NU, k]) int32: random lambdas in [1, k]
-    (all k when ``full``) with TMF's identity rank rows ("static") or one
-    Poisson CRN quantile row a visit ("poisson")."""
+    """(Lu [NU, bu], Li [ni], C, u): random int32 lambdas in [1, k] on
+    ``dev`` (all k when ``full``) with TMF's static ranks ("static": C and
+    u None) or TMF+Dropout's Poisson CDF table C [k, k] on ``dev`` and one
+    host uniform u a visit ("poisson")."""
     lo = k if full else 1
     Lu = torch.randint(lo, k + 1, (NU, bu), generator=gen, dtype=torch.int32)
     Li = torch.randint(lo, k + 1, (ni,), generator=gen, dtype=torch.int32)
     if kind == "static":
-        Q = identity_quantiles(NU, k)
-    else:
-        Q = visit_quantiles(torch.from_numpy(poisson_cdf_table(k)),
-                            torch.rand(NU, generator=gen))
-    return Lu.to(dev), Li.to(dev), Q.to(dev)
+        return Lu.to(dev), Li.to(dev), None, None
+    return (Lu.to(dev), Li.to(dev),
+            torch.from_numpy(poisson_cdf_table(k)).to(dev),
+            torch.rand(NU, generator=gen))
+
+
+def _visit_q(ranks, NU: int, k: int):
+    """The plain version's Q of _ranks' ``ranks``: a row a visit."""
+    C, u = ranks[2:]
+    return (identity_quantiles(NU, k, ranks[0].device) if C is None
+            else visit_quantiles(C, u))
 
 
 def _masked_pair(u3, i_tab, order, lr, R, W, r_scale, cn, mm, ranks):
     """(kernel result, plain result) of one masked epoch."""
-    got = drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
-                               r_scale, REG, REG, cn, mm, ranks=ranks)
-    Lu, Li, Q = ranks
+    got = _stripe_epoch(u3, i_tab, order, lr, R, W, r_scale, cn, mm, ranks)
     want = dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R, W, REG,
-                            REG, cn, mm, r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
+                            REG, cn, mm, r_scale=r_scale, Lu3=ranks[0],
+                            Li=ranks[1], Q=_visit_q(ranks, *u3.shape[::2]))
     return got, want
 
 
@@ -685,9 +711,9 @@ def phase_masked_vs_plain(dev="cuda") -> dict:
             scale = SCALE_BF16 if mm else SCALE_F32
             for cn in (True, False):
                 lr = LR if cn else LR / COUNT_PER_USER
-                run = lambda R, W_, r_scale: drk.dense_rows_epoch(
+                run = lambda R, W_, r_scale: _stripe_epoch(
                     scale * u3, scale * i_tab, order, lr, R, W_, r_scale,
-                    REG, REG, cn, mm, ranks=ranks)
+                    cn, mm, ranks)
                 want = run(codes, None, 0.5)
                 for rtype in (torch.float32, torch.bfloat16):
                     got = run((codes.float() * 0.5).to(rtype), W8, None)
@@ -707,12 +733,12 @@ def phase_masked_vs_plain(dev="cuda") -> dict:
             order = torch.randperm(NU, generator=gen)
             for full in (True, False):
                 ranks = _ranks(NU, bu, ni, k, "static", gen, dev, full=full)
-                if not full:
-                    ranks = (*ranks[:2], torch.full_like(ranks[2], k))
+                if not full:    # rows of k: a CDF table of zeros at U = 1
+                    ranks = (*ranks[:2], torch.zeros((k, k), device=dev),
+                             torch.ones(NU))
                 for mm in (True, False):
-                    run = lambda rk: drk.dense_rows_epoch(
-                        u3.clone(), i_tab.clone(), order, LR, R, W, r_scale,
-                        REG, REG, True, mm, ranks=rk)
+                    run = lambda rk: _stripe_epoch(
+                        u3, i_tab, order, LR, R, W, r_scale, True, mm, rk)
                     same = all(torch.equal(x, y)
                                for x, y in zip(run(ranks), run(None)))
                     cases += 1
@@ -735,14 +761,21 @@ def _cell_rounds(NU: int, NI: int, epochs: int, gen: torch.Generator):
                       for _ in range(epochs)])
 
 
+def _cells_epoch(u3, i3, ub_idx, lr, R, W, r_scale, cn, mm):
+    """One cell-grid epoch of freshly staged StripeTiles at REG on copies
+    of the tables."""
+    tiles = drk.StripeTiles(R, W, r_scale, u3.shape[2], REG, REG, cn, mm,
+                            NI=i3.shape[0])
+    return tiles.cells_epoch(u3.clone(), i3.clone(), ub_idx, lr)
+
+
 def _cell_pair(u3, i3, ub_idx, lr, R, W, r_scale, cn, mm):
     """(kernel result, plain result) of the cell grid on the same inputs;
     the kernel's launches checked against its plan (a panel and a step
     launch a round with a live cell, + the bf16 copy of U)."""
-    before = drk.dense_cells_epoch.launches
-    kern = drk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, lr, R, W,
-                                 r_scale, REG, REG, cn, mm)
-    assert drk.dense_cells_epoch.launches - before == \
+    before = drk.StripeTiles.launches
+    kern = _cells_epoch(u3, i3, ub_idx, lr, R, W, r_scale, cn, mm)
+    assert drk.StripeTiles.launches - before == \
         drk.cells_plan(ub_idx, u3.shape[0], u3.shape[2], mm)["launches"]
     plain = dense_sweep_diag(u3.clone(), i3.clone(), ub_idx, lr, R, W, REG,
                              REG, cn, mm, r_scale=r_scale)
@@ -760,7 +793,8 @@ def _cell_tiles(kind, n_cells, bu, bi, gen, dev):
 
 def phase_cells_vs_plain(dev="cuda") -> dict:
     """(c), cell grid: the cell-grid entry of the stripe source
-    (dense_cells_epoch) against dense_sweep_diag on the same CUDA tensors.
+    (StripeTiles.cells_epoch) against dense_sweep_diag on the same CUDA
+    tensors.
     (1) 4 user blocks of 376 on 3 lanes, one epoch's rounds (dummy lanes;
     each user block back on every lane, so a stale bf16 copy of U would
     show; each further epoch would compound the bf16 rounding flips the
@@ -834,9 +868,9 @@ def phase_cells_vs_plain(dev="cuda") -> dict:
             scale = SCALE_BF16 if mm else SCALE_F32
             for cn in (True, False):
                 lr = LR if cn else LR / (0.05 * 384)
-                run = lambda R, W_, r_scale: drk.dense_cells_epoch(
-                    scale * u3, scale * i3, ub_idx, lr, R, W_, r_scale,
-                    REG, REG, cn, mm)
+                run = lambda R, W_, r_scale: _cells_epoch(
+                    scale * u3, scale * i3, ub_idx, lr, R, W_, r_scale, cn,
+                    mm)
                 want = run(codes, None, 0.5)
                 for rtype in (torch.float32, torch.bfloat16):
                     got = run((codes.float() * 0.5).to(rtype), W8, None)
@@ -854,37 +888,34 @@ def phase_cells_vs_plain(dev="cuda") -> dict:
 
 
 def _check_and_time(tag: str, solver, state, lr: float, reps: int = 2,
-                    mm_bf16=None, order=None, ranks=None):
+                    mm_bf16=None, order=None, round_u=None):
     """One epoch from ``state`` on the solver's staged tiles, through the
     kernel and through the plain version, held together at RTOL / ATOL; the
     kernel's epoch run twice must give bit-identical factors (fixed-point
     gradient sums); then ms per epoch of each, alternating plain, kernel,
     kernel, plain,
     CUDA-event timed; in the solver's matmul precision unless ``mm_bf16``
-    says otherwise; in ``order`` (default: a fixed random one) and with the
-    rank masks ``ranks`` (Lu, Li, Q) where given. Returns (max abs error,
-    kernel ms, plain ms)."""
-    mm = solver.mm_bf16 if mm_bf16 is None else mm_bf16
+    says otherwise (the tiles staged again); in ``order`` (default: a fixed
+    random one) and with TMF+Dropout's visit uniforms ``round_u`` where
+    its ranks are drawn. Returns (max abs error, kernel ms, plain ms)."""
+    tiles = solver.tiles
+    if mm_bf16 is not None and mm_bf16 != tiles.mm_bf16:
+        tiles = _restaged(tiles, mm_bf16)
     u3, i_tab = solver.stage_factors(state)
     if order is None:
         order = torch.randperm(solver.NU, generator=torch.Generator()
                                .manual_seed(1))
-    args = (solver.R_rows, solver.W_rows)
-    p = solver.params
-    Lu, Li, Q = ranks if ranks is not None else (None, None, None)
+    Lu, Li, Q = tiles.visit_ranks(round_u) or (None, None, None)
 
     def kernel():
-        return drk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr,
-                                    *args, solver.r_scale, p.u_reg, p.i_reg,
-                                    solver.collision_norm, mm,
-                                    counts=solver.counts, ranks=ranks,
-                                    hists=solver.hists if ranks else None)
+        return tiles.rows_epoch(u3.clone(), i_tab.clone(), order, lr,
+                                round_u)
 
     def plain():
-        return dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, *args,
-                                p.u_reg, p.i_reg, solver.collision_norm,
-                                mm, r_scale=solver.r_scale, Lu3=Lu, Li=Li,
-                                Q=Q)
+        return dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr,
+                                tiles.R, tiles.W, tiles.u_reg, tiles.i_reg,
+                                tiles.collision_norm, tiles.mm_bf16,
+                                r_scale=tiles.r_scale, Lu3=Lu, Li=Li, Q=Q)
 
     a, r, ratio = _errors(kernel(), plain())
     log(f"({tag}) first epoch replayed on the staged tiles, kernel vs "
@@ -923,8 +954,8 @@ def stripe_bound(solver, ranks=None):
     f32 CUDA-core peak without mm_bf16)."""
     k = solver.params.fac_dim
     slots = solver.NU * solver.bu * solver.n_items_pad
-    nbytes = (solver.R_rows.nbytes
-              + (0 if solver.W_rows is None else solver.W_rows.nbytes)
+    nbytes = (solver.tiles.R.nbytes
+              + (0 if solver.tiles.W is None else solver.tiles.W.nbytes)
               + 2 * 4 * k * (solver.NU * solver.bu + solver.n_items_pad)
               + (0 if ranks is None else sum(t.nbytes for t in ranks)))
     return _bound(nbytes, 6.0 * slots * k,
@@ -959,32 +990,32 @@ def stripe_library_ms(solver) -> float:
 
 def phase_main_path(tag: str, data: Data, params: Params, tiles: str,
                     dev="cuda", algo: str = "mf"):
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     t0 = time.perf_counter()
     rep, model, ev, _ = train_model(data, params, algo=algo,
                                     mf_method="densesgd", device=dev,
                                     log_fn=lambda s: log(f"({tag}) {s}"))
     wall = time.perf_counter() - t0
-    launches = drk.dense_rows_epoch.launches
+    launches = drk.StripeTiles.launches
     solver = rep.solver
+    R, W = solver.tiles.R, solver.tiles.W
     log(f"({tag}) {algo}: staged NU={solver.NU} bu={solver.bu} ni_pad="
-        f"{solver.n_items_pad} R={solver.R_rows.dtype} W="
-        f"{None if solver.W_rows is None else solver.W_rows.dtype} "
+        f"{solver.n_items_pad} R={R.dtype} W="
+        f"{None if W is None else W.dtype} "
         f"r_scale={solver.r_scale} nnz={solver.nnz}; train_model wall "
         f"{wall:.1f} s; stop={rep.stop_reason}")
     if tiles == "codes":
-        assert solver.W_rows is None and solver.r_scale == 0.5, \
+        assert W is None and solver.r_scale == 0.5, \
             "star ratings should stage int8 code tiles"
     else:
         r, w = tiles.split("+")
         rtype = {"f32": torch.float32, "bf16": torch.bfloat16}[r]
         wtype = {"W": torch.int8, "fW": torch.float32,
                  "bfW": torch.bfloat16}[w]
-        assert solver.W_rows is not None and \
-            (solver.R_rows.dtype, solver.W_rows.dtype) == (rtype, wtype), \
+        assert W is not None and (R.dtype, W.dtype) == (rtype, wtype), \
             f"this shape should stage {tiles} tiles"
     if algo == "ifwmf":
-        w = solver.W_rows[solver.W_rows > 0]
+        w = W[W > 0]
         log(f"({tag}) ifwmf weights on the tiles: min {float(w.min())!r} "
             f"max {float(w.max())!r}")
         assert float(w.min()) < 1.0
@@ -1090,8 +1121,8 @@ def cells_bound(solver):
     bf16 tensor cores (the f32 CUDA-core peak without mm_bf16)."""
     k = solver.params.fac_dim
     slots = solver.NU * solver.NI * solver.bu * solver.bi
-    per_slot = solver.R_cells.element_size() + (
-        0 if solver.W_cells is None else solver.W_cells.element_size())
+    per_slot = solver.tiles.R.element_size() + (
+        0 if solver.tiles.W is None else solver.tiles.W.element_size())
     nbytes = (slots * per_slot
               + 2 * 4 * k * (solver.n_users_pad + solver.n_items_pad))
     return _bound(nbytes, 6.0 * slots * k,
@@ -1139,7 +1170,7 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
                             device=dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
-    R, W = solver.R_cells, solver.W_cells
+    R, W = solver.tiles.R, solver.tiles.W
     tiles_gb = (R.nbytes + W.nbytes) / 1e9
     log(f"(w) staged the diag cell grid: NU={solver.NU} NI={solver.NI} "
         f"bu={solver.bu} bi={solver.bi} tiles {tuple(R.shape)} R={R.dtype} "
@@ -1150,19 +1181,17 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
         torch.int8)
     assert int(W.sum(dtype=torch.int64)) == solver.nnz
     s0 = init_state(params, n, m, device=dev)
-    drk.dense_cells_epoch.launches = 0
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     t0 = time.perf_counter()
     rep = TrainLoop(model, solver, ev, params,
                     log_fn=lambda s: log(f"(w) {s}")).run(s0)
     wall = time.perf_counter() - t0
-    launches = drk.dense_cells_epoch.launches
+    launches = drk.StripeTiles.launches
     visits = solver.NU * solver.NI
     rounds = -(-solver.NU // solver.NI) * solver.NI
     want = W_EPOCHS * drk.epoch_launches(rounds, k, solver.mm_bf16)
     assert want == W_EPOCHS * 81, want
-    assert (launches, drk.dense_rows_epoch.launches) == (want, 0), \
-        (launches, want)
+    assert launches == want, (launches, want)
     assert rep.stop_reason == "max_iter" and len(rep.history) == W_EPOCHS
     val0 = ev.rmse(model.eval_view(s0), "val")
     vals = [h.val_rmse for h in rep.history]
@@ -1181,11 +1210,13 @@ def phase_cell_grid(data: Data, dev="cuda") -> dict:
                                solver.NI, 1)[0]
     u3, i3 = solver.stage_factors(s0)
     p, lr = params, params.learn_rate
-    run = lambda R_, W_, r_scale, rounds=ub_idx, mm=solver.mm_bf16: \
-        drk.dense_cells_epoch(u3.clone(), i3.clone(), rounds, lr, R_, W_,
-                              r_scale, p.u_reg, p.i_reg,
-                              solver.collision_norm, mm,
-                              counts=solver.counts)
+    def run(R_, W_, r_scale, rounds=ub_idx, mm=solver.mm_bf16):
+        """An epoch of the tiles R_ / W_: the solver's staged object, or
+        the tiles staged afresh."""
+        tiles = solver.tiles if R_ is R and mm == solver.mm_bf16 else \
+            drk.StripeTiles(R_, W_, r_scale, k, p.u_reg, p.i_reg,
+                            solver.collision_norm, mm, NI=solver.NI)
+        return tiles.cells_epoch(u3.clone(), i3.clone(), rounds, lr)
     sweep = lambda rounds=ub_idx, mm=solver.mm_bf16: dense_sweep_diag(
         u3.clone(), i3.clone(), rounds, lr, R, W, p.u_reg, p.i_reg,
         solver.collision_norm, mm)
@@ -2632,24 +2663,25 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
         params = Params(**dict(params_kw, max_iter=2))
         k = params.fac_dim
         tag = f"{algo} k {k}"
-        drk.dense_rows_epoch.launches = 0
+        drk.StripeTiles.launches = 0
         t0 = time.perf_counter()
         rep, model, ev, _ = train_model(data, params, algo=algo,
                                         mf_method="densesgd", device=dev,
                                         log_fn=lambda s: log(f"(n) {s}"))
         wall = time.perf_counter() - t0
-        launches = drk.dense_rows_epoch.launches
+        launches = drk.StripeTiles.launches
         solver = rep.solver
         assert isinstance(solver, BlockSGDSolver) and \
             solver.engine == "dense", "densesgd should not fall back here"
+        st = solver.tiles
         if tiles == "codes":
-            assert solver.R_rows.dtype == torch.int8 and \
-                solver.W_rows is None and (solver.bu, solver.n_items_pad) \
-                == (2560, 26_752), "N_K128 stages the cell's code tiles"
+            assert st.R.dtype == torch.int8 and st.W is None and \
+                (solver.bu, solver.n_items_pad) == (2560, 26_752), \
+                "N_K128 stages the cell's code tiles"
         else:
-            assert (solver.R_rows.dtype, solver.W_rows.dtype) == (
+            assert (st.R.dtype, st.W.dtype) == (
                 torch.bfloat16, torch.int8), "(d)'s data stages bf16 R + W"
-        Lu, Li = solver.rank_tabs
+        Lu, Li = st.ranks
         order, round_u = solver.draw_schedule()
         ranks = solver.epoch_ranks(round_u)
         q = ranks[2]
@@ -2662,7 +2694,7 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
             f"{q[:, 0].min().item()}-{q[:, 0].max().item()} / "
             f"{q[:, k // 2 - 1].min().item()}-{q[:, k // 2 - 1].max().item()}"
             f" / {q[:, -1].min().item()}-{q[:, -1].max().item()}; "
-            f"hists {sum(h.nbytes for h in solver.hists or ()) / 1e6:.1f} MB; "
+            f"hists {sum(h.nbytes for h in st.hists or ()) / 1e6:.1f} MB; "
             f"train_model wall {wall:.1f} s")
         assert min(int(Lu.min()), int(Li.min())) < k, "trivial ranks"
         epochs = len(rep.history)
@@ -2679,18 +2711,18 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
             (vals, val0)
         err, k_ms, p_ms = _check_and_time(f"n, {tag}", solver, s0,
                                           params.learn_rate, order=order,
-                                          ranks=ranks)
+                                          round_u=round_u)
         u3, i_tab = solver.stage_factors(s0)
-        run = lambda rk: drk.dense_rows_epoch(
+        plain_tiles = drk.StripeTiles(
+            st.R, st.W, st.r_scale, k, st.u_reg, st.i_reg,
+            st.collision_norm, st.mm_bf16)
+        run = lambda masked: (st if masked else plain_tiles).rows_epoch(
             u3.clone(), i_tab.clone(), order, params.learn_rate,
-            solver.R_rows, solver.W_rows, solver.r_scale, params.u_reg,
-            params.i_reg, solver.collision_norm, solver.mm_bf16,
-            counts=solver.counts, ranks=rk,
-            hists=solver.hists if rk else None)
-        unmasked = _alternate(lambda: run(None), lambda: None)[0]
+            round_u if masked else None)
+        unmasked = _alternate(lambda: run(False), lambda: None)[0]
         names = ("u_bf16_kernel", "panel_kernel", "stripe_step_kernel")
-        split = {tag: _kernel_ms(lambda: run(rk), names)
-                 for tag, rk in (("masked", ranks), ("unmasked", None))}
+        split = {tag: _kernel_ms(lambda: run(masked), names)
+                 for tag, masked in (("masked", True), ("unmasked", False))}
         log(f"(n) {tag} device ms an epoch by kernel (torch.profiler): "
             + "; ".join(f"{tag} " + ", ".join(f"{nm} {ms:.3f}"
                                                for nm, ms in d.items())
@@ -2708,7 +2740,7 @@ def phase_longtail_dense(data: Data, dev="cuda") -> dict:
         if algo == "tmfdropout" and k == CELLS["d"][1]["fac_dim"]:
             out.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
                        bound_by=bound[1], library_ms=lib_ms)
-        del rep, solver, ev
+        del rep, solver, ev, st, plain_tiles
         torch.cuda.empty_cache()
     del data_k128
     return out
@@ -3181,7 +3213,7 @@ def _cli_run(tag: str, argv: list) -> dict:
     before and read just after; its printed lines logged. Returns what the
     run recorded, its counts, output, wall seconds, peak memory and its
     checkpoint writes (count, seconds)."""
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     tk.topk_catalog.launches = 0
     _zero_block_counts()
     torch.cuda.synchronize()
@@ -3192,7 +3224,7 @@ def _cli_run(tag: str, argv: list) -> dict:
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(stripe=drk.dense_rows_epoch.launches,
+    counts = dict(stripe=drk.StripeTiles.launches,
                   topk=tk.topk_catalog.launches,
                   diag=bsk.block_sgd_diag_epoch.launches,
                   row=bsk.block_sgd_epoch.launches,
@@ -3430,10 +3462,11 @@ def phase_cli(data: Data, dev="cuda", best_d=None) -> dict:
                 f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
             out["diag"] = [c["diag"], err]
         elif tag == "mf_headwt densesgd":
-            assert solver.engine == "dense" and \
-                solver.W_rows.dtype == torch.bfloat16, solver.W_rows.dtype
-            w = torch.unique(solver.W_rows[0]).float().tolist()
-            log(f"(u) {tag}: bf16 R {solver.R_rows.dtype}, weights of "
+            W = solver.tiles.W
+            assert solver.engine == "dense" and W.dtype == torch.bfloat16, \
+                W.dtype
+            w = torch.unique(W[0]).float().tolist()
+            log(f"(u) {tag}: bf16 R {solver.tiles.R.dtype}, weights of "
                 f"stripe 0 {w}")
             assert 0.80078125 in w and 1.0 in w, w
             want = params.max_iter * drk.epoch_launches(
@@ -4390,29 +4423,39 @@ def _y_mesh(dev, n=Y_SHARDS):
     return make_mesh((n,), ("u",), devices=[torch.device(dev)] * n)
 
 
-def _plain_rows(u3, i_tab, order, lr, R, W, r_scale, u_reg, i_reg, cn, mm,
-                counts=None):
-    """dense_rows_epoch's plain version, with its signature."""
-    return dense_sweep_rows(u3, i_tab, order, lr, R, W, u_reg, i_reg, cn,
-                            mm, r_scale=r_scale)
+class _PlainStripes:
+    """A shard-round's StripeTiles stand-in: its rows_epoch runs the plain
+    dense_sweep_rows on the same tiles, in the matmul precision ``mm``."""
+
+    def __init__(self, tiles, mm: bool):
+        self.t, self.mm = tiles, mm
+
+    def rows_epoch(self, u3, i_tab, order, lr, round_u=None):
+        t = self.t
+        return dense_sweep_rows(u3, i_tab, order, lr, t.R, t.W, t.u_reg,
+                                t.i_reg, t.collision_norm, self.mm,
+                                r_scale=t.r_scale)
 
 
 def _mesh_epoch(solver, state, lr, sched, plain=False, mm_bf16=None):
     """One epoch of a DenseBlockDSGDSolver from ``state`` on ``sched``,
     each shard-round through the kernel or its plain version, in the
-    solver's matmul precision or ``mm_bf16``; returns (u, i) copies. The
-    solver's resident tables are dropped first and after."""
-    mm, rows = solver.mm_bf16, bdsgd.dense_rows_epoch
-    solver.mm_bf16 = mm if mm_bf16 is None else mm_bf16
+    solver's matmul precision or ``mm_bf16`` (the kernel's tiles staged
+    again); returns (u, i) copies. The solver's resident tables are
+    dropped first and after."""
+    stripes = solver.stripes
+    mm = solver.mm_bf16 if mm_bf16 is None else mm_bf16
     if plain:
-        bdsgd.dense_rows_epoch = _plain_rows
+        solver.stripes = [[_PlainStripes(t, mm) for t in row]
+                          for row in stripes]
+    elif mm != solver.mm_bf16:
+        solver.stripes = [[_restaged(t, mm) for t in row] for row in stripes]
     solver._resident = None
     try:
         out = solver.epoch_with(state, lr, sched)
         return out.u_fac.clone(), out.i_fac.clone()
     finally:
-        bdsgd.dense_rows_epoch = rows
-        solver.mm_bf16 = mm
+        solver.stripes = stripes
         solver._resident = None
 
 
@@ -4439,13 +4482,11 @@ def _dense_round_vs_plain(tag, solver, s0, params) -> float:
     u_blk, i_blk = solver.stage_factors(s0)
     order = torch.randperm(solver.SU, generator=torch.Generator()
                            .manual_seed(1))
-    R, W = solver.tiles(0, 0)
+    tiles = solver.stripes[0][0]
+    R, W = tiles.R, tiles.W
     U0 = u_blk[0].view(solver.SU, solver.sub_bu, k)
-    kern = lambda: drk.dense_rows_epoch(
-        U0.clone(), i_blk[0].clone(), order, p.learn_rate, R, W,
-        solver.r_scale, p.u_reg, p.i_reg, solver.collision_norm,
-        solver.mm_bf16,
-        counts=None if solver.counts is None else solver.counts[0][0])
+    kern = lambda: tiles.rows_epoch(U0.clone(), i_blk[0].clone(), order,
+                                    p.learn_rate)
     plain = lambda: dense_sweep_rows(
         U0.clone(), i_blk[0].clone(), order, p.learn_rate, R, W, p.u_reg,
         p.i_reg, solver.collision_norm, solver.mm_bf16,
@@ -4494,13 +4535,13 @@ def _y_dense(data, dev):
     the kernel's epoch twice bit-identical; epoch ms, idle share, bound."""
     params = Params(**Y_PARAMS)
     mesh = _y_mesh(dev)
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     t0 = time.perf_counter()
     rep, model, ev, inval = train_model(
         data, params, algo="mf", mf_method="densesgd", mesh=mesh,
         log_fn=lambda s: log(f"(y) {s}"))
     wall = time.perf_counter() - t0
-    launches = drk.dense_rows_epoch.launches
+    launches = drk.StripeTiles.launches
     solver = rep.solver
     N, k = solver.n_shards, params.fac_dim
     log(f"(y) densesgd on {N} shards of {mesh.home()}: SU={solver.SU} "
@@ -4639,11 +4680,11 @@ def mesh_worker(port: int, rank: int, out_dir: str, dev: str) -> int:
         mesh)
     assert solver.local_blocks == [2 * rank, 2 * rank + 1]
     s0 = init_state(params, data.n_users, data.n_items, device=dev)
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     st = solver.epoch(s0, params.learn_rate)
     if dev != "cpu":
         torch.cuda.synchronize()
-        assert drk.dense_rows_epoch.launches == Y_SHARDS * 2 * \
+        assert drk.StripeTiles.launches == Y_SHARDS * 2 * \
             drk.epoch_launches(solver.SU, params.fac_dim, solver.mm_bf16)
     if rank == 0:
         np.savez(os.path.join(out_dir, "two_process.npz"),
@@ -4772,10 +4813,10 @@ def _y_codes(data, dev):
                                             mesh, dense_codes=codes)
         assert (solver.W_tiles is None) == (codes == "codes")
         sched = solver.draw_schedule()
-        drk.dense_rows_epoch.launches = 0
+        drk.StripeTiles.launches = 0
         st = solver.epoch_with(s0, params.learn_rate, sched)
         out[codes] = (st.u_fac.clone(), st.i_fac.clone(),
-                      drk.dense_rows_epoch.launches)
+                      drk.StripeTiles.launches)
         del solver, st
         torch.cuda.empty_cache()
     same = all(torch.equal(x, y) for x, y in zip(out["codes"][:2],
@@ -4941,12 +4982,12 @@ def _y_scaling(dev) -> dict:
     {kernel: (launches, max abs error)}."""
     sc = _load_script("torch_scaling_curve")
     t0 = time.perf_counter()
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     _zero_block_counts()
     rows = sc.run(phase_split=True, shards=Y_CURVE_SHARDS, dev=dev,
                   epochs=Y_CURVE_EPOCHS, log=lambda s: log(f"(y) {s}"))
     torch.cuda.synchronize()
-    stripe = drk.dense_rows_epoch.launches
+    stripe = drk.StripeTiles.launches
     (n_row, n_diag, n_cell), _ = _block_counts()
     for line in sc.table(rows, True).splitlines():
         log(f"(y) {line}")
@@ -5025,13 +5066,13 @@ def phase_flagship(flag, data: Data, dev="cuda") -> dict:
     params = flag.flagship_params(64, Z_MAX_ITER, Z_SAVE_ITER)
     prefix = os.path.join(RUN_DIR, "flagship", "ml20m_k64")
     n, m = data.n_users, data.n_items
-    drk.dense_rows_epoch.launches = 0
+    drk.StripeTiles.launches = 0
     tk.topk_catalog.launches = 0
     torch.cuda.synchronize()
     out = flag.run_k(data, params, prefix, dev, hr=True,
                      log=lambda s: log(f"(z) {s}"))
     torch.cuda.synchronize()
-    stripe, topk = drk.dense_rows_epoch.launches, tk.topk_catalog.launches
+    stripe, topk = drk.StripeTiles.launches, tk.topk_catalog.launches
     rep, model, ev, walls = out["rep"], out["model"], out["ev"], \
         out["walls"]
     solver = rep.solver
@@ -5039,7 +5080,7 @@ def phase_flagship(flag, data: Data, dev="cuda") -> dict:
     epochs = walls["n_epochs"]
     want_stripe = epochs * drk.epoch_launches(solver.NU, 64, solver.mm_bf16)
     want_topk = 2 * tk.pass_launches(n, m, 10)
-    ok = (solver.R_rows.dtype == torch.int8 and rep.stop_reason
+    ok = (solver.tiles.R.dtype == torch.int8 and rep.stop_reason
           and rep.best_iter >= 0 and rep.best_metric == min(vals)
           and np.isfinite(vals).all()
           and epochs == Z_MAX_ITER and stripe == want_stripe
@@ -5049,7 +5090,7 @@ def phase_flagship(flag, data: Data, dev="cuda") -> dict:
         f"best epoch {rep.best_iter}, val per logged epoch {vals!r}, best "
         f"{rep.best_metric!r}, test {out['test']!r}; {out['n_ckpt']} "
         f"checkpoint files; stripe launches {stripe} (plan {want_stripe}, "
-        f"R {solver.R_rows.dtype}), top-N launches {topk} (plan "
+        f"R {solver.tiles.R.dtype}), top-N launches {topk} (plan "
         f"{want_topk}); HR@10 {out['hr10']!r}; walls {walls} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -5147,6 +5188,44 @@ def sgd_step_main() -> int:
     print(json.dumps({"kernels": [_ss_entry(ss, o)],
                       "ordered_scatter_launches": o["scatters"]}),
           flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def stripes_main() -> int:
+    """``--stripes``: phases (a), the build of the stripe source, (c), (d),
+    (w), (e), (z) and (n): every path of ``StripeTiles``; prints the
+    phases' kernel numbers and the device."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    phase_env()
+    drk.library()
+    log(f"(b) build + load of {SOURCE}: "
+        f"{time.perf_counter() - t_start:.2f} s")
+    out = dict(kernel=phase_kernel_vs_plain(), exact=phase_bf16_rounding(),
+               masked=phase_masked_vs_plain(),
+               cells=phase_cells_vs_plain()[0])
+    phase_codes_vs_float()
+    data_d = bench_data(**CELLS["d"][0])
+    out["d"] = run_cell("d", data_d)
+    out["w"] = phase_cell_grid(data_d)
+    out["n"] = phase_longtail_dense(data_d)
+    del data_d
+    flag = _load_script("torch_ml20m_flagship")
+    data_e = flag.make_data()
+    out["e"] = run_cell("e", data_e)
+    out["z"] = phase_flagship(flag, data_e)
+    for tag in ("d", "e"):
+        out[tag] = {key: v for key, v in out[tag].items()
+                    if key in ("launches", "max_abs_err", "ms", "plain_ms")}
+    log(f"chip_smoke --stripes: every phase in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(out, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5354,4 +5433,6 @@ if __name__ == "__main__":
         sys.exit(ordered_scatter_main())
     if sys.argv[1:2] == ["--sgd-step"]:
         sys.exit(sgd_step_main())
+    if sys.argv[1:2] == ["--stripes"]:
+        sys.exit(stripes_main())
     sys.exit(main())

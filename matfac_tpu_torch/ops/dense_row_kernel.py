@@ -10,32 +10,38 @@ table of the codes kernel (the port keeps f32 tables, as JAX's default XLA
 path does), the panel-major relayout and the sequential grid — they were
 TPU VMEM and DMA workarounds.
 
-``dense_rows_epoch`` takes the tensors' device as the route: a CPU tensor
-runs the plain ``dense_sweep_rows``; a CUDA tensor launches the kernel or
-raises. One C call runs the epoch's stripes in order, each a round of one
-cell (``stripe_cells`` puts the order on the device once an epoch);
-``dense_rows_epoch.launches`` counts kernel launches: two per stripe (the
-panel kernel and the step kernel, which steps the items and the stripe's
-users), plus one an epoch for the bf16 copy of U when the products run on
-the tensor cores (``epoch_launches``).
-The validity counts the kernels read depend on the tiles alone: the
-solver computes them once at staging (``stripe_counts``) and passes them;
-a caller that passes none has them computed on each call.
+``StripeTiles`` holds one staged set of tiles and everything the kernel
+reads that no epoch changes, made and checked once when it is built: the
+tiles, their validity counts (``stripe_counts``), the scratch and, for
+rank masks, the rank tables and their suffix histograms (``rank_hists``).
+The tiles' device is the route: on the CPU it stages nothing and runs the
+plain ``dense_sweep_rows`` / ``dense_sweep_diag``; on a CUDA device a
+tile type the kernel does not take raises when it is built. An epoch
+takes only what changes (the tables, the order, ``lr`` and TMF+Dropout's
+uniforms), checks them on the host and, on the card, makes one
+host-to-device copy (the order, with the uniforms) and no card sync,
+enqueued on the current stream: the device buffers are staged once and
+reused in stream order. ``StripeTiles.launches`` counts kernel launches:
+two a round (the panel kernel and the step kernel, which steps the
+items and the round's users), plus one an epoch for the bf16 copy of U
+when the products run on the tensor cores (``epoch_launches``).
 
-Rank masks (TMF, TMF+Dropout) come as ``ranks=(Lu, Li, Q)``: int32
-lambda (or rank) tables of the stripes' users [NU, bu] and of the items
-[ni_pad], and a per-visit rank table Q [NU, k] whose row t ranks the
-lambdas at the t-th stripe of ``row_order`` (``identity_quantiles`` for
-static ranks, ``visit_quantiles`` for Poisson draws). The kernel reads the
-masked regularization counts from suffix histograms of the tiles'
-lambdas, ``rank_hists``, which the solver stages once beside the counts.
-The masks are instantiated for int8 codes and int8 validity W only, the
-tiles of the 0/1-weight models that carry them. The rank checks and, on
-the card, the rank rows put in stripe order run in the span
-``stripes.ranks``.
+``rows_epoch`` runs the row stripes: one C call runs the epoch's stripes
+in order, each a round of one cell (``stripe_cells``). Rank masks (TMF,
+TMF+Dropout) come as ``ranks=(Lu, Li)``: int32 lambda (or rank) tables
+of the stripes' users [NU, bu] and of the items [ni_pad], in [1, k], with
+``pois_cdf``, TMF+Dropout's Poisson CDF table [k, k], from which each
+visit's rank row is drawn at its uniform (``visit_quantiles``), or None
+for static ranks (``identity_quantiles``). A table whose columns do not
+increase down its rows makes every rank row nondecreasing in lambda and
+in [1, k], which the kernel's lookup of its masked regularization counts
+in the histograms needs: both are checked when the object is built, so
+no epoch checks a rank. The masks are instantiated for int8 codes and
+int8 validity W only, the tiles of the 0/1-weight models that carry
+them. An epoch's rank draw runs in the span ``stripes.ranks``.
 
-``dense_cells_epoch`` is the same kernel's cell-grid entry, the port of
-the JAX dense engine's diag cell grid (``dense_sweep_diag``, which XLA
+``cells_epoch`` is the same kernel's cell-grid entry, the port of the
+JAX dense engine's diag cell grid (``dense_sweep_diag``, which XLA
 computes there): DSGD rounds of [bu, bi] cells, one panel launch over all
 of a round's live cells and one step launch over their rows (the step
 also refreshes the blocks' bf16 U rows), plus the bf16 copy of U once an
@@ -54,10 +60,10 @@ import torch
 
 from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops.dense_block_kernel import (dense_sweep_diag,
-                                                    dense_sweep_rows)
+                                                    dense_sweep_rows,
+                                                    identity_quantiles,
+                                                    visit_quantiles)
 from matfac_tpu_torch.train.profiler import span
-
-Ranks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 KERNELS_PER_STRIPE = 2     # panel kernel + step kernel
 _RTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -123,7 +129,7 @@ def stripe_cells(row_order: torch.Tensor, device) -> torch.Tensor:
 
 
 def cells_plan(ub_idx: torch.Tensor, NU: int, k: int, mm_bf16: bool) -> dict:
-    """How ``dense_cells_epoch`` runs the rounds ub_idx [R, NI] on the card:
+    """How ``cells_epoch`` runs the rounds ub_idx [R, NI] on the card:
     ``cells`` int32 [n_live, 2], the (lane, user block) pairs of every
     round, lanes ascending, a dummy lane (user block NU) left out as
     ``dense_sweep_diag`` skips it; ``counts`` int32 [R], each round's live
@@ -186,259 +192,269 @@ def rank_hists(R_rows: torch.Tensor, W_rows: Optional[torch.Tensor],
     return hist_u, hist_i
 
 
-def _check_ranks(ranks, NU, bu, ni_pad, k, dev):
-    Lu, Li, Q = ranks
-    if (tuple(Lu.shape), tuple(Li.shape), tuple(Q.shape)) != (
-            (NU, bu), (ni_pad,), (NU, k)):
-        raise ValueError(f"ranks must be Lu [{NU}, {bu}], Li [{ni_pad}] and "
-                         f"Q [{NU}, {k}]")
-    if any(t.dtype != torch.int32 or t.device != dev for t in ranks):
-        raise ValueError(f"ranks must be int32 tensors on {dev}")
-    # the kernel's masked counts need rank rows nondecreasing in lambda
-    ok = ((Q[:, 1:] >= Q[:, :-1]).all() & (Q >= 1).all() & (Q <= k).all()
-          & (Lu >= 1).all() & (Lu <= k).all() & (Li >= 1).all()
-          & (Li <= k).all())
-    if not bool(ok):
-        raise ValueError(f"ranks: Lu, Li and Q must lie in [1, {k}] and each "
-                         "row of Q must be nondecreasing")
+def _host_ints(t, name: str, dims: int) -> torch.Tensor:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cpu" or \
+            t.dim() != dims or t.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name} must be a {dims}-D int32 or int64 host "
+                         "tensor")
+    return t
 
 
-def _check_tiles(R, W, r_scale, tabs):
-    if W is None:
-        if R.dtype != torch.int8 or r_scale is None:
-            raise ValueError("W=None means int8 rating codes in R with an "
-                             "r_scale")
-    elif W.shape != R.shape:
-        raise ValueError("W tiles must have R's shape")
-    tabs = tabs + [R] + ([] if W is None else [W])
-    if any(t.device != tabs[0].device for t in tabs):
-        raise ValueError("factor tables and tiles must share a device")
-    if any(not t.is_contiguous() for t in tabs):
-        raise ValueError("factor tables and tiles must be contiguous")
-    if tabs[0].dtype != torch.float32 or tabs[1].dtype != torch.float32:
-        raise ValueError("factor tables must be float32")
+class StripeTiles:
+    """One staged set of the kernel's tiles (see the module docstring).
 
+    R [n, bu, width]: f32/bf16 ratings with int8, bf16 or f32 weights W,
+    or int8 codes with W=None and ``r_scale``. ``NI`` None: the row
+    stripes, n = NU and width the padded catalog; else the diag cell grid
+    in cell-major order, n = NU * NI + 1 (cell ub * NI + lane, the
+    all-invalid dummy cell last) and width bi. ``k``: the factor tables'
+    width. ``ranks`` (Lu, Li) and ``pois_cdf``: the rank masks of the row
+    stripes."""
 
-def _check_kernel_tiles(R, W, dev):
-    """The tile types the CUDA kernel is instantiated for; (rtype, wtype)."""
-    if dev.type != "cuda":
-        raise ValueError(f"no route for device {dev}")
-    if R.dtype not in _RTYPES or (
-            W is not None and (W.dtype not in _WTYPES
-                               or R.dtype == torch.int8)):
-        raise ValueError("the CUDA kernel takes f32/bf16 R with int8, bf16 "
-                         "or f32 W, or int8 codes without W")
-    return _RTYPES[R.dtype], 0 if W is None else _WTYPES[W.dtype]
+    launches = 0    # kernel launches of every object's epochs
 
+    def __init__(self, R: torch.Tensor, W: Optional[torch.Tensor],
+                 r_scale: Optional[float], k: int, u_reg: float,
+                 i_reg: float, collision_norm: bool, mm_bf16: bool,
+                 NI: Optional[int] = None,
+                 ranks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 pois_cdf: Optional[torch.Tensor] = None):
+        if R.dim() != 3:
+            raise ValueError("tiles must be [n_tiles, bu, width]")
+        if W is None:
+            if R.dtype != torch.int8 or r_scale is None:
+                raise ValueError("W=None means int8 rating codes in R with "
+                                 "an r_scale")
+        elif W.shape != R.shape:
+            raise ValueError("W tiles must have R's shape")
+        if any(t is not None and (t.device != R.device
+                                  or not t.is_contiguous())
+               for t in (R, W, pois_cdf, *(ranks or ()))):
+            raise ValueError("tiles and rank tables must be contiguous and "
+                             "on one device")
+        n, self.bu, self.width = R.shape
+        if NI is not None and (n < NI + 1 or (n - 1) % NI):
+            raise ValueError(f"cell tiles must be [NU * {NI} + 1, bu, bi], "
+                             f"not {tuple(R.shape)}")
+        self.NU = n if NI is None else (n - 1) // NI
+        self.R, self.W, self.r_scale, self.NI = R, W, r_scale, NI
+        self.k, self.u_reg, self.i_reg = int(k), float(u_reg), float(i_reg)
+        self.collision_norm, self.mm_bf16 = bool(collision_norm), \
+            bool(mm_bf16)
+        self.ranks, self.pois_cdf = ranks, pois_cdf
+        if ranks is not None or pois_cdf is not None:
+            self._check_ranks()
+        self.device = R.device
+        self.counts = self.hists = None
+        if self.device.type == "cuda":
+            self._stage()
+        elif self.device.type != "cpu":
+            raise ValueError(f"no route for device {self.device}")
 
-def _check_counts(counts, shapes, dev):
-    if tuple(tuple(c.shape) for c in counts) != shapes or any(
-            c.dtype != torch.float32 or c.device != dev
-            or not c.is_contiguous() for c in counts):
-        raise ValueError(f"counts must be contiguous f32 {shapes[0]} and "
-                         f"{shapes[1]} on {dev}")
+    @staticmethod
+    def hist_bytes(NU: int, bu: int, width: int, k: int, device) -> int:
+        """Bytes of the rank histograms a masked object stages on
+        ``device``: int32 [NU, bu, k] and int16 [NU, width, k] on a CUDA
+        device, none on the CPU."""
+        return NU * k * (4 * bu + 2 * width) \
+            if torch.device(device).type == "cuda" else 0
 
+    def _check_ranks(self) -> None:
+        NU, k = self.NU, self.k
+        if self.NI is not None or self.ranks is None:
+            raise ValueError("rank masks take (Lu, Li) on the row stripes")
+        Lu, Li = self.ranks
+        if (tuple(Lu.shape), tuple(Li.shape)) != ((NU, self.bu),
+                                                  (self.width,)) \
+                or Lu.dtype != torch.int32 or Li.dtype != torch.int32:
+            raise ValueError(f"ranks must be int32 Lu [{NU}, {self.bu}] and "
+                             f"Li [{self.width}]")
+        if not bool((Lu >= 1).all() & (Lu <= k).all() & (Li >= 1).all()
+                    & (Li <= k).all()):
+            raise ValueError(f"ranks: Lu and Li must lie in [1, {k}]")
+        # every visit's rank row clip(#{m : C[lam - 1, m] < U}, 1, k) is
+        # then nondecreasing in lam: the kernel's histogram lookup needs it
+        C = self.pois_cdf
+        if C is not None and (tuple(C.shape) != (k, k)
+                              or C.dtype != torch.float32
+                              or not bool((C[1:] <= C[:-1]).all())):
+            raise ValueError(f"pois_cdf must be f32 [{k}, {k}] with columns "
+                             "that do not increase down its rows")
 
-def _raise_failed(lib, what, err, failed, rtype, wtype, k, mm_bf16):
-    msg = lib.dense_rows_error_string(err).decode()
-    smem = lib.dense_rows_smem_bytes(rtype, wtype, k, int(mm_bf16))
-    raise RuntimeError(
-        f"dense_rows kernel launch failed on {what} {failed}: {msg} "
-        f"(cudaError {err}; {smem} B shared memory per block)")
+    def _stage(self) -> None:
+        """The kernel's inputs that no epoch changes, made once."""
+        R, W, dev = self.R, self.W, self.device
+        if R.dtype not in _RTYPES or (
+                W is not None and (W.dtype not in _WTYPES
+                                   or R.dtype == torch.int8)):
+            raise ValueError("the CUDA kernel takes f32/bf16 R with int8, "
+                             "bf16 or f32 W, or int8 codes without W")
+        if self.ranks is not None and W is not None and \
+                W.dtype != torch.int8:
+            raise ValueError(f"rank masks are instantiated for int8 codes "
+                             f"and int8 W tiles, not {R.dtype} R with "
+                             f"{W.dtype} W")
+        self._types = (_RTYPES[R.dtype], 0 if W is None else _WTYPES[W.dtype])
+        self._lib = library()
+        self.counts = stripe_counts(R, W)
+        lanes = 1 if self.NI is None else self.NI
+        # a round's gradients (the kernels leave them zeroed) and the bf16
+        # copy of U
+        self._scratch = torch.zeros(
+            self._lib.dense_rows_scratch_bytes(lanes, self.NU, self.bu,
+                                               self.width, self.k,
+                                               int(self.mm_bf16)),
+            dtype=torch.uint8, device=dev)
+        # where an epoch's copy lands: (lane, tile) a visit, every cell once
+        # in a cell-grid epoch, then TMF+Dropout's uniforms
+        self._order = torch.empty(
+            2 * self.NU * lanes + (self.pois_cdf is not None) * self.NU,
+            dtype=torch.int32, device=dev)
+        self._masks = [None] * 5
+        if self.ranks is not None:
+            self.hists = rank_hists(R, W, *self.ranks, self.k)
+            static = identity_quantiles(self.NU, self.k, dev)
+            self._masks = [*self.ranks,
+                           static if self.pois_cdf is None else None,
+                           *self.hists]
 
+    def visit_ranks(self, round_u: Optional[torch.Tensor] = None):
+        """(Lu, Li, Q) of an epoch, Q [NU, k] the rank row of each visit in
+        order (the plain version's form), or None without rank masks."""
+        if self.ranks is None:
+            return None
+        return (*self.ranks, identity_quantiles(self.NU, self.k, self.device)
+                if self.pois_cdf is None
+                else visit_quantiles(self.pois_cdf, round_u))
 
-def _check(u3, i_tab, row_order, R_rows, W_rows, r_scale):
-    if u3.dim() != 3 or i_tab.dim() != 2 or R_rows.dim() != 3:
-        raise ValueError("want u3 [NU, bu, k], i_tab [ni_pad, k], "
-                         "R_rows [NU, bu, ni_pad]")
-    NU, bu, k = u3.shape
-    ni_pad = i_tab.shape[0]
-    if i_tab.shape[1] != k or tuple(R_rows.shape) != (NU, bu, ni_pad):
-        raise ValueError(f"shape mismatch: u3 {tuple(u3.shape)}, i_tab "
-                         f"{tuple(i_tab.shape)}, R_rows "
-                         f"{tuple(R_rows.shape)}")
-    _check_tiles(R_rows, W_rows, r_scale, [u3, i_tab])
-    if row_order.dim() != 1 or row_order.numel() != NU or \
-            row_order.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"row_order must be [{NU}] integer stripe ids")
-    # each stripe once: the kernel reads a bf16 copy of U made at the
-    # epoch's start, which a second visit of a stripe would find stale
-    if not torch.equal(torch.sort(row_order.cpu()).values,
-                       torch.arange(NU, dtype=row_order.dtype)):
-        raise ValueError(f"row_order must be a permutation of [0, {NU})")
+    def _check_tables(self, u3, tab, tab_shape) -> None:
+        want = ((self.NU, self.bu, self.k), tab_shape)
+        if any(tuple(t.shape) != s or t.dtype != torch.float32
+               or t.device != self.device or not t.is_contiguous()
+               for t, s in zip((u3, tab), want)):
+            raise ValueError(
+                f"factor tables must be contiguous f32 {want[0]} and "
+                f"{want[1]} on {self.device}, not {u3.dtype} "
+                f"{tuple(u3.shape)} and {tab.dtype} {tuple(tab.shape)}")
 
+    def _upload(self, parts) -> torch.Tensor:
+        """The epoch's one host-to-device copy, of the int32 ``parts``
+        through pinned memory into the staged buffer, enqueued on the
+        current stream behind the last epoch's kernels; its device view."""
+        host = torch.cat(parts).pin_memory()
+        if host.numel() > self._order.numel():   # a cell visited twice
+            self._order = torch.empty(host.numel(), dtype=torch.int32,
+                                      device=self.device)
+        buf = self._order[:host.numel()]
+        buf.copy_(host, non_blocking=True)
+        return buf
 
-def dense_rows_epoch(u3: torch.Tensor, i_tab: torch.Tensor,
-                     row_order: torch.Tensor, lr,
-                     R_rows: torch.Tensor, W_rows: Optional[torch.Tensor],
-                     r_scale: Optional[float], u_reg: float, i_reg: float,
-                     collision_norm: bool, mm_bf16: bool,
-                     counts: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                     = None, ranks: Optional[Ranks] = None,
-                     hists: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One row-stripe dense epoch over the stripes of ``row_order`` (a
-    permutation of the NU stripes).
+    def rows_epoch(self, u3: torch.Tensor, i_tab: torch.Tensor,
+                   row_order: torch.Tensor, lr,
+                   round_u: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One row-stripe epoch over the stripes of ``row_order`` (a host
+        permutation of the NU stripes); ``round_u`` [NU] f32 host uniforms,
+        one a visit in order, with the CDF table, else None. Updates u3
+        [NU, bu, k] and i_tab [ni_pad, k] IN PLACE and returns them."""
+        NU = self.NU
+        if self.NI is not None:
+            raise ValueError("cell-grid tiles run cells_epoch")
+        self._check_tables(u3, i_tab, (self.width, self.k))
+        order = _host_ints(row_order, "row_order", 1)
+        # each stripe once: the kernel reads a bf16 copy of U made at the
+        # epoch's start, which a second visit of a stripe would find stale
+        if order.numel() != NU or not torch.equal(
+                torch.sort(order).values, torch.arange(NU,
+                                                       dtype=order.dtype)):
+            raise ValueError(f"row_order must be a permutation of [0, {NU})")
+        if (round_u is None) != (self.pois_cdf is None) or (
+                round_u is not None and (
+                    tuple(round_u.shape) != (NU,) or round_u.device.type
+                    != "cpu" or round_u.dtype != torch.float32)):
+            raise ValueError(f"round_u: [{NU}] f32 host uniforms with the "
+                             "CDF table, else None")
+        if self.device.type == "cpu":
+            Lu = Li = Q = None
+            if self.ranks is not None:
+                with span("stripes.ranks"):
+                    Lu, Li, Q = self.visit_ranks(round_u)
+            return dense_sweep_rows(u3, i_tab, order, lr, self.R, self.W,
+                                    self.u_reg, self.i_reg,
+                                    self.collision_norm, self.mm_bf16,
+                                    r_scale=self.r_scale, Lu3=Lu, Li=Li, Q=Q)
+        cells = stripe_cells(order, "cpu").view(-1)
+        if round_u is None:
+            buf = self._upload([cells])
+        else:
+            with span("stripes.ranks"):
+                # the uniforms in stripe order: the kernels read stripe s's
+                # rank row at row s
+                us = torch.empty_like(round_u)
+                us[order.long()] = round_u
+                buf = self._upload([cells, us.view(torch.int32)])
+                self._masks[2] = visit_quantiles(
+                    self.pois_cdf, buf[2 * NU:].view(torch.float32))
+        return self._launch("dense_rows_epoch", "stripe", u3, i_tab, lr, [
+            *self._masks, *self.counts, self._scratch, buf, NU, NU, self.bu,
+            self.width])
 
-    u3 [NU, bu, k] f32, i_tab [ni_pad, k] f32, R_rows [NU, bu, ni_pad]
-    (f32/bf16 ratings with int8, bf16 or f32 weights W_rows, or int8 codes
-    with W_rows=None and r_scale). ``counts``: the tiles'
-    ``stripe_counts``, computed here when not given. ``ranks``: (Lu, Li,
-    Q) rank masks, see the module docstring; ``hists``: their
-    ``rank_hists``, computed here when not given. Updates u3 and i_tab IN
-    PLACE and returns them."""
-    _check(u3, i_tab, row_order, R_rows, W_rows, r_scale)
-    NU, bu, k = u3.shape
-    ni_pad = i_tab.shape[0]
-    if ranks is not None:
-        with span("stripes.ranks"):
-            _check_ranks(ranks, NU, bu, ni_pad, k, u3.device)
-            if u3.device.type != "cpu":
-                # the kernels read each stripe's rank row: that of its visit
-                Q = ranks[2]
-                Qs = torch.empty_like(Q)
-                Qs[row_order.to(device=Q.device, dtype=torch.int64)] = Q
-    if u3.device.type == "cpu":
-        Lu, Li, Q = ranks if ranks is not None else (None, None, None)
-        return dense_sweep_rows(u3, i_tab, row_order, lr, R_rows, W_rows,
-                                u_reg, i_reg, collision_norm, mm_bf16,
-                                r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
-    rtype, wtype = _check_kernel_tiles(R_rows, W_rows, u3.device)
-    if ranks is not None and W_rows is not None and \
-            W_rows.dtype != torch.int8:
-        raise ValueError(f"rank masks are instantiated for int8 codes and "
-                         f"int8 W tiles, not {R_rows.dtype} R with "
-                         f"{W_rows.dtype} W")
-    lib = library()
-    if counts is None:
-        counts = stripe_counts(R_rows, W_rows)
-    _check_counts(counts, ((NU, bu), (NU, ni_pad)), u3.device)
-    cnt_u, cnt_i = counts
-    masks = [None] * 5
-    if ranks is not None:
-        Lu, Li, _ = ranks
-        if hists is None:
-            hists = rank_hists(R_rows, W_rows, Lu, Li, k)
-        hist_u, hist_i = hists
-        if (tuple(hist_u.shape), tuple(hist_i.shape)) != (
-                (NU, bu, k), (NU, ni_pad, k)) or \
-                (hist_u.dtype, hist_i.dtype) != (torch.int32, torch.int16) \
-                or any(h.device != u3.device or not h.is_contiguous()
-                       for h in hists):
-            raise ValueError(f"hists must be contiguous int32 [{NU}, {bu}, "
-                             f"{k}] and int16 [{NU}, {ni_pad}, {k}] on "
-                             f"{u3.device}")
-        masks = [Lu.contiguous(), Li.contiguous(), Qs, hist_u, hist_i]
-    # the stripe's user and item gradients (the kernels leave them zeroed)
-    # and the bf16 copy of U
-    scratch = torch.zeros(lib.dense_rows_scratch_bytes(1, NU, bu, ni_pad, k,
-                                                       int(mm_bf16)),
-                          dtype=torch.uint8, device=u3.device)
-    cells = stripe_cells(row_order, u3.device)
-    failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
-    with torch.cuda.device(u3.device):
-        err = lib.dense_rows_epoch(
-            rtype, wtype, int(mm_bf16), int(collision_norm), u3.data_ptr(),
-            i_tab.data_ptr(), R_rows.data_ptr(),
-            None if W_rows is None else W_rows.data_ptr(),
-            *(None if m is None else m.data_ptr() for m in masks),
-            cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
-            cells.data_ptr(), NU, NU, bu, ni_pad, k, float(lr),
-            float(r_scale or 0.0), float(u_reg), float(i_reg),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(failed),
-            ctypes.byref(launched))
-    dense_rows_epoch.launches += launched.value
-    if err != 0:
-        _raise_failed(lib, "stripe", err, failed.value, rtype, wtype, k,
-                      mm_bf16)
-    return u3, i_tab
+    def cells_epoch(self, u3: torch.Tensor, i3: torch.Tensor,
+                    ub_idx: torch.Tensor, lr
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One diag cell-grid epoch over the rounds of ``ub_idx`` [R, NI]
+        (host ints; lane l owns item block l; NU marks a dummy lane; no
+        user block twice in a round). Updates u3 [NU, bu, k] and i3 [NI,
+        bi, k] IN PLACE and returns them."""
+        NU, NI = self.NU, self.NI
+        if NI is None:
+            raise ValueError("row-stripe tiles run rows_epoch")
+        self._check_tables(u3, i3, (NI, self.width, self.k))
+        idx = _host_ints(ub_idx, "ub_idx", 2)
+        if idx.shape[1] != NI:
+            raise ValueError(f"ub_idx must be [rounds, {NI}] user blocks")
+        idx = idx.to(torch.int64)
+        if bool(((idx < 0) | (idx > NU)).any()):
+            raise ValueError(f"ub_idx must lie in [0, {NU}] ({NU}: a dummy "
+                             "lane)")
+        # the lanes of a round run together from the round's old tables, as
+        # in JAX, only when no user block appears twice in a round
+        real = torch.where(idx < NU, idx, -1 - torch.arange(NI))
+        if bool((real.sort(dim=1).values.diff(dim=1) == 0).any()):
+            raise ValueError("a user block appears twice in one round of "
+                             "ub_idx")
+        if self.device.type == "cpu":
+            return dense_sweep_diag(u3, i3, idx, lr, self.R, self.W,
+                                    self.u_reg, self.i_reg,
+                                    self.collision_norm, self.mm_bf16,
+                                    r_scale=self.r_scale)
+        plan = cells_plan(idx, NU, self.k, self.mm_bf16)
+        per_round = plan["counts"]     # a host array the C entry reads
+        buf = self._upload([plan["cells"].view(-1)])
+        return self._launch("dense_cells_epoch", "round", u3, i3, lr, [
+            *self.counts, self._scratch, buf, per_round, per_round.numel(),
+            NI, NU, self.bu, self.width])
 
-
-dense_rows_epoch.launches = 0
-
-
-def _check_cells(u3, i3, ub_idx, R_cells, W_cells, r_scale):
-    if u3.dim() != 3 or i3.dim() != 3 or R_cells.dim() != 3:
-        raise ValueError("want u3 [NU, bu, k], i3 [NI, bi, k], R_cells "
-                         "[NU * NI + 1, bu, bi]")
-    NU, bu, k = u3.shape
-    NI, bi = i3.shape[:2]
-    if i3.shape[2] != k or tuple(R_cells.shape) != (NU * NI + 1, bu, bi):
-        raise ValueError(f"shape mismatch: u3 {tuple(u3.shape)}, i3 "
-                         f"{tuple(i3.shape)}, R_cells "
-                         f"{tuple(R_cells.shape)}")
-    _check_tiles(R_cells, W_cells, r_scale, [u3, i3])
-    if ub_idx.dim() != 2 or ub_idx.shape[1] != NI or \
-            ub_idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"ub_idx must be [rounds, {NI}] integer user "
-                         "blocks")
-    idx = ub_idx.cpu().to(torch.int64)
-    if bool(((idx < 0) | (idx > NU)).any()):
-        raise ValueError(f"ub_idx must lie in [0, {NU}] ({NU}: a dummy "
-                         "lane)")
-    # the lanes of a round run together from the round's old tables, as in
-    # JAX, only when no user block appears twice in a round
-    real = torch.where(idx < NU, idx, -1 - torch.arange(NI))
-    if bool((real.sort(dim=1).values.diff(dim=1) == 0).any()):
-        raise ValueError("a user block appears twice in one round of "
-                         "ub_idx")
-
-
-def dense_cells_epoch(u3: torch.Tensor, i3: torch.Tensor,
-                      ub_idx: torch.Tensor, lr, R_cells: torch.Tensor,
-                      W_cells: Optional[torch.Tensor],
-                      r_scale: Optional[float], u_reg: float, i_reg: float,
-                      collision_norm: bool, mm_bf16: bool,
-                      counts: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                      = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One diag cell-grid dense epoch over the rounds of ``ub_idx``.
-
-    u3 [NU, bu, k] f32, i3 [NI, bi, k] f32, ub_idx [R, NI] (lane l owns
-    item block l; NU marks a dummy lane; no user block twice in a round),
-    R_cells [NU * NI + 1, bu, bi] in cell-major order (cell ub * NI + l,
-    the dummy cell last; f32/bf16 ratings with int8, bf16 or f32 weights
-    W_cells, or int8 codes with W_cells=None and r_scale). ``counts``: the
-    cells' ``stripe_counts``, computed here when not given. A CPU tensor
-    runs the plain ``dense_sweep_diag``, a CUDA tensor the kernel. Updates
-    u3 and i3 IN PLACE and returns them."""
-    _check_cells(u3, i3, ub_idx, R_cells, W_cells, r_scale)
-    NU, bu, k = u3.shape
-    NI, bi = i3.shape[:2]
-    if u3.device.type == "cpu":
-        return dense_sweep_diag(u3, i3, ub_idx, lr, R_cells, W_cells, u_reg,
-                                i_reg, collision_norm, mm_bf16,
-                                r_scale=r_scale)
-    rtype, wtype = _check_kernel_tiles(R_cells, W_cells, u3.device)
-    lib = library()
-    if counts is None:
-        counts = stripe_counts(R_cells, W_cells)
-    n_cells = NU * NI + 1
-    _check_counts(counts, ((n_cells, bu), (n_cells, bi)), u3.device)
-    cnt_u, cnt_i = counts
-    # the lanes' gradients (the kernels leave them zeroed) and the bf16
-    # copy of U
-    scratch = torch.zeros(lib.dense_rows_scratch_bytes(NI, NU, bu, bi, k,
-                                                       int(mm_bf16)),
-                          dtype=torch.uint8, device=u3.device)
-    plan = cells_plan(ub_idx, NU, k, mm_bf16)
-    cells, per_round = plan["cells"].to(u3.device), plan["counts"]
-    failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
-    with torch.cuda.device(u3.device):
-        err = lib.dense_cells_epoch(
-            rtype, wtype, int(mm_bf16), int(collision_norm), u3.data_ptr(),
-            i3.data_ptr(), R_cells.data_ptr(),
-            None if W_cells is None else W_cells.data_ptr(),
-            cnt_u.data_ptr(), cnt_i.data_ptr(), scratch.data_ptr(),
-            cells.data_ptr(), per_round.data_ptr(), per_round.numel(), NI,
-            NU, bu, bi, k, float(lr), float(r_scale or 0.0), float(u_reg),
-            float(i_reg),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(failed),
-            ctypes.byref(launched))
-    dense_cells_epoch.launches += launched.value
-    if err != 0:
-        _raise_failed(lib, "round", err, failed.value, rtype, wtype, k,
-                      mm_bf16)
-    return u3, i3
-
-
-dense_cells_epoch.launches = 0
+    def _launch(self, entry: str, what: str, u3, tab, lr, args):
+        """One call of the C ``entry`` on the current stream; ``args`` its
+        arguments between the tiles and k."""
+        ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
+        failed, launched = ctypes.c_longlong(-1), ctypes.c_longlong(0)
+        with torch.cuda.device(self.device):
+            err = getattr(self._lib, entry)(
+                *self._types, int(self.mm_bf16), int(self.collision_norm),
+                u3.data_ptr(), tab.data_ptr(), self.R.data_ptr(),
+                ptr(self.W), *(ptr(a) for a in args), self.k, float(lr),
+                float(self.r_scale or 0.0), self.u_reg, self.i_reg,
+                torch.cuda.current_stream().cuda_stream,
+                ctypes.byref(failed), ctypes.byref(launched))
+        StripeTiles.launches += launched.value
+        if err != 0:
+            self._scratch.zero_()    # a failed round may leave gradients
+            msg = self._lib.dense_rows_error_string(err).decode()
+            smem = self._lib.dense_rows_smem_bytes(*self._types, self.k,
+                                                   int(self.mm_bf16))
+            raise RuntimeError(
+                f"dense_rows kernel launch failed on {what} {failed.value}: "
+                f"{msg} (cudaError {err}; {smem} B shared memory per block)")
+        return u3, tab

@@ -18,11 +18,11 @@ replace each shard-round's inner sweep:
   * ``DenseBlockDSGDSolver``: the row-dense stripes. A shard-round runs
     the shard's SU user stripes one after another against the one held
     item block, which is exactly a stripe epoch on the [SU, sub_bu, bi]
-    sub-grid: ONE ``dense_rows_epoch`` call (the stripe entry of
+    sub-grid: ONE ``StripeTiles.rows_epoch`` call (the stripe entry of
     ``csrc/dense_rows.cu`` on the card, ``dense_sweep_rows`` on the CPU)
-    on R_tiles[shard, t] (and W_tiles), contiguous views of the
-    [N, SU, sub_bu, bi] tiles of each local shard, with the tiles'
-    ``stripe_counts`` staged once.
+    on ``stripes[shard][t]``, staged once on R_tiles[shard, t] (and
+    W_tiles), contiguous views of the [N, SU, sub_bu, bi] tiles of each
+    local shard.
 
 Layout, as in JAX: users keep their contiguous shard but are
 frequency-interleaved over the shard's sub-blocks (rank r in the shard ->
@@ -56,8 +56,7 @@ from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
                                                    diag_schedule, plan,
                                                    stage_slices)
 from matfac_tpu_torch.ops.dense_block_kernel import densify_rows
-from matfac_tpu_torch.ops.dense_row_kernel import (dense_rows_epoch,
-                                                   stripe_counts)
+from matfac_tpu_torch.ops.dense_row_kernel import StripeTiles
 from matfac_tpu_torch.parallel import distributed
 from matfac_tpu_torch.parallel.dsgd import (ShardedTables, hook,
                                             shard_generator)
@@ -426,14 +425,12 @@ class DenseBlockDSGDSolver(ShardedTables):
             wdtype = torch.int8 if uniform01 else torch.bfloat16
             self.R_tiles = tiles(v.astype(np.float32), torch.bfloat16)
             self.W_tiles = tiles(w, wdtype)
-        # the kernel's validity counts of every shard-round, staged once
-        self.counts = None
-        if self.home.type == "cuda":
-            self.counts = [
-                [stripe_counts(self.R_tiles[j][tt],
-                               None if self.W_tiles is None
-                               else self.W_tiles[j][tt])
-                 for tt in range(N)] for j in range(nb)]
+        # each shard-round's tiles, [SU, sub_bu, bi] views, staged once
+        self.stripes = [[StripeTiles(
+            self.R_tiles[j][tt], None if self.W_tiles is None
+            else self.W_tiles[j][tt], self.r_scale, model.k, params.u_reg,
+            params.i_reg, self.collision_norm, mm_bf16)
+            for tt in range(N)] for j in range(nb)]
 
     def draw_schedule(self):
         """{(t, shard): stripe order}: each shard-round's order of its SU
@@ -444,17 +441,6 @@ class DenseBlockDSGDSolver(ShardedTables):
                     self.SU, generator=shard_generator(seed, t, b, "cpu"))
                 for t in range(self.n_shards) for b in self.local_blocks}
 
-    def tiles(self, j: int, t: int):
-        """(R, W) of local shard j in round t: contiguous [SU, sub_bu, bi]
-        views (W None for codes)."""
-        return (self.R_tiles[j][t],
-                None if self.W_tiles is None else self.W_tiles[j][t])
-
     def shard_round(self, j, b, t, U, I, lr, schedule):
-        R, W = self.tiles(j, t)
-        dense_rows_epoch(U.view(self.SU, self.sub_bu, -1), I, schedule[(t, b)],
-                         lr, R, W, self.r_scale, float(self.params.u_reg),
-                         float(self.params.i_reg), self.collision_norm,
-                         self.mm_bf16,
-                         counts=None if self.counts is None
-                         else self.counts[j][t])
+        self.stripes[j][t].rows_epoch(U.view(self.SU, self.sub_bu, -1), I,
+                                      schedule[(t, b)], lr)

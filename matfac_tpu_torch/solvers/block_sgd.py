@@ -24,22 +24,21 @@ ladder of ``_stage_dense`` (int8 rating codes when the ratings are exactly
 code * scale, else int8 validity with f32/bf16 ratings, else float
 weights). In the row layout (``bi`` the padded catalog width, the
 default) into [NU, bu, ni_pad] stripe tiles: each epoch visits the stripes
-in a random order, one full-catalog masked-residual GD step per stripe
-(ops/dense_row_kernel.dense_rows_epoch). With ``bi`` below the catalog,
+in a random order, one full-catalog masked-residual GD step per stripe.
+With ``bi`` below the catalog,
 the diag cell grid: cell-major [NU * NI + 1, bu, bi] tiles (cell = ub *
 NI + ib, an all-invalid dummy cell last), each epoch the DSGD rounds of
 ``diag_schedule`` (the one-hot diag engine's generator, so both engines
 visit the same cells for the same draw), one GD step per cell, a round's
-cells in one launch on the card (ops/dense_row_kernel.dense_cells_epoch);
-rank-masked models are refused
-there, as in JAX. In the row layout, rank-masked models stage
-per-entity tables in the relabeled order, pad entities at rank k: TMF its
-static ranks, TMF+Dropout its lambdas, whose ranks are redrawn at every
-stripe visit from one uniform a visit (the common-random-number Poisson
-quantiles, README deviation #15). On a CUDA device the suffix histograms
-the kernel reads its masked counts from are staged once with the tiles,
-and their bytes count toward ``dense_budget_bytes``. The rank draw and its
-checks run in the span ``stripes.ranks``.
+cells in one launch on the card; rank-masked models are refused there, as
+in JAX. In the row layout, rank-masked models stage per-entity tables in
+the relabeled order, pad entities at rank k: TMF its static ranks,
+TMF+Dropout its lambdas, whose ranks are redrawn at every stripe visit
+from one uniform a visit (the common-random-number Poisson quantiles,
+README deviation #15). Either layout's tiles and what the kernel reads
+with them are one ``ops/dense_row_kernel.StripeTiles``, ``self.tiles``,
+staged once; on a CUDA device the bytes of its rank histograms count
+toward ``dense_budget_bytes``.
 
 Left out of the port, as TPU workarounds: the dummy factor block NU (the
 diag schedules' pad lanes are skipped), the panel-major relayout (a DMA
@@ -63,13 +62,8 @@ from matfac_tpu_torch.ops.block_sgd_kernel import (block_sgd_diag_epoch,
                                                    block_sgd_epoch,
                                                    diag_schedule, plan,
                                                    stage_slices)
-from matfac_tpu_torch.ops.dense_block_kernel import (densify_rows,
-                                                    identity_quantiles,
-                                                    visit_quantiles)
-from matfac_tpu_torch.ops.dense_row_kernel import (dense_cells_epoch,
-                                                   dense_rows_epoch,
-                                                   rank_hists,
-                                                   stripe_counts)
+from matfac_tpu_torch.ops.dense_block_kernel import densify_rows
+from matfac_tpu_torch.ops.dense_row_kernel import StripeTiles
 from matfac_tpu_torch.train.profiler import span
 
 
@@ -293,24 +287,25 @@ class BlockSGDSolver:
         if engine == "dense":
             k = model.k
             masked = self.use_mask or self._pois
-            # the kernel's histograms: int32 [NU, bu, k], int16 [NU, ni, k]
-            hist_bytes = (self.NU * k * (4 * bu + 2 * self.n_items_pad)
-                          if masked and self.device.type == "cuda" else 0)
+            self.pois_cdf = (torch.from_numpy(model.poisson_cdf_table())
+                             .to(dev) if self._pois else None)
+            hist_bytes = StripeTiles.hist_bytes(self.NU, bu,
+                                                self.n_items_pad, k, dev)
             R, W = self._stage_dense(
                 (r // bu) * self.NI + c // bi, (r % bu).astype(np.int32),
                 (c % bi).astype(np.int32), v.astype(np.float32), w,
-                self.NU * self.NI, dense_budget_bytes - hist_bytes)
-            # the tiles' validity counts, which the kernel reads
-            self.counts = stripe_counts(R, W)
+                self.NU * self.NI, dense_budget_bytes - masked * hist_bytes)
+            self.tiles = StripeTiles(
+                R, W, self.r_scale, k, params.u_reg, params.i_reg,
+                self.collision_norm, mm_bf16,
+                NI=self.NI if self.schedule == "diag" else None,
+                ranks=self._rank_tables(model) if masked else None,
+                pois_cdf=self.pois_cdf)
             if self.schedule == "diag":
-                self.R_cells, self.W_cells = R, W
                 self._sched_rng = np.random.default_rng(params.seed + 41)
-                return
-            self.R_rows, self.W_rows = R, W
-            self.rank_tabs = self.hists = self.pois_cdf = None
-            if masked:
-                self._stage_ranks(model)
-            self._order_gen = torch.Generator().manual_seed(params.seed + 41)
+            else:
+                self._order_gen = torch.Generator().manual_seed(
+                    params.seed + 41)
             return
         self._stage_cells(r, c, v.astype(np.float32), w, lam, batch_size)
         self._sched_rng = np.random.default_rng(params.seed + 41)
@@ -388,12 +383,10 @@ class BlockSGDSolver:
                                        range_size)
 
     # ------------------------------------------------------------------
-    def _stage_ranks(self, model):
+    def _rank_tables(self, model):
         """Rank tables of the dense engine in the relabeled order: (Lu
         [NU, bu], Li [ni_pad]) int32, pad entities at k (their W is 0, so
-        their masks never bite), TMF's ranks or TMF+Dropout's lambdas with
-        its [k, k] CDF table; on a CUDA device also the kernel's
-        ``rank_hists``."""
+        their masks never bite), TMF's ranks or TMF+Dropout's lambdas."""
         k = model.k
         eu, ei = (model.entity_lambdas() if self._pois
                   else model.entity_ranks())
@@ -401,14 +394,8 @@ class BlockSGDSolver:
         li = np.full(self.n_items_pad, k, np.int32)
         lu[self.u_perm] = np.asarray(eu, np.int32)
         li[self.i_perm] = np.asarray(ei, np.int32)
-        dev = self.device
-        self.rank_tabs = (torch.from_numpy(lu.reshape(self.NU, self.bu))
-                          .to(dev), torch.from_numpy(li).to(dev))
-        if self._pois:
-            self.pois_cdf = torch.from_numpy(model.poisson_cdf_table()).to(dev)
-        if dev.type == "cuda":
-            self.hists = rank_hists(self.R_rows, self.W_rows,
-                                    *self.rank_tabs, k)
+        return (torch.from_numpy(lu.reshape(self.NU, self.bu)).to(
+            self.device), torch.from_numpy(li).to(self.device))
 
     def _stage_dense(self, cell, u_loc, i_loc, vals, wts, n_cells, budget):
         """Dense [bu, bi] tiles, (R, W): one per stripe in the row layout
@@ -482,16 +469,9 @@ class BlockSGDSolver:
         return torch.randperm(self.NU, generator=self._order_gen)
 
     def epoch_ranks(self, round_u: Optional[torch.Tensor] = None):
-        """(Lu, Li, Q) for ``dense_rows_epoch``, or None without rank
-        masks: the identity rank rows for static ranks, the visits' Poisson
-        quantiles at ``round_u`` for TMF+Dropout."""
-        if self.rank_tabs is None:
-            return None
-        if self.pois_cdf is not None:
-            Q = visit_quantiles(self.pois_cdf, round_u)
-        else:
-            Q = identity_quantiles(self.NU, self.model.k, self.device)
-        return (*self.rank_tabs, Q)
+        """(Lu, Li, Q) of a row-stripe epoch at ``round_u``
+        (``StripeTiles.visit_ranks``), or None without rank masks."""
+        return self.tiles.visit_ranks(round_u)
 
     def _build_schedule(self):
         """Row schedule (the JAX numpy draws, bit for bit): a random
@@ -601,31 +581,15 @@ class BlockSGDSolver:
         """One epoch on the given schedule (``draw_schedule``'s form; the
         tests pass the JAX solver's own draws)."""
         u_tab, i_tab = self._tables(state)
-        if self.engine == "dense" and self.schedule == "diag":
-            with span("stripes.launch"):
-                dense_cells_epoch(u_tab, i_tab, schedule, lr, self.R_cells,
-                                  self.W_cells, self.r_scale,
-                                  float(self.params.u_reg),
-                                  float(self.params.i_reg),
-                                  self.collision_norm, self.mm_bf16,
-                                  counts=self.counts)
-        elif self.engine == "dense":
-            order, round_u = schedule
-            with span("stripes.schedule" if self.rank_tabs is None
-                      else "stripes.ranks"):
-                ranks = self.epoch_ranks(round_u)
-            with span("stripes.launch"):
-                dense_rows_epoch(u_tab, i_tab, order, lr, self.R_rows,
-                                 self.W_rows, self.r_scale,
-                                 float(self.params.u_reg),
-                                 float(self.params.i_reg),
-                                 self.collision_norm, self.mm_bf16,
-                                 counts=self.counts, ranks=ranks,
-                                 hists=self.hists)
-        else:
-            sweep = (block_sgd_diag_epoch if self.schedule == "diag"
-                     else block_sgd_epoch)
-            with span("stripes.launch"):
+        with span("stripes.launch"):
+            if self.engine == "dense" and self.schedule == "diag":
+                self.tiles.cells_epoch(u_tab, i_tab, schedule, lr)
+            elif self.engine == "dense":
+                self.tiles.rows_epoch(u_tab, i_tab, schedule[0], lr,
+                                      schedule[1])
+            else:
+                sweep = (block_sgd_diag_epoch if self.schedule == "diag"
+                         else block_sgd_epoch)
                 sweep(u_tab, i_tab, *schedule, lr, *self.streams,
                       **self.sweep_kwargs(), slices=self.slices)
         return self._views(state, u_tab, i_tab)

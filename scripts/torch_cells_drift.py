@@ -5,7 +5,7 @@ apart over an epoch at (w)'s shape, on the card.
 
 chip_smoke.py's (w) grid (bu 2560 x bi 512 on (d)'s data, 1,601 cells of
 bf16 R + int8 W) from the initial state, one epoch's rounds from a fixed
-generator: the kernel (`dense_cells_epoch`) against `dense_sweep_diag`
+generator: the kernel (`StripeTiles.cells_epoch`) against `dense_sweep_diag`
 after the first 1, 2, 5, 10, 20 and 40 rounds in bf16 products, the whole
 epoch in f32 products, and the plain version on the card against the
 plain version on the CPU (two correct summation orders). Each line gives
@@ -47,16 +47,21 @@ def main() -> int:
     solver = BlockSGDSolver(ModelMF(p, n, m), p, data.train_mat, iu, ii,
                             bu=cs.W_BLOCKS[0], bi=cs.W_BLOCKS[1],
                             engine="dense", device="cuda")
-    R, W = solver.R_cells, solver.W_cells
+    tiles = solver.tiles
+    R, W = tiles.R, tiles.W
     ub_idx = bsk.diag_schedule(torch.Generator().manual_seed(1), solver.NU,
                                solver.NI, 1)[0]
     u3, i3 = solver.stage_factors(init_state(p, n, m, device="cuda"))
     cn = solver.collision_norm
 
+    staged = {tiles.mm_bf16: tiles}
+
     def kernel(rounds, mm):
-        return drk.dense_cells_epoch(u3.clone(), i3.clone(), rounds,
-                                     p.learn_rate, R, W, None, p.u_reg,
-                                     p.i_reg, cn, mm, counts=solver.counts)
+        if mm not in staged:     # the same tiles in the other precision
+            staged[mm] = drk.StripeTiles(R, W, None, tiles.k, p.u_reg,
+                                         p.i_reg, cn, mm, NI=tiles.NI)
+        return staged[mm].cells_epoch(u3.clone(), i3.clone(), rounds,
+                                      p.learn_rate)
 
     def plain(rounds, mm, dev="cuda"):
         args = [t.to(dev, copy=True) for t in (u3, i3)]   # updated in place

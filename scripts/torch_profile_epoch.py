@@ -106,7 +106,7 @@ def profile_cell(tag: str, out_dir) -> None:
 
     def plain():
         dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr,
-                         solver.R_rows, solver.W_rows, p.u_reg, p.i_reg,
+                         solver.tiles.R, solver.tiles.W, p.u_reg, p.i_reg,
                          solver.collision_norm, solver.mm_bf16,
                          r_scale=solver.r_scale)
 
@@ -124,7 +124,7 @@ def profile_cell(tag: str, out_dir) -> None:
                ("objective", objective),
                ("val RMSE", lambda: ev.rmse(model.eval_view(state), "val"))]
     kernels = ("::panel_kernel<", "stripe_step_kernel", "u_bf16_kernel")
-    run_windows(tag, windows, (drk.dense_rows_epoch, kernels), out_dir)
+    run_windows(tag, windows, (drk.StripeTiles, kernels), out_dir)
     del rep, solver, state, current, ev, u3, i_tab
     torch.cuda.empty_cache()
 

@@ -74,11 +74,10 @@ def test_kernel_matches_plain(mode, mm_bf16, collision_norm):
     u3, i_tab = u3.to(dev), i_tab.to(dev)
     order = torch.from_numpy(rng.permutation(NU))
     lr = LR if collision_norm else LR / 20
-    before = tdrk.dense_rows_epoch.launches
-    uk, ik = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R,
-                                   W, r_scale, U_REG, I_REG, collision_norm,
-                                   mm_bf16)
-    assert tdrk.dense_rows_epoch.launches - before == \
+    before = tdrk.StripeTiles.launches
+    uk, ik = _stripe_epoch((u3, i_tab, order, R, W, r_scale), mm_bf16, lr,
+                           collision_norm)
+    assert tdrk.StripeTiles.launches - before == \
         tdrk.epoch_launches(NU, k, mm_bf16)
     up, ip = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R,
                                    W, U_REG, I_REG, collision_norm, mm_bf16,
@@ -116,9 +115,8 @@ def test_kernel_bf16_rounding_exact(mode, collision_norm):
     lr = LR if collision_norm else LR / 10
     kern, plain = {}, {}
     for mm in (True, False):
-        kern[mm] = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order,
-                                         lr, R, W, r_scale, U_REG, I_REG,
-                                         collision_norm, mm)
+        kern[mm] = _stripe_epoch((u3, i_tab, order, R, W, r_scale), mm, lr,
+                                 collision_norm)
         plain[mm] = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order,
                                           lr, R, W, U_REG, I_REG,
                                           collision_norm, mm,
@@ -150,8 +148,7 @@ def test_kernel_padding_and_edges(mode, ni, k):
     order = torch.from_numpy(rng.permutation(NU))
     assert tdrk.epoch_launches(NU, k, True) == \
         NU * tdrk.KERNELS_PER_STRIPE + (k <= 128)   # + the bf16 copy of U
-    got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, LR, R, W,
-                                r_scale, U_REG, I_REG, True, True)
+    got = _stripe_epoch((u3, i_tab, order, R, W, r_scale), True)
     want = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, LR, R, W,
                                  U_REG, I_REG, True, True, r_scale=r_scale)
     torch.cuda.synchronize()
@@ -170,15 +167,25 @@ def test_kernel_rejects_what_it_cannot_take(bad):
     if bad == "codes_with_weights":
         R, W = R.to(torch.int8), R.clone()
     with pytest.raises(ValueError, match="CUDA kernel takes"):
-        tdrk.dense_rows_epoch(u3, i_tab, torch.arange(2), LR, R, W, 0.5,
-                              U_REG, I_REG, True, False)
+        tdrk.StripeTiles(R, W, 0.5, 4, U_REG, I_REG, True, False)
 
 
-def _stripe_epoch(args, mm_bf16, lr=LR, collision_norm=True):
-    u3, i_tab, order, R, W, r_scale = args
-    return tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
-                                 r_scale, U_REG, I_REG, collision_norm,
-                                 mm_bf16)
+def _staged(args, mm_bf16, collision_norm=True, ranks=None):
+    """The StripeTiles of ``args``' tiles; ``ranks`` (Lu, Li, C, u) or
+    None (see _ranks)."""
+    u3, _, _, R, W, r_scale = args
+    return tdrk.StripeTiles(R, W, r_scale, u3.shape[2], U_REG, I_REG,
+                            collision_norm, mm_bf16,
+                            ranks=None if ranks is None else ranks[:2],
+                            pois_cdf=None if ranks is None else ranks[2])
+
+
+def _stripe_epoch(args, mm_bf16, lr=LR, collision_norm=True, ranks=None):
+    """One stripe epoch of freshly staged tiles on copies of the tables."""
+    u3, i_tab, order = args[:3]
+    return _staged(args, mm_bf16, collision_norm, ranks).rows_epoch(
+        u3.clone(), i_tab.clone(), order, lr,
+        None if ranks is None else ranks[3])
 
 
 def _stripe_args(mode, rng, dev, NU=4, bu=300, ni=1000, k=64, scale=0.1):
@@ -194,13 +201,19 @@ def _stripe_args(mode, rng, dev, NU=4, bu=300, ni=1000, k=64, scale=0.1):
 @pytest.mark.parametrize("mode", MODES)
 def test_stripe_epoch_is_deterministic(mode, mm_bf16):
     """The gradient partials are summed in fixed point: one epoch run twice
-    gives bit-identical factors, for every tile kind and both routes."""
+    on one staged object (its scratch and order buffer reused) and once on
+    a fresh one gives bit-identical factors, for every tile kind and both
+    routes."""
     dev = _cuda()
     args = _stripe_args(mode, np.random.default_rng(31), dev)
-    a = _stripe_epoch(args, mm_bf16)
-    b = _stripe_epoch(args, mm_bf16)
+    tiles = _staged(args, mm_bf16)
+    u3, i_tab, order = args[:3]
+    a = tiles.rows_epoch(u3.clone(), i_tab.clone(), order, LR)
+    b = tiles.rows_epoch(u3.clone(), i_tab.clone(), order, LR)
+    c = _stripe_epoch(args, mm_bf16)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
 
 
 @pytest.mark.cuda
@@ -262,10 +275,10 @@ def test_stripe_range_guard_goes_non_finite(mm_bf16):
     args = _stripe_args("f32+W", np.random.default_rng(33), dev, scale=1.0)
     u3, i_tab, order, R, W, _ = args
     k_state, p_state = (u3, i_tab), (u3, i_tab)
+    tiles = _staged(args, mm_bf16, collision_norm=False)
     for _ in range(6):
-        k_state = tdrk.dense_rows_epoch(k_state[0].clone(), k_state[1].clone(),
-                                        order, 10.0, R, W, None, U_REG, I_REG,
-                                        False, mm_bf16)
+        k_state = tiles.rows_epoch(k_state[0].clone(), k_state[1].clone(),
+                                   order, 10.0)
         p_state = tdbk.dense_sweep_rows(p_state[0].clone(), p_state[1].clone(),
                                         order, 10.0, R, W, U_REG, I_REG, False,
                                         mm_bf16)
@@ -279,32 +292,36 @@ MASK_MODES = ["codes", "f32+W", "bf16+W"]
 
 
 def _ranks(rng, NU, bu, ni, k, kind, dev, full=False):
-    """(Lu [NU, bu], Li [ni], Q [NU, k]) int32 on the card: random lambdas
-    in [1, k] (all k when ``full``), with the identity rank rows (TMF's
-    static ranks) or one Poisson CRN quantile row per visit."""
+    """(Lu [NU, bu], Li [ni], C, u): int32 lambdas in [1, k] on the card
+    (all k when ``full``), with TMF's static ranks (C and u None) or
+    TMF+Dropout's Poisson CDF table C [k, k] on the card and one host
+    uniform u a visit."""
     lo = k if full else 1
     Lu = torch.from_numpy(rng.integers(lo, k + 1, (NU, bu)).astype(np.int32))
     Li = torch.from_numpy(rng.integers(lo, k + 1, ni).astype(np.int32))
     if kind == "static":
-        Q = tdbk.identity_quantiles(NU, k)
-    else:
-        from matfac_tpu_torch.models.longtail import poisson_cdf_table
-        Q = tdbk.visit_quantiles(torch.from_numpy(poisson_cdf_table(k)),
-                                 torch.from_numpy(rng.random(NU)
-                                                  .astype(np.float32)))
-    return Lu.to(dev), Li.to(dev), Q.to(dev)
+        return Lu.to(dev), Li.to(dev), None, None
+    from matfac_tpu_torch.models.longtail import poisson_cdf_table
+    return (Lu.to(dev), Li.to(dev),
+            torch.from_numpy(poisson_cdf_table(k)).to(dev),
+            torch.from_numpy(rng.random(NU).astype(np.float32)))
+
+
+def _visit_q(ranks, NU, k):
+    """The plain version's Q of ``ranks``: a rank row a visit in order."""
+    C, u = ranks[2:]
+    return (tdbk.identity_quantiles(NU, k, ranks[0].device) if C is None
+            else tdbk.visit_quantiles(C, u))
 
 
 def _masked_pair(args, ranks, mm_bf16, lr=LR, collision_norm=True):
     """(kernel, plain) epochs of the same masked inputs."""
     u3, i_tab, order, R, W, r_scale = args
-    got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, lr, R, W,
-                                r_scale, U_REG, I_REG, collision_norm,
-                                mm_bf16, ranks=ranks)
-    Lu, Li, Q = ranks
+    got = _stripe_epoch(args, mm_bf16, lr, collision_norm, ranks)
     want = tdbk.dense_sweep_rows(u3.clone(), i_tab.clone(), order, lr, R, W,
                                  U_REG, I_REG, collision_norm, mm_bf16,
-                                 r_scale=r_scale, Lu3=Lu, Li=Li, Q=Q)
+                                 r_scale=r_scale, Lu3=ranks[0], Li=ranks[1],
+                                 Q=_visit_q(ranks, *u3.shape[::2]))
     torch.cuda.synchronize()
     return got, want
 
@@ -328,11 +345,11 @@ def test_masked_kernel_matches_plain(mode, mm_bf16, collision_norm, kind):
     args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
             R, W, r_scale)
     ranks = _ranks(rng, NU, bu, ni, k, kind, dev)
-    before = tdrk.dense_rows_epoch.launches
+    before = tdrk.StripeTiles.launches
     got, want = _masked_pair(args, ranks, mm_bf16,
                              LR if collision_norm else LR / 20,
                              collision_norm)
-    assert tdrk.dense_rows_epoch.launches - before == \
+    assert tdrk.StripeTiles.launches - before == \
         tdrk.epoch_launches(NU, k, mm_bf16)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
@@ -383,10 +400,10 @@ def test_masked_kernel_at_k128_matches_plain(mode, mm_bf16, kind):
     i_tab = torch.from_numpy(scale * rng.normal(size=(ni, k))).float()
     args = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)),
             R, W, r_scale)
-    before = tdrk.dense_rows_epoch.launches
+    before = tdrk.StripeTiles.launches
     got, want = _masked_pair(args, _ranks(rng, NU, bu, ni, k, kind, dev),
                              mm_bf16)
-    assert tdrk.dense_rows_epoch.launches - before == \
+    assert tdrk.StripeTiles.launches - before == \
         tdrk.epoch_launches(NU, k, mm_bf16)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5)
@@ -446,7 +463,8 @@ def test_masked_kernel_bf16_rounding_exact(mode, collision_norm):
 def test_full_rank_masks_equal_the_unmasked_kernel(mode, mm_bf16, k):
     """Every rank at k: the masked instantiation gives the unmasked
     kernel's factors bit for bit, on both routes; with every lambda at k
-    and identity rank rows, and with random lambdas and rows of k."""
+    and identity rank rows, and with random lambdas and rows of k (a CDF
+    table of zeros at uniforms of 1)."""
     dev = _cuda()
     rng = np.random.default_rng(45)
     args = _stripe_args(mode, rng, dev, k=k)
@@ -455,11 +473,10 @@ def test_full_rank_masks_equal_the_unmasked_kernel(mode, mm_bf16, k):
         ranks = _ranks(rng, NU, bu, args[1].shape[0], k, "static", dev,
                        full=full)
         if not full:
-            ranks = (*ranks[:2], torch.full_like(ranks[2], k))
-        u3, i_tab, order, R, W, r_scale = args
-        got = tdrk.dense_rows_epoch(u3.clone(), i_tab.clone(), order, LR, R,
-                                    W, r_scale, U_REG, I_REG, True, mm_bf16,
-                                    ranks=ranks)
+            ranks = (*ranks[:2], torch.zeros((k, k), device=dev),
+                     torch.ones(NU))
+            assert bool((_visit_q(ranks, NU, k) == k).all())
+        got = _stripe_epoch(args, mm_bf16, ranks=ranks)
         want = _stripe_epoch(args, mm_bf16)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -480,9 +497,8 @@ def test_masked_codes_equal_float_tiles_bitwise(rtype, mm_bf16):
     i_tab = torch.from_numpy(0.1 * rng.normal(size=(ni, k))).float()
     base = (u3.to(dev), i_tab.to(dev), torch.from_numpy(rng.permutation(NU)))
     ranks = _ranks(rng, NU, bu, ni, k, "poisson", dev)
-    run = lambda R, W, r_scale: tdrk.dense_rows_epoch(
-        base[0].clone(), base[1].clone(), base[2], LR, R, W, r_scale, U_REG,
-        I_REG, True, mm_bf16, ranks=ranks)
+    run = lambda R, W, r_scale: _stripe_epoch((*base, R, W, r_scale),
+                                              mm_bf16, ranks=ranks)
     got = run(codes, None, 0.5)
     again = run(codes, None, 0.5)
     want = run((codes.float() * 0.5).to(rtype), (codes != 0).to(torch.int8),
@@ -502,11 +518,10 @@ def test_masked_kernel_refuses_float_weights(mode):
     args = _stripe_args(mode, rng, dev, NU=2, bu=64, ni=256, k=16)
     u3, i_tab, order, R, W, r_scale = args
     ranks = _ranks(rng, 2, 64, 256, 16, "static", dev)
-    before = tdrk.dense_rows_epoch.launches
+    before = tdrk.StripeTiles.launches
     with pytest.raises(ValueError, match="rank masks are instantiated"):
-        tdrk.dense_rows_epoch(u3, i_tab, order, LR, R, W, r_scale, U_REG,
-                              I_REG, True, True, ranks=ranks)
-    assert tdrk.dense_rows_epoch.launches == before
+        _stripe_epoch(args, True, ranks=ranks)
+    assert tdrk.StripeTiles.launches == before
 
 
 def _longtail_data():
@@ -534,7 +549,7 @@ def test_tmfdropout_densesgd_resume_is_bit_exact_on_the_card(tmp_path):
         prefix=str(tmp_path / prefix), resume=resume,
         log_fn=lambda s: None)[0]
     full = run("full", p, False)
-    Lu, Li = full.solver.rank_tabs
+    Lu, Li = full.solver.tiles.ranks
     assert int(Lu.min()) < 16 and full.solver.pois_cdf is not None
     run("part", p.replace(max_iter=3), False)
     res = run("part", p, True)
@@ -1147,17 +1162,25 @@ def _cell_args(mode, rng, dev, NU=4, NI=3, bu=100, bi=200, k=64,
     return u3.to(dev), i3.to(dev), ub_idx, R, W, r_scale
 
 
+def _cells_epoch(args, mm_bf16, collision_norm=True, lr=LR, tiles=None):
+    """One cell-grid epoch of ``tiles`` (default: freshly staged from
+    ``args``) on copies of the tables."""
+    u3, i3, ub_idx, R, W, r_scale = args
+    if tiles is None:
+        tiles = tdrk.StripeTiles(R, W, r_scale, u3.shape[2], U_REG, I_REG,
+                                 collision_norm, mm_bf16, NI=i3.shape[0])
+    return tiles.cells_epoch(u3.clone(), i3.clone(), ub_idx, lr)
+
+
 def _cell_pair(args, mm_bf16, collision_norm=True, lr=LR):
     """(kernel result, plain result); the kernel's launches held to its
     plan: a panel and a step launch a round with a live cell, and the
     bf16 copy of U on the tensor-core route."""
     u3, i3, ub_idx, R, W, r_scale = args
-    before = tdrk.dense_cells_epoch.launches
-    kern = tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, lr, R, W,
-                                  r_scale, U_REG, I_REG, collision_norm,
-                                  mm_bf16)
+    before = tdrk.StripeTiles.launches
+    kern = _cells_epoch(args, mm_bf16, collision_norm, lr)
     live = int((ub_idx < u3.shape[0]).any(1).sum())
-    assert tdrk.dense_cells_epoch.launches - before == \
+    assert tdrk.StripeTiles.launches - before == \
         tdrk.epoch_launches(live, u3.shape[2], mm_bf16) == \
         tdrk.cells_plan(ub_idx, u3.shape[0], u3.shape[2],
                         mm_bf16)["launches"]
@@ -1234,12 +1257,13 @@ def test_cell_epoch_is_deterministic(mode, mm_bf16):
     args = _cell_args(mode, np.random.default_rng(44), dev, bu=300, bi=512,
                       scale=0.1)
     u3, i3, ub_idx, R, W, r_scale = args
-    run = lambda: tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, LR,
-                                         R, W, r_scale, U_REG, I_REG, True,
-                                         mm_bf16)
-    a, b = run(), run()
+    tiles = tdrk.StripeTiles(R, W, r_scale, u3.shape[2], U_REG, I_REG, True,
+                             mm_bf16, NI=i3.shape[0])
+    a, b = (_cells_epoch(args, mm_bf16, tiles=tiles) for _ in range(2))
+    c = _cells_epoch(args, mm_bf16)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
 
 
 @pytest.mark.cuda
@@ -1252,9 +1276,8 @@ def test_cell_codes_equal_float_tiles_bitwise(rtype, mm_bf16):
                                              bi=512, scale=0.1)
     R = (codes.float() * 0.5).to(rtype)
     W = (codes != 0).to(torch.int8)
-    run = lambda R_, W_, s: tdrk.dense_cells_epoch(
-        u3.clone(), i3.clone(), ub_idx, LR, R_, W_, s, U_REG, I_REG, True,
-        mm_bf16)
+    run = lambda R_, W_, s: _cells_epoch((u3, i3, ub_idx, R_, W_, s),
+                                         mm_bf16)
     got, want = run(codes, None, 0.5), run(R, W, None)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -1335,9 +1358,7 @@ def test_cell_round_launch_is_bitwise_reproducible(k):
     u3, i3, ub_idx, codes, _, _ = _cell_args("codes", rng, dev, NU=5, NI=3,
                                              bu=260, bi=384, k=k, scale=0.1)
     W = (codes != 0).to(torch.int8)
-    run = lambda R_, W_, s: tdrk.dense_cells_epoch(
-        u3.clone(), i3.clone(), ub_idx, LR, R_, W_, s, U_REG, I_REG, True,
-        True)
+    run = lambda R_, W_, s: _cells_epoch((u3, i3, ub_idx, R_, W_, s), True)
     a, b = run(codes, None, 0.5), run(codes, None, 0.5)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -1359,10 +1380,9 @@ def test_cell_launches_are_one_pair_a_round(mm_bf16):
                                                NI=6, bu=70, bi=130, k=32,
                                                rounds=3)
     assert bool((ub_idx < 6).any(1).all())
-    before = tdrk.dense_cells_epoch.launches
-    tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, LR, R, W,
-                           r_scale, U_REG, I_REG, True, mm_bf16)
-    assert tdrk.dense_cells_epoch.launches - before == \
+    before = tdrk.StripeTiles.launches
+    _cells_epoch((u3, i3, ub_idx, R, W, r_scale), mm_bf16)
+    assert tdrk.StripeTiles.launches - before == \
         int(mm_bf16) + 2 * ub_idx.shape[0]
 
 

@@ -86,14 +86,13 @@ def test_dense_shard_round_kernel_vs_plain(mm_bf16, codes):
                                               device=dev))
     order = torch.randperm(s.SU, generator=torch.Generator().manual_seed(1))
     for j, t in ((0, 0), (3, 2)):
-        R, W = s.tiles(j, t)
+        tiles = s.stripes[j][t]
+        R, W = tiles.R, tiles.W
+        assert R.data_ptr() == s.R_tiles[j][t].data_ptr()   # views, staged
         U = u_blk[j].view(s.SU, s.sub_bu, -1)
-        args = (order, 0.05, R, W, s.r_scale, p.u_reg, p.i_reg,
-                s.collision_norm, mm_bf16)
-        drk.dense_rows_epoch.launches = 0
-        got = drk.dense_rows_epoch(U.clone(), i_blk[j].clone(), *args,
-                                   counts=s.counts[j][t])
-        assert drk.dense_rows_epoch.launches == drk.epoch_launches(
+        drk.StripeTiles.launches = 0
+        got = tiles.rows_epoch(U.clone(), i_blk[j].clone(), order, 0.05)
+        assert drk.StripeTiles.launches == drk.epoch_launches(
             s.SU, p.fac_dim, mm_bf16)
         want = dense_sweep_rows(U.clone(), i_blk[j].clone(), order, 0.05, R,
                                 W, p.u_reg, p.i_reg, s.collision_norm,

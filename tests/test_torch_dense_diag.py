@@ -103,11 +103,13 @@ def test_sweep_diag_matches_jax(kind, mm_bf16, collision_norm):
         jnp.asarray(i3), jnp.asarray(ub_idx), jnp.float32(lr),
         _jax_tile(R, kind), None if W is None else _jax_tile(W, kind), NI,
         U_REG, I_REG, collision_norm, mm_bf16, r_scale=r_scale)
-    tu, ti = tdrk.dense_cells_epoch(
+    tiles = tdrk.StripeTiles(_torch_tile(R, kind),
+                             None if W is None else _torch_tile(W, kind),
+                             r_scale, k, U_REG, I_REG, collision_norm,
+                             mm_bf16, NI=NI)
+    tu, ti = tiles.cells_epoch(
         torch.from_numpy(u3.copy()), torch.from_numpy(i3.copy()),
-        torch.from_numpy(ub_idx.astype(np.int64)), lr, _torch_tile(R, kind),
-        None if W is None else _torch_tile(W, kind), r_scale, U_REG, I_REG,
-        collision_norm, mm_bf16)
+        torch.from_numpy(ub_idx.astype(np.int64)), lr)
     tol = dict(rtol=5e-3, atol=5e-4) if mm_bf16 else dict(rtol=1e-5,
                                                           atol=1e-6)
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju)[:NU], **tol)
@@ -123,16 +125,16 @@ def test_dummy_lanes_leave_the_tables_as_they_are():
     u3 = torch.from_numpy(rng.normal(size=(NU, bu, k)).astype(np.float32))
     i3 = torch.from_numpy(rng.normal(size=(NI, bi, k)).astype(np.float32))
     ub_idx = torch.full((2, NI), NU, dtype=torch.int64)
-    tu, ti = tdrk.dense_cells_epoch(u3.clone(), i3.clone(), ub_idx, 0.05,
-                                    torch.from_numpy(R), torch.from_numpy(W),
-                                    None, U_REG, I_REG, True, True)
+    tiles = tdrk.StripeTiles(torch.from_numpy(R), torch.from_numpy(W), None,
+                             k, U_REG, I_REG, True, True, NI=NI)
+    tu, ti = tiles.cells_epoch(u3.clone(), i3.clone(), ub_idx, 0.05)
     assert torch.equal(tu, u3) and torch.equal(ti, i3)
 
 
 @pytest.mark.parametrize("bad,match", [
     ("repeat", "twice in one round"), ("range", "lie in"),
-    ("lanes", "ub_idx must be"), ("tiles", "shape mismatch"),
-    ("codes", "int8 rating codes")])
+    ("lanes", "ub_idx must be"), ("tiles", "cell tiles must"),
+    ("codes", "int8 rating codes"), ("tables", "factor tables must")])
 def test_cells_epoch_refuses_bad_inputs(bad, match):
     rng = np.random.default_rng(1)
     NU, NI, bu, bi, k = 3, 3, 4, 5, 2
@@ -151,9 +153,11 @@ def test_cells_epoch_refuses_bad_inputs(bad, match):
         R, W = R[:-1], W[:-1]
     elif bad == "codes":
         W = None
+    elif bad == "tables":
+        i3 = i3[:, :-1].contiguous()
     with pytest.raises(ValueError, match=match):
-        tdrk.dense_cells_epoch(u3, i3, ub_idx, 0.05, R, W, None, U_REG,
-                               I_REG, True, True)
+        tdrk.StripeTiles(R, W, None, k, U_REG, I_REG, True, True,
+                         NI=NI).cells_epoch(u3, i3, ub_idx, 0.05)
 
 
 # ----------------------------------------------------------------------
@@ -219,18 +223,24 @@ def test_cell_grid_staging_matches_jax(case):
     kind, kw, r_dtype, w_dtype = LADDER[case]
     j, t, _ = _both(kind, kw)
     assert (t.NU, t.NI, t.schedule) == (j.NU, j.NI, "diag") == (4, 3, "diag")
-    assert tuple(t.R_cells.shape) == tuple(j.R_cells.shape) == (13, 16, 16)
-    assert str(t.R_cells.dtype) == f"torch.{r_dtype}"
-    assert t.r_scale == j.r_scale
-    _same_tiles(t.R_cells, j.R_cells)
-    _same_tiles(t.W_cells, j.W_cells)
+    tiles = t.tiles
+    assert (tiles.NU, tiles.NI, tiles.bu, tiles.width) == (4, 3, 16, 16)
+    assert tuple(tiles.R.shape) == tuple(j.R_cells.shape) == (13, 16, 16)
+    assert str(tiles.R.dtype) == f"torch.{r_dtype}"
+    assert t.r_scale == tiles.r_scale == j.r_scale
+    _same_tiles(tiles.R, j.R_cells)
+    _same_tiles(tiles.W, j.W_cells)
     if w_dtype is not None:
-        assert str(t.W_cells.dtype) == f"torch.{w_dtype}"
-    # the cells' validity counts the kernel reads, dummy cell included
-    for got, want in zip(t.counts, tdrk.stripe_counts(t.R_cells,
-                                                      t.W_cells)):
-        assert torch.equal(got, want)
-    assert float(t.counts[0][-1].sum()) == 0.0
+        assert str(tiles.W.dtype) == f"torch.{w_dtype}"
+    # the validity counts the kernel reads (staged on a CUDA device only)
+    # are JAX's cells' valid slots, the dummy cell's none
+    assert tiles.counts is None
+    cnt_u, cnt_i = tdrk.stripe_counts(tiles.R, tiles.W)
+    valid = np.asarray(j.R_cells if j.W_cells is None else j.W_cells,
+                       np.float32) != 0
+    np.testing.assert_array_equal(cnt_u.numpy(), valid.sum(2))
+    np.testing.assert_array_equal(cnt_i.numpy(), valid.sum(1))
+    assert float(cnt_u[-1].sum()) == 0.0
 
 
 @pytest.mark.parametrize("collision_norm", [False, True])
@@ -279,9 +289,9 @@ def test_weighted_cell_grid_matches_jax():
               engine="dense")
     j = jbs.BlockSGDSolver(jm, params, mat, iu, ii, **kw)
     t = tbs.BlockSGDSolver(tm, params, mat, iu, ii, device="cpu", **kw)
-    assert t.W_cells.dtype == torch.float32 and j.W_cells.dtype == \
+    assert t.tiles.W.dtype == torch.float32 and j.W_cells.dtype == \
         jnp.float32
-    _same_tiles(t.W_cells, j.W_cells)
+    _same_tiles(t.tiles.W, j.W_cells)
     sj = j_init_state(params, 60, 40, seed=3)
     st = state_from_numpy(*(np.asarray(a) for a in sj), device="cpu")
     for ub_idx in jax_dense_rounds(params.seed, t.NU, t.NI, 2):
@@ -293,8 +303,8 @@ def test_weighted_cell_grid_matches_jax():
 
 def test_plain_mf_w_is_int8_and_holds_every_rating():
     j, t, _ = _both("float", {})
-    assert t.W_cells.dtype == torch.int8
-    assert int(t.W_cells.sum()) == t.nnz == j.nnz
+    assert t.tiles.W.dtype == torch.int8
+    assert int(t.tiles.W.sum()) == t.nnz == j.nnz
 
 
 @pytest.mark.parametrize("n_users,n_items,bi", [(120, 80, 16), (900, 300, 128),

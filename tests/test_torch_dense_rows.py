@@ -101,26 +101,26 @@ def test_dense_sweep_rows_matches_jax(mode, collision_norm):
 
 @pytest.mark.parametrize("collision_norm", [False, True])
 def test_port_matches_pallas_float_kernel(collision_norm):
-    """dense_rows_epoch (CPU route) vs dense_rows_epoch_pallas in
+    """StripeTiles.rows_epoch (CPU route) vs dense_rows_epoch_pallas in
     interpret mode, 2 epochs, f32 matmuls."""
     u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=2)
     uj, ij = _j(u3), _j(i_tab)
     ut, it = _t(u3), _t(i_tab)
+    tiles = tdrk.StripeTiles(_t(R), _t(W), None, u3.shape[2], U_REG, I_REG,
+                             collision_norm, mm_bf16=False)
     for order in orders:
         uj, ij = dense_rows_epoch_pallas(
             uj, ij, _j(order), jnp.float32(LR), _j(R), _j(W), panel=64,
             u_reg=U_REG, i_reg=I_REG, collision_norm=collision_norm,
             mm_bf16=False, interpret=True)
-        ut, it = tdrk.dense_rows_epoch(
-            ut, it, _t(order), LR, _t(R), _t(W), None, U_REG, I_REG,
-            collision_norm, mm_bf16=False)
+        ut, it = tiles.rows_epoch(ut, it, _t(order), LR)
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), **TOL[False])
     np.testing.assert_allclose(it.numpy(), np.asarray(ij), **TOL[False])
 
 
 @pytest.mark.parametrize("collision_norm", [False, True])
 def test_port_matches_pallas_codes_kernel(collision_norm):
-    """dense_rows_epoch on int8 codes vs dense_rows_codes_pallas in
+    """StripeTiles.rows_epoch on int8 codes vs dense_rows_codes_pallas in
     interpret mode, 2 epochs. The Pallas kernel stores its item table in
     bf16 between stripes; the port keeps f32 (a documented deviation), so
     the class is the JAX package's own for that store, 5e-3 / 5e-4, at
@@ -140,14 +140,14 @@ def test_port_matches_pallas_codes_kernel(collision_norm):
     R_panels = R.reshape(NU, bu, ni // panel, panel).transpose(0, 2, 1, 3)
     uj, ij = _j(u3), jnp.asarray(i_tab).astype(jnp.bfloat16)
     ut, it = _t(u3), _t(i_tab)
+    tiles = tdrk.StripeTiles(_t(R), None, r_scale, u3.shape[2], U_REG, I_REG,
+                             collision_norm, mm_bf16=True)
     for order in orders:
         uj, ij = dense_rows_codes_pallas(
             uj, ij, _j(order), jnp.float32(LR), _j(R_panels), panel=panel,
             r_scale=r_scale, u_reg=U_REG, i_reg=I_REG,
             collision_norm=collision_norm, interpret=True)
-        ut, it = tdrk.dense_rows_epoch(
-            ut, it, _t(order), LR, _t(R), None, r_scale, U_REG, I_REG,
-            collision_norm, mm_bf16=True)
+        ut, it = tiles.rows_epoch(ut, it, _t(order), LR)
     tol = dict(rtol=5e-3, atol=5e-4)
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), **tol)
     np.testing.assert_allclose(it.numpy(),
@@ -156,14 +156,15 @@ def test_port_matches_pallas_codes_kernel(collision_norm):
 
 def test_cpu_route_is_the_plain_version_and_launches_nothing():
     u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=4)
-    before = tdrk.dense_rows_epoch.launches
-    ut, it = tdrk.dense_rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR,
-                                   _t(R), _t(W), None, U_REG, I_REG, True,
-                                   True)
+    before = tdrk.StripeTiles.launches
+    tiles = tdrk.StripeTiles(_t(R), _t(W), None, u3.shape[2], U_REG, I_REG,
+                             True, True)
+    ut, it = tiles.rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR)
     up, ip = tdbk.dense_sweep_rows(_t(u3), _t(i_tab), _t(orders[0]), LR,
                                    _t(R), _t(W), U_REG, I_REG, True, True)
     assert torch.equal(ut, up) and torch.equal(it, ip)
-    assert tdrk.dense_rows_epoch.launches == before
+    assert tiles.counts is None and tiles.hists is None   # nothing staged
+    assert tdrk.StripeTiles.launches == before
 
 
 @pytest.mark.parametrize("bad", ["shape", "contiguity", "codes_scale",
@@ -191,8 +192,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     else:
         args["u3"] = args["u3"].double()
     with pytest.raises(ValueError):
-        tdrk.dense_rows_epoch(lr=LR, u_reg=U_REG, i_reg=I_REG,
-                              collision_norm=True, mm_bf16=False, **args)
+        tdrk.StripeTiles(args["R_rows"], args["W_rows"], args["r_scale"],
+                         u3.shape[2], U_REG, I_REG, True, False).rows_epoch(
+            args["u3"], args["i_tab"], args["row_order"], LR)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -384,30 +386,92 @@ def test_rank_hists_give_the_masked_counts(mode, ranks):
                                * Mi[:, d])
 
 
+def _masked_tiles(R, W, k, ranks, cdf=None):
+    return tdrk.StripeTiles(_t(R), _t(W), None, k, U_REG, I_REG, True, True,
+                            ranks=ranks, pois_cdf=None if cdf is None
+                            else _t(cdf))
+
+
 def test_masked_cpu_route_is_the_plain_version_and_checks_ranks():
-    """dense_rows_epoch with ranks on CPU tensors runs dense_sweep_rows
-    with the same Q (no launch); ranks out of [1, k] or a Q row that is not
-    nondecreasing are refused."""
+    """rows_epoch with rank masks on CPU tensors runs dense_sweep_rows with
+    the visits' Q drawn from the staged CDF table (no launch); ranks out of
+    [1, k], or not int32, are refused when the object is built."""
     u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=26)
     NU, bu, k = u3.shape
     Lu, Li = _lambdas(np.random.default_rng(27), NU, bu, i_tab.shape[0], k)
     cdf, u = _poisson(k, NU, 28)
     Q = tdbk.visit_quantiles(_t(cdf), _t(u))
-    ranks = (_t(Lu), _t(Li), Q)
-    before = tdrk.dense_rows_epoch.launches
-    got = tdrk.dense_rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(R),
-                                _t(W), None, U_REG, I_REG, True, True,
-                                ranks=ranks)
+    before = tdrk.StripeTiles.launches
+    tiles = _masked_tiles(R, W, k, (_t(Lu), _t(Li)), cdf)
+    got = tiles.rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(u))
     want = tdbk.dense_sweep_rows(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(R),
                                  _t(W), U_REG, I_REG, True, True, Lu3=_t(Lu),
                                  Li=_t(Li), Q=Q)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert tdrk.dense_rows_epoch.launches == before
-    bad_q = Q.clone()
-    bad_q[0] = torch.arange(k, 0, -1, dtype=torch.int32)
-    for bad in ((_t(Lu) * 0, _t(Li), Q), (_t(Lu), _t(Li) + k, Q),
-                (_t(Lu), _t(Li), bad_q), (_t(Lu).long(), _t(Li), Q)):
+    assert tdrk.StripeTiles.launches == before
+    for bad in ((_t(Lu) * 0, _t(Li)), (_t(Lu), _t(Li) + k),
+                (_t(Lu).long(), _t(Li))):
         with pytest.raises(ValueError, match="ranks"):
-            tdrk.dense_rows_epoch(_t(u3), _t(i_tab), _t(orders[0]), LR,
-                                  _t(R), _t(W), None, U_REG, I_REG, True,
-                                  True, ranks=bad)
+            _masked_tiles(R, W, k, bad, cdf)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("lu_below_1", "lie in"), ("li_above_k", "lie in"),
+    ("cdf_column_rises", "do not increase"), ("cdf_shape", "pois_cdf"),
+    ("cdf_without_ranks", "rank masks take"), ("rank_shape", "ranks must"),
+    ("w_shape", "W tiles must"), ("cell_count", "cell tiles must"),
+    ("ranks_on_cells", "rank masks take")])
+def test_construction_rejects_ranks_and_tiles_that_do_not_fit(bad, match):
+    """Everything an epoch of the stripe kernel reads besides the tables
+    and the order is checked once, when the object is built: rank tables
+    in [1, k] (a Q row's lookup index), a CDF table whose columns do not
+    increase down its rows (every visit's rank row then nondecreasing),
+    rank tables, weights and cell counts that fit the tiles."""
+    _, i_tab, R, W, _, _ = _stripes("float_w_int8", seed=29)
+    NU, bu, ni = R.shape
+    k = 6
+    Lu, Li = _lambdas(np.random.default_rng(30), NU, bu, ni, k)
+    cdf, _ = _poisson(k, NU, 31)
+    if bad == "lu_below_1":
+        Lu[1, 2] = 0
+    elif bad == "li_above_k":
+        Li[3] = k + 1
+    elif bad == "cdf_column_rises":
+        cdf[2, 1] = cdf[1, 1] + 1e-3   # row lam = 3 above lam = 2
+    kw = dict(ranks=(_t(Lu), _t(Li)), pois_cdf=_t(cdf))
+    tiles, w = _t(R), _t(W)
+    if bad == "cdf_shape":
+        kw["pois_cdf"] = _t(cdf[:-1])
+    elif bad == "cdf_without_ranks":
+        kw["ranks"] = None
+    elif bad == "rank_shape":
+        kw["ranks"] = (_t(Lu[:, :-1].copy()), _t(Li))
+    elif bad == "w_shape":
+        w = w[:, :, :-1].contiguous()
+    elif bad == "cell_count":   # NU * NI + 1 cells: 5 tiles are not for NI 3
+        kw = dict(NI=3)
+    elif bad == "ranks_on_cells":
+        tiles, w = tiles[:4].contiguous(), w[:4].contiguous()
+        kw["NI"] = 3
+    with pytest.raises(ValueError, match=match):
+        tdrk.StripeTiles(tiles, w, None, k, U_REG, I_REG, True, True, **kw)
+
+
+def test_an_epoch_refuses_a_non_permutation_order_and_leaves_the_tables():
+    """Each stripe once an epoch: an order that repeats a stripe or leaves
+    the range is refused before anything moves; the same object then runs
+    a permutation as the plain version does."""
+    u3, i_tab, R, W, _, orders = _stripes("float_w_int8", seed=32)
+    NU, _, k = u3.shape
+    tiles = tdrk.StripeTiles(_t(R), _t(W), None, k, U_REG, I_REG, True, True)
+    ut, it = _t(u3), _t(i_tab)
+    for bad in (torch.tensor([0, 0, 1, 2, 3]), torch.arange(1, NU + 1),
+                torch.arange(NU - 1), torch.arange(NU).view(1, NU),
+                torch.arange(NU, dtype=torch.float32)):
+        with pytest.raises(ValueError, match="row_order"):
+            tiles.rows_epoch(ut, it, bad, LR)
+        assert torch.equal(ut, _t(u3)) and torch.equal(it, _t(i_tab))
+    got = tiles.rows_epoch(ut, it, _t(orders[0]), LR)
+    want = tdbk.dense_sweep_rows(_t(u3), _t(i_tab), _t(orders[0]), LR, _t(R),
+                                 _t(W), U_REG, I_REG, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

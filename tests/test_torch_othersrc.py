@@ -369,7 +369,7 @@ def test_train_model_headwt_on_the_block_engines_matches_jax(
     sol = rep_t.solver
     assert isinstance(sol, BlockSGDSolver)
     if method == "densesgd":
-        w = sol.W_rows[sol.W_rows > 0]
+        w = sol.tiles.W[sol.tiles.W > 0]
         assert sol.engine == "dense" and w.dtype != torch.int8
         assert set(np.unique(w.float().numpy())) == {np.float32(0.8), 1.0}
     _compare_runs(rep_t, rep_j, 1e-3 if method == "densesgd" else 1e-5)

@@ -112,20 +112,28 @@ def test_ladder_picks_and_grids_match_jax(case):
     kind, kw, r_dtype, w_dtype = LADDER[case]
     j, t, _ = _both_solvers(kind, kw)
     assert (t.bu, t.NU, t.n_items_pad) == (j.bu, j.NU, j.n_items_pad)
-    assert str(t.R_rows.dtype) == f"torch.{r_dtype}" == \
+    tiles = t.tiles
+    assert (tiles.NU, tiles.bu, tiles.width, tiles.NI) == (
+        j.NU, j.bu, j.n_items_pad, None)
+    assert str(tiles.R.dtype) == f"torch.{r_dtype}" == \
         f"torch.{j.R_cells.dtype}"
-    assert t.r_scale == j.r_scale
+    assert t.r_scale == tiles.r_scale == j.r_scale
     if w_dtype is None:
-        assert t.W_rows is None and j.W_cells is None
+        assert tiles.W is None and j.W_cells is None
     else:
-        assert str(t.W_rows.dtype) == f"torch.{w_dtype}" == \
+        assert str(tiles.W.dtype) == f"torch.{w_dtype}" == \
             f"torch.{j.W_cells.dtype}"
-        assert np.array_equal(t.W_rows.numpy(),
+        assert np.array_equal(tiles.W.numpy(),
                               np.asarray(j.W_cells)[:j.NU])
-    # the validity counts the stripe kernel reads, staged with the tiles
-    for got, want in zip(t.counts, stripe_counts(t.R_rows, t.W_rows)):
-        assert torch.equal(got, want)
-    got = t.R_rows
+    # the validity counts the stripe kernel reads (staged on a CUDA device
+    # only) are the valid slots of JAX's stripes
+    assert tiles.counts is None
+    valid = np.asarray(j.R_cells if j.W_cells is None else j.W_cells,
+                       np.float32)[:j.NU] != 0
+    cnt_u, cnt_i = stripe_counts(tiles.R, tiles.W)
+    np.testing.assert_array_equal(cnt_u.numpy(), valid.sum(2))
+    np.testing.assert_array_equal(cnt_i.numpy(), valid.sum(1))
+    got = tiles.R
     want = np.asarray(j.R_cells)[:j.NU]
     if r_dtype == "bfloat16":   # compare bit patterns
         got, want = got.view(torch.int16), want.view(np.int16)
@@ -213,7 +221,7 @@ def test_unported_layouts_and_engines_raise():
     tmf = ModelDropoutSigmoid(params, 60, 40, user_freq=uf, item_freq=if_)
     dense = tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=None,
                                engine="dense", device="cpu")
-    assert dense.rank_tabs is not None and dense.pois_cdf is None
+    assert dense.tiles.ranks is not None and dense.pois_cdf is None
     with pytest.raises(ValueError, match="rank-masked dense needs the row"):
         tbs.BlockSGDSolver(tmf, params, mat, iu, ii, bu=None, bi=16,
                            engine="dense", device="cpu")
@@ -247,7 +255,7 @@ def test_rank_tables_match_jax(algo):
     TMF's masks are JAX's Mu3 / Mi, TMF+Dropout's lambda tables and CDF
     table JAX's, exactly."""
     j, t, p = _longtail_pair(algo, "float", "off", True)
-    Lu, Li = t.rank_tabs
+    Lu, Li = t.tiles.ranks
     k = p.fac_dim
     assert (Lu.dtype, Li.dtype) == (torch.int32, torch.int32)
     if algo == "tmf":
@@ -261,8 +269,10 @@ def test_rank_tables_match_jax(algo):
         assert np.array_equal(Lu.numpy(), lu3[:j.NU])
         assert np.array_equal(Li.numpy(), li)
         assert np.array_equal(t.pois_cdf.numpy(), cdf)
+        assert t.tiles.pois_cdf is t.pois_cdf
     assert int(Li.min()) < k and int(Lu.max()) == k
-    assert t.hists is None   # staged for the kernel on a CUDA device only
+    # staged for the kernel on a CUDA device only
+    assert t.tiles.hists is None and t.tiles.counts is None
 
 
 @pytest.mark.parametrize("collision_norm", [False, True])

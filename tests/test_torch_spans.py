@@ -172,7 +172,8 @@ def test_a_training_loop_records_each_epoch(method, monkeypatch):
     else:
         assert n_scatter == 0
         assert names.count("stripes.launch") == EPOCHS
-        assert names.count("stripes.schedule") == 2 * EPOCHS
+        assert names.count("stripes.schedule") == EPOCHS
+        assert "stripes.ranks" not in names      # plain MF draws no ranks
     for s in spans:
         if s.name in ("sgd.step", "bpr.sample", "stripes.launch",
                       "stripes.schedule"):

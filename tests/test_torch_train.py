@@ -305,9 +305,9 @@ def test_train_model_ifwmf_densesgd_matches_jax(monkeypatch):
             *(np.asarray(a) for a in js), device="cpu"),
         log_fn=lambda s: None)
     sol = rep_t.solver
-    assert (sol.engine, sol.R_rows.dtype, sol.W_rows.dtype) == (
+    assert (sol.engine, sol.tiles.R.dtype, sol.tiles.W.dtype) == (
         "dense", torch.float32, torch.float32)
-    w = sol.W_rows[sol.W_rows > 0]
+    w = sol.tiles.W[sol.tiles.W > 0]
     assert float(w.min()) < 1.0   # float weights, not validity
     assert rep_t.stop_reason == rep_j.stop_reason
     assert rep_t.best_iter == rep_j.best_iter
@@ -650,9 +650,9 @@ def test_train_model_longtail_densesgd_matches_jax(algo, monkeypatch):
                             device="cpu", init_state_override=st,
                             log_fn=lambda s: None)
     sol = rep_t.solver
-    assert sol.engine == "dense" and sol.rank_tabs is not None
+    assert sol.engine == "dense" and sol.tiles.ranks is not None
     assert (sol.pois_cdf is not None) == (algo == "tmfdropout")
-    assert int(sol.rank_tabs[1].min()) < p.fac_dim
+    assert int(sol.tiles.ranks[1].min()) < p.fac_dim
     _compare_runs(rep_t, rep_j, 1e-3)
 
 
