@@ -74,7 +74,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       the CDF-truncated view (launches counted around each run), that
       kernel held against topk_plain on the truncated best view, 4 steps
       held against the CPU copy of the solver on the same draws and masks,
-      two runs of one epoch on the same draws and masks bit-identical;
+      two runs of one epoch on the same draws and masks bit-identical; the
+      fused BPR batch (csrc/bpr_step.cu) called once a batch an epoch,
+      sampler and step, two scatters a step, counted around each run;
   (s) the dense-stripe BPR engine at (g)'s data: train_model(algo="bpr",
       bpr_engine="dense") for 3 epochs at one negative a positive, then 2
       epochs of the panel epoch at panel_q=128 (TrainLoopHR), val HR@10
@@ -127,6 +129,18 @@ Phases, in order; any failure raises and the script exits non-zero:
       a batch, and the largest gap of the tables after 3 epochs against
       the eager route. ``python3 chip_smoke.py --sgd-step`` runs (a), the
       build of the two sources, (ss) and (o) alone;
+  (bs) the fused stream-BPR batch (csrc/bpr_step.cu) at the BPR cell's
+      shape (69,878 users x 10,677 items, 138 positives a user by a 0.8
+      power law, batches of 65,536, k 64, 148 batches): every batch's
+      negatives and weights from the kernel sampler equal to the eager
+      sampler's, one step, one sampler call and two scatters a batch, two
+      runs of an epoch bit-identical, the gradient kernel's device ms a
+      batch beside its bytes bound, the fused and the eager batch's ms in
+      turns and host us a batch, and one epoch against the eager route
+      from one start and one set of words (tables within 1e-5 of the
+      largest entry, the loss within 1e-4). ``python3 chip_smoke.py
+      --bpr-step`` runs (a), the build of the three sources it needs, (bs)
+      and (r) alone;
   (os) the ordered scatter kernel (csrc/ordered_scatter.cu) at the sgd
       cell's two sides (16,384 ids over 138,493 users, uniform, and over
       26,744 items by a 0.8 power law, k 64) and BPR's item side (131,072
@@ -271,9 +285,11 @@ from matfac_tpu_torch.data import io as mfio
 from matfac_tpu_torch.eval.quartile import quartile_ranking_report
 from matfac_tpu_torch.models import increment as inc_mod
 from matfac_tpu_torch.models.base import ModelMF, init_state
+from matfac_tpu_torch.models.bpr import ModelMFBPR
 from matfac_tpu_torch.models.longtail import poisson_cdf_table
 from matfac_tpu_torch.ops import _build
 from matfac_tpu_torch.ops import bisect_probes as bp
+from matfac_tpu_torch.ops import bpr_step as bstep_mod
 from matfac_tpu_torch.ops import block_sgd_kernel as bsk
 from matfac_tpu_torch.ops import dense_row_kernel as drk
 from matfac_tpu_torch.ops import scatter as osc_mod
@@ -308,6 +324,7 @@ BLOCK_SOURCE = "matfac_tpu_torch/csrc/block_sgd.cu"
 PROBE_SOURCE = "matfac_tpu_torch/csrc/bisect_probes.cu"
 SCATTER_SOURCE = "matfac_tpu_torch/csrc/ordered_scatter.cu"
 STEP_SOURCE = "matfac_tpu_torch/csrc/sgd_step.cu"
+BPR_STEP_SOURCE = "matfac_tpu_torch/csrc/bpr_step.cu"
 HOST_SOURCE = "matfac_tpu_torch/csrc/native_host.cpp"
 # top-N: f32 dot products summed in another order at k <= 128
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
@@ -399,13 +416,14 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     paths = _build.build_all(["dense_rows", "topk", "block_sgd",
                               "bisect_probes", "ordered_scatter",
-                              "sgd_step", "native_host"])
-    for mod in (drk, tk, bsk, bp, osc_mod, step_mod):
+                              "sgd_step", "bpr_step", "native_host"])
+    for mod in (drk, tk, bsk, bp, osc_mod, step_mod, bstep_mod):
         mod.library()
     assert native.available()
     dt = time.perf_counter() - t0
     log(f"(b) build + load of {SOURCE}, {TOPK_SOURCE}, {BLOCK_SOURCE}, "
-        f"{PROBE_SOURCE}, {SCATTER_SOURCE}, {STEP_SOURCE} and {HOST_SOURCE} "
+        f"{PROBE_SOURCE}, {SCATTER_SOURCE}, {STEP_SOURCE}, {BPR_STEP_SOURCE} "
+        f"and {HOST_SOURCE} "
         f"({_build.host_compiler()}): "
         f"{dt:.2f} s "
         f"({', '.join(p.name for p in paths.values())})")
@@ -1479,16 +1497,20 @@ def _pass_bound(args: dict, n: int) -> tuple:
 def phase_ranking(data: Data, dev="cuda"):
     """(g): the main path (train with val HR@10 after each epoch, test ARHR
     at n=1000, Recommender answering 2,048 users) with the top-N counts
-    zeroed just before and read after each step; then each route against
+    zeroed just before and read after each step, and the fused BPR batch's
+    calls in the training (``_bpr_calls``); then each route against
     the plain version on the best view, the radix route's first m slots
     against the fused route's top-m bit for bit, and both timed, the radix
     route by stage beside torch.topk on its score scratch. Returns {route:
-    (launches, max abs error, kernel ms, plain ms, bound)}."""
+    (launches, max abs error, kernel ms, plain ms, bound)} and the fused
+    BPR batch's step calls."""
     params = Params(**BPR_CELL[1])
     n_users, n_items = data.n_users, data.n_items
     os.makedirs(RUN_DIR, exist_ok=True)
     prefix = os.path.join(RUN_DIR, "bpr")
     tk.topk_catalog.launches = 0
+    bs = bstep_mod.BPRStep
+    bs.launches = bs.sample_launches = bs.scatter_launches = 0
     t0 = time.perf_counter()
     rep, model, scorer, _ = train_model(data, params, algo="bpr",
                                         mf_method="train", device=dev,
@@ -1496,6 +1518,7 @@ def phase_ranking(data: Data, dev="cuda"):
                                         log_fn=lambda s: log(f"(g) {s}"))
     wall = time.perf_counter() - t0
     n_train = tk.topk_catalog.launches
+    n_steps = _bpr_calls("(g)", rep, len(rep.history))
     view = model.eval_view(rep.best_state)
     arhr = scorer.arhr(view, data.test_mat, 1000)
     n_arhr = tk.topk_catalog.launches - n_train
@@ -1663,7 +1686,25 @@ def phase_ranking(data: Data, dev="cuda"):
     return {"fused": (n_train + n_rec, err_all, float(np.mean(k10)),
                       float(np.mean(p10)), bound10),
             "radix": (n_arhr, err_all, float(np.mean(k1k)),
-                      float(np.mean(p1k)), bound1k)}
+                      float(np.mean(p1k)), bound1k),
+            "bpr_steps": n_steps}
+
+
+def _bpr_calls(tag: str, rep, epochs: int) -> int:
+    """The fused BPR batch's calls in a ``train_model`` run of ``epochs``
+    epochs, ``BPRStep``'s counts zeroed just before it: one sampler and one
+    step call a batch an epoch, two scatters a step. Returns the step
+    calls."""
+    b = bstep_mod.BPRStep
+    solver = rep.solver
+    assert isinstance(solver, BPRSolver), type(solver)
+    want = epochs * solver.n_batches
+    got = (b.launches, b.sample_launches, b.scatter_launches)
+    log(f"{tag} fused BPR batch calls in train_model (step, sampler, "
+        f"scatters) {got} (want {(want, want, 2 * want)}: one step and one "
+        f"sampler call a batch an epoch, two scatters a step)")
+    assert got == (want, want, 2 * want), (got, want)
+    return b.launches
 
 
 # ----------------------------------------------------------------------
@@ -1799,17 +1840,23 @@ def phase_hybrid(data: Data, dev="cuda") -> dict:
     the CDF-truncated view; that kernel held against topk_plain on the
     truncated best view; 4 steps on the card held against the CPU copy of
     the solver on the same draws and masks; epoch ms, idle share, peak
-    memory and bound. Returns {method: timing}, the top-N launches and the
-    kernel's error."""
+    memory and bound; the fused BPR batch's calls in the ``train_model``
+    runs (``BPRStep``'s counts, from 0 at each; ``_bpr_calls``). Returns
+    {method: timing}, the top-N launches and the kernel's error, and the
+    fused batch's step calls and scatters."""
     out, launches, err = {}, 0, 0.0
+    n_steps = scatters = 0
     for method, n in (("train", 3), ("sigmoid", 2)):
         params = Params(**dict(BPR_CELL[1], learn_rate=BPR_E2E_LR,
                                max_iter=n))
+        B = bstep_mod.BPRStep
+        B.launches = B.sample_launches = B.scatter_launches = 0
         rep, model, scorer, n_launch = _hr_run("r", data, params,
                                                "bpr_poisson", method, dev)
         launches += n_launch
         solver = rep.solver
-        assert isinstance(solver, BPRSolver), type(solver)
+        n_steps += _bpr_calls(f"(r) {method}:", rep, n)
+        scatters += B.scatter_launches
         assert model.sample_poisson == (method == "train")
         view = model.eval_view(rep.best_state)
         r_u, r_i = model.rank_u, model.rank_i
@@ -1870,7 +1917,8 @@ def phase_hybrid(data: Data, dev="cuda") -> dict:
             f"batches, {out[method]['pairs_per_s']:.4e} pairs/s")
         del rep, solver, scorer, cpu, st_c, st_g, state, view, args
         torch.cuda.empty_cache()
-    return {"timings": out, "launches": launches, "max_abs_err": err}
+    return {"timings": out, "launches": launches, "max_abs_err": err,
+            "bpr_steps": n_steps, "bpr_scatters": scatters}
 
 
 def phase_dense_bpr(data: Data, dev="cuda") -> dict:
@@ -2762,9 +2810,10 @@ def _device_kernels(fn):
 
 @contextlib.contextmanager
 def _eager_step(solver):
-    """``solver``'s epochs through the eager step (``sgd_step_plain`` on
-    the card, its scatters by the staged plans: the route before the fused
-    step), as a yardstick."""
+    """``solver``'s epochs through the eager step (``sgd_step_plain``, or
+    BPR's ``bpr_sample_plain`` and ``bpr_step_plain``, on the card, their
+    scatters by the staged plans: the route before the fused step), as a
+    yardstick."""
     solver.step.epoch = solver.step.epoch_plain
     try:
         yield
@@ -2983,6 +3032,165 @@ def phase_sgd_step(dev="cuda") -> dict:
     torch.cuda.empty_cache()
     return dict(max_abs_err=gap,
                 ms=dev_ms["sgd_grad_kernel"],
+                step_ms=float(np.mean(fused)) / nb,
+                plain_ms=float(np.mean(eager)) / nb, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+# ----------------------------------------------------------------------
+# (bs): the fused stream-BPR batch, csrc/bpr_step.cu, at the BPR cell's
+# shape
+# ----------------------------------------------------------------------
+
+# the benchmark cell ml10m-bpr-train: ML-10M's rated users and items, 138
+# train positives a user (9,643,164: 148 batches of 65,536), k 64, lr 0.1,
+# reg 0.001, two tries of the rank-gap sampler
+BS_SHAPE = dict(n_users=69_878, n_items=10_677, per_user=138, law=0.8)
+BS_PARAMS = dict(fac_dim=64, u_reg=0.001, i_reg=0.001, learn_rate=0.1,
+                 seed=0, batch_size=65_536)
+BS_EAGER = ["elementwise", "gather", "reduce", "DeviceRadixSort",
+            "ordered_scatter_kernel"]
+BS_FUSED = ["bpr_sample_kernel", "bpr_grad_kernel", "bpr_sum_kernel",
+            "DeviceRadixSort", "ordered_scatter_kernel"]
+
+
+def _bs_matrix(n_users, n_items, per_user, law, dev, seed=0) -> RatingMatrix:
+    """``per_user`` distinct items a user, drawn without replacement by a
+    ``law`` power law (Gumbel top-k on the card, 4,096 users at a time),
+    each row sorted; every rating 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logw = -law * torch.log(torch.arange(1, n_items + 1, device=dev,
+                                         dtype=torch.float32))
+    rows = []
+    for lo in range(0, n_users, 4096):
+        n = min(4096, n_users - lo)
+        u = torch.rand((n, n_items), generator=g, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_(1e-20, 1.0)))
+        top = torch.topk(logw + gumbel, per_user, dim=1).indices
+        rows.append(torch.sort(top, dim=1).values.to(torch.int32).cpu())
+    items = torch.cat(rows).reshape(-1).numpy()
+    indptr = np.arange(n_users + 1, dtype=np.int64) * per_user
+    return RatingMatrix(indptr, items, np.ones(len(items), np.float32),
+                        n_items)
+
+
+def bpr_step_bound(solver, k: int, rows: float, esize: int = 4) -> tuple:
+    """A batch of the gradient kernel by the bytes it must move to and from
+    HBM: the ``rows`` distinct table rows its triples touch (the mean a
+    batch: a row that several triples share, or that sits in L2, need not
+    come from HBM twice) read once, each triple's three scratch rows
+    written, its three int64 ids and f32 weight read and its two int32 sort
+    keys written once."""
+    B = solver.batch_size
+    return _bound(rows * k * esize + B * (3 * k * esize + 3 * 8 + 4 + 2 * 4),
+                  0.0, "f32")
+
+
+def phase_bpr_step(dev="cuda") -> dict:
+    """(bs): the fused BPR batch at the BPR cell's shape (``BS_SHAPE``,
+    ``BS_PARAMS``): every batch's negatives and weights from the kernel
+    sampler against the eager sampler (equal); one epoch's calls; its
+    kernels' device ms a batch (torch.profiler) beside the gradient
+    kernel's bytes bound; the epoch's ms through the fused and the eager
+    batch in turns (CUDA events) and each one's host us a batch; two runs
+    of an epoch bit-identical; one epoch from one start and one set of
+    words through each route: the largest gap of the tables (within 1e-5
+    of the largest entry), the loss and inversions. Returns the
+    kernels-table numbers."""
+    t0 = time.perf_counter()
+    mat = _bs_matrix(**BS_SHAPE, dev=dev)
+    params = Params(**BS_PARAMS)
+    nu, ni = BS_SHAPE["n_users"], BS_SHAPE["n_items"]
+    none = np.zeros(nu, bool), np.zeros(ni, bool)
+    solver = BPRSolver(ModelMFBPR(params, nu, ni), params, mat, *none,
+                       device=dev)
+    k, lr, nb, B = (params.fac_dim, params.learn_rate, solver.n_batches,
+                    solver.batch_size)
+    s0 = init_state(params, nu, ni, device=dev)
+    border, bits = solver.draw()
+    log(f"(bs) {solver.n_pos:,} positives in {nb} batches of {B} over "
+        f"{nu:,} x {ni:,}, k {k}, made and staged in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sums = (torch.zeros((), device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+    st = _clone_state(s0)
+    sample, _ = solver.step.epoch(st.u_fac, st.i_fac, lr, bits, *sums)
+    differ = found = rows = 0
+    for t, b in enumerate(border.tolist()):
+        sl = slice(b * B, (b + 1) * B)
+        neg, w = sample(t, b)
+        rows += torch.unique(solver.pos_u[sl]).numel() + torch.unique(
+            torch.cat([solver.pos_i[sl], neg])).numel()
+        want, ok = solver.sample_rankgap(solver.pos_start[sl],
+                                         solver.pos_deg[sl], bits[t, 0],
+                                         bits[t, 1])
+        differ += int((neg != want).sum()) + int(
+            (w != solver.pos_valid[sl] * ok.to(torch.float32)).sum())
+        found += int(ok.sum())
+    log(f"(bs) kernel sampler against the eager sampler, every batch: "
+        f"{differ} negatives or weights differ; {found:,} of "
+        f"{nb * B:,} slots found a negative "
+        f"{'ok' if differ == 0 else 'FAIL'}")
+    assert differ == 0, differ
+    epoch = lambda: solver.epoch_with(_clone_state(s0), lr, border, bits)
+    Bs = bstep_mod.BPRStep
+    n0 = (Bs.launches, Bs.sample_launches, Bs.scatter_launches)
+    epoch()
+    torch.cuda.synchronize()
+    got = tuple(x - y for x, y in zip((Bs.launches, Bs.sample_launches,
+                                       Bs.scatter_launches), n0))
+    log(f"(bs) one epoch: (step, sampler, scatter) calls {got}")
+    assert got == (nb, nb, 2 * nb), (got, nb)
+    _twice("bs", "fused BPR batch", epoch)
+    dev_ms = {n: v / nb for n, v in _kernel_ms(epoch, BS_FUSED).items()}
+    rows /= nb
+    bound = bpr_step_bound(solver, k, rows)
+
+    def host_us(run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / nb * 1e6
+
+    fused, eager = [_cuda_ms(epoch)], []
+    host = {"fused": [host_us(epoch)], "eager": []}
+    with _eager_step(solver):
+        epoch()
+        eager += [_cuda_ms(epoch) for _ in range(2)]
+        host["eager"].append(host_us(epoch))
+        eager_dev = _kernel_ms(epoch, BS_EAGER)
+    fused.append(_cuda_ms(epoch))
+    host["fused"].append(host_us(epoch))
+    log(f"(bs) device ms a batch: gradient kernel "
+        f"{dev_ms['bpr_grad_kernel']:.5f} (bound {bound[0]:.5f}, "
+        f"{bound[1]}, {rows:,.0f} distinct table rows a batch: "
+        f"{bound[0] / dev_ms['bpr_grad_kernel']:.1%}), fused "
+        f"kernels {dev_ms!r}; the eager batch's by kernel family an epoch "
+        f"{eager_dev!r} ms")
+    log(f"(bs) an epoch in turns (CUDA events): fused {fused!r} ms, eager "
+        f"{eager!r} ms; host us a batch {host!r}; "
+        f"{solver.n_pos / np.mean(fused) * 1e3:.4e} pairs/s fused, "
+        f"{solver.n_pos / np.mean(eager) * 1e3:.4e} eager")
+    got = epoch()
+    sums_f = (float(solver.last_loss), int(solver.last_inversions))
+    with _eager_step(solver):
+        want = epoch()
+    sums_e = (float(solver.last_loss), int(solver.last_inversions))
+    torch.cuda.synchronize()
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got[:2], want[:2]))
+    top = max(float(b.float().abs().max()) for b in want[:2])
+    log(f"(bs) one epoch, fused against eager from one start and one set "
+        f"of words: largest table gap {gap:.3e} (largest entry {top:.3e}); "
+        f"(loss, inversions) fused {sums_f!r}, eager {sums_e!r}")
+    assert gap <= 1e-5 * max(top, 1.0), gap
+    assert abs(sums_f[0] - sums_e[0]) <= 1e-4 * abs(sums_e[0]), \
+        (sums_f, sums_e)
+    del solver, got, want, st, mat
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=gap, ms=dev_ms["bpr_grad_kernel"],
                 step_ms=float(np.mean(fused)) / nb,
                 plain_ms=float(np.mean(eager)) / nb, bound_ms=bound[0],
                 bound_by=bound[1])
@@ -4029,10 +4237,12 @@ def _cpu_copy(solver):
     if hasattr(solver, "_stage"):
         c._stage = [[tuple(t.cpu() for t in ch) for ch in side]
                     for side in solver._stage]
-    if isinstance(solver, SGDSolver):
+    if isinstance(solver, (SGDSolver, BPRSolver)):
         # the batch views and the step hold the stream too (CPU tables
         # take the step's plain route)
-        c.batches = [tuple(t.cpu() for t in bt) for bt in solver.batches]
+        if isinstance(solver, SGDSolver):
+            c.batches = [tuple(t.cpu() for t in bt)
+                         for bt in solver.batches]
         c.step = copy.copy(solver.step)
         for key, v in vars(solver.step).items():
             if torch.is_tensor(v):
@@ -5170,6 +5380,54 @@ def _ss_entry(ss: dict, o: dict) -> dict:
             "library_ms": None, "library": NO_LIBRARY}
 
 
+def _bs_entry(bs: dict, g: dict, hyb: dict) -> dict:
+    """The kernels-table entry of the fused BPR batch: launches, the step
+    calls of (g)'s front-door run of the BPR cell's route (``algo="bpr"``,
+    no mask), and beside them those of (r)'s hybrid runs (masked), each
+    counted from 0 at each run; the largest gap to the eager batch,
+    (bs)'s; (bs)'s times a batch (card ms: the gradient kernel; plain ms:
+    the eager batch)."""
+    return {"name": "bpr_step<f32|bf16>", "route": "cuda",
+            "source": BPR_STEP_SOURCE,
+            "replaces": "none (XLA's gathers, products, sort and "
+                        "scatter-add)",
+            "launches": g["bpr_steps"],
+            "launches_masked": hyb["bpr_steps"],
+            "max_abs_err": bs["max_abs_err"],
+            "ms": bs["ms"], "step_ms": bs["step_ms"],
+            "plain_ms": bs["plain_ms"], "bound_ms": bs["bound_ms"],
+            "bound_by": bs["bound_by"], "library_ms": None,
+            "library": NO_LIBRARY}
+
+
+def bpr_step_main() -> int:
+    """``--bpr-step``: phases (a), the build of the three sources it runs,
+    (bs), (g) and (r); prints the kernels-table entry and the device."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    phase_env()
+    _build.build_all(["ordered_scatter", "bpr_step", "topk"])
+    osc_mod.library(), bstep_mod.library(), tk.library()
+    log(f"(b) build + load of {SCATTER_SOURCE}, {BPR_STEP_SOURCE} and "
+        f"{TOPK_SOURCE}: {time.perf_counter() - t_start:.2f} s")
+    bs = phase_bpr_step()
+    data = bench_data(**BPR_CELL[0])
+    g = phase_ranking(data)
+    hyb = phase_hybrid(data)
+    log(f"chip_smoke --bpr-step: every phase in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [_bs_entry(bs, g, hyb)],
+                      "ordered_scatter_launches": hyb["bpr_scatters"]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def sgd_step_main() -> int:
     """``--sgd-step``: phases (a), the build of the two sources, (ss) and
     (o) on (d)'s data; prints the kernels-table entry and the device."""
@@ -5321,6 +5579,8 @@ def main() -> int:
     lap("o")
     ss = phase_sgd_step()
     lap("ss")
+    bs = phase_bpr_step()
+    lap("bs")
     osc = phase_ordered_scatter()
     lap("os")
     phase_als(data_d)
@@ -5411,6 +5671,7 @@ def main() -> int:
               max(block["cell"], cell[1]), cell[2], cell[3], cell[4]),
         _os_entry(osc, o["scatters"]),
         _ss_entry(ss, o),
+        _bs_entry(bs, g, hyb),
     ] + [entry(f"probe<{name}>", PROBE_SOURCE,
                f"scripts/tpu_pallas_bisect.py:{PROBE_LINES[name]}", *res)
          for name, res in probes.items()]
@@ -5433,6 +5694,8 @@ if __name__ == "__main__":
         sys.exit(ordered_scatter_main())
     if sys.argv[1:2] == ["--sgd-step"]:
         sys.exit(sgd_step_main())
+    if sys.argv[1:2] == ["--bpr-step"]:
+        sys.exit(bpr_step_main())
     if sys.argv[1:2] == ["--stripes"]:
         sys.exit(stripes_main())
     sys.exit(main())

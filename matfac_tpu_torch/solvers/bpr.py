@@ -30,6 +30,11 @@ an order staged once), the item scatter over the fused [p; neg] index. A
 model with a triple rank mask (the BPR x TMF+Poisson hybrid) masks p_u in
 r_uij and all three gradients; the mask of each step is drawn from the
 solver's second generator (``mask_gen``), or given to ``epoch_with``.
+A batch goes through ``ops/bpr_step.BPRStep``: on the CPU the sampler and
+the step as eager ops, on the card two calls of ``csrc/bpr_step.cu`` (the
+rank-gap sampler's kernel; the gradient kernel, the item side's sort and
+both ordered scatters). Posneg mode and the literal gap sampler keep their
+eager samplers and step through the same call.
 
 What the port keeps from the JAX package: each epoch's randomness is one
 batch order ``border`` [n_batches] and one tensor of 32-bit random words
@@ -54,33 +59,11 @@ import torch
 
 from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.models.base import MFState
-from matfac_tpu_torch.ops.scatter import index_add_ordered_, stage_plans
-from matfac_tpu_torch.train.profiler import span
+from matfac_tpu_torch.ops.bpr_step import BPRStep, bpr_sample_plain
+from matfac_tpu_torch.ops.scatter import stage_plans
+from matfac_tpu_torch.train.profiler import count, span
 
 _WORD = 1 << 32
-
-
-def bpr_pair_terms(pu, qp, qn, w, u_reg: float, i_reg: float, m=None):
-    """Batched pairwise BPR loss and analytic gradients
-    (modelMFBPR.cpp:501-521) of the per-triple loss
-
-        w * [ ln(1 + e^{-r_uij}) + u_reg ||pu ⊙ m||^2
-              + i_reg (||qp ⊙ m||^2 + ||qn ⊙ m||^2) ]
-
-    with r_uij = <pu ⊙ m, qp − qn>; ``m`` is the [B, k] triple rank mask,
-    None (all ones) for plain BPR. Returns (gu, gp, gn, r_uij, loss_sum);
-    loss_sum is the data term only, computed as logaddexp(0, -r) so it
-    stays finite at |r| ~ 1e3 in f32."""
-    pm = pu if m is None else pu * m
-    r_uij = (pm * qp).sum(dim=1) - (pm * qn).sum(dim=1)
-    loss_sum = (w * torch.logaddexp(torch.zeros_like(r_uij), -r_uij)).sum()
-    coeff = w * (-1.0 / (1.0 + torch.exp(r_uij)))
-    gu = coeff[:, None] * (qp - qn) + 2.0 * u_reg * w[:, None] * pu
-    gp = coeff[:, None] * pu + 2.0 * i_reg * w[:, None] * qp
-    gn = -coeff[:, None] * pu + 2.0 * i_reg * w[:, None] * qn
-    if m is not None:
-        gu, gp, gn = gu * m, gp * m, gn * m
-    return gu, gp, gn, r_uij, loss_sum
 
 
 class BPRSolver:
@@ -132,11 +115,6 @@ class BPRSolver:
         self.n_pos = n
         self.batch_size = bs
         self.n_batches = len(pr_pad) // bs
-        # the user side's order of adds on the card, a stream batch's users
-        # being static (the CPU's index_add_ takes no plan)
-        self.u_plans = (stage_plans(self.pos_u.view(self.n_batches, bs),
-                                    int(model.n_users))
-                        if mode == "stream" and dev.type == "cuda" else None)
 
         # the full train rows (explicit zeros included), sorted per row
         nnz = train_mat.nnz
@@ -186,6 +164,19 @@ class BPRSolver:
             params.seed + 47)
         self.last_loss = torch.zeros((), device=dev)
         self.last_inversions = torch.zeros((), dtype=torch.int64, device=dev)
+        rankgap = sampler == "rankgap" and mode == "stream"
+        # the user side's order of adds on the card, a stream batch's users
+        # being static (the CPU's index_add_ takes no plan)
+        u_plans = (stage_plans(self.pos_u.view(self.n_batches, bs),
+                               int(model.n_users))
+                   if mode == "stream" and dev.type == "cuda" else None)
+        self.step = BPRStep(
+            self.pos_u, self.pos_i, self.pos_valid, self.pos_start,
+            self.pos_deg, self.csr_cols, self.csr_vals,
+            *((self.cum_lo, self.cnt, self.sel_items) if rankgap
+              else (None,) * 3),
+            u_plans, bs, n_tries, params.u_reg, params.i_reg,
+            params.eps, int(model.n_users), self.n_items)
 
     # ------------------------------------------------------------------
     def _row(self, pos: torch.Tensor):
@@ -221,30 +212,13 @@ class BPRSolver:
         return neg, ok
 
     def sample_rankgap(self, start, deg, jj_bits, j_bits):
-        """Rank-gap sampler (module docstring). Returns (neg, ok)."""
-        B = start.shape[0]
-        pos = (start[None, :] + jj_bits % deg[None, :]).clamp(
-            0, max(self.nnz - 1, 0))
-        vr = torch.zeros(B, dtype=torch.int64, device=start.device)
-        is_rank = torch.zeros(B, dtype=torch.bool, device=start.device)
-        ok = torch.zeros(B, dtype=torch.bool, device=start.device)
-        for t in range(jj_bits.shape[0]):
-            p = pos[t]
-            explicit = self.csr_vals[p] == 0.0
-            cnt = self.cnt[p]
-            gap_ok = cnt > 0
-            m = j_bits[t] % torch.clamp(cnt, min=1)
-            cand_vr = torch.where(explicit, self.csr_cols[p],
-                                  self.cum_lo[p] + m)
-            cand_ok = explicit | gap_ok
-            take = cand_ok & ~ok
-            vr = torch.where(take, cand_vr, vr)
-            is_rank = torch.where(take, ~explicit & gap_ok, is_rank)
-            ok = ok | cand_ok
-        n_sel = self.sel_items.shape[0]
-        neg = torch.where(is_rank, self.sel_items[vr.clamp(0, n_sel - 1)],
-                          vr)
-        return neg, ok
+        """Rank-gap sampler (module docstring), the eager route
+        (``ops/bpr_step.bpr_sample_plain``) on this solver's tables, in the
+        call shape of ``sample_gap``, so that a caller picks either by the
+        solver's ``sampler``. Returns (neg, ok)."""
+        return bpr_sample_plain(start, deg, jj_bits, j_bits, self.csr_cols,
+                                self.csr_vals, self.cum_lo, self.cnt,
+                                self.sel_items)
 
     def sample_posneg(self, bb):
         """One posneg batch from its words bb [2 + 2 n_tries, B]: (u, p,
@@ -296,54 +270,51 @@ class BPRSolver:
         if "mask_gen" in st:
             self.mask_gen.set_state(as_state(st["mask_gen"]))
 
-    def _step(self, st: MFState, u, p, neg, w, lr: float, m=None,
-              u_plan=None):
-        params = self.params
-        if m is None:
-            m = self.model.triple_rank_mask(u, p, neg,
-                                            generator=self.mask_gen)
-        pu, qp, qn = st.u_fac[u], st.i_fac[p], st.i_fac[neg]
-        gu, gp, gn, r_uij, loss = bpr_pair_terms(
-            pu, qp, qn, w, float(params.u_reg), float(params.i_reg), m)
-        inv = ((-r_uij > float(params.eps)) & (w > 0)).sum()
-        index_add_ordered_(st.u_fac, 0, u, (-lr * gu).to(st.u_fac.dtype),
-                           u_plan)
-        index_add_ordered_(st.i_fac, 0, torch.cat([p, neg]),
-                           (-lr * torch.cat([gp, gn])).to(st.i_fac.dtype))
-        return loss, inv
-
     def epoch_with(self, state: MFState, lr: float, border, bits,
                    masks=None) -> MFState:
         """One epoch on the given draws (see ``draw``). ``masks``: the
         triple rank mask of each step, [B, k] 0/1 (step t uses masks[t]),
         in place of the model's, e.g. the draws of the JAX engine; None asks
-        the model (a sampled-rank model draws from ``mask_gen``)."""
+        the model (a sampled-rank model draws from ``mask_gen``). Each batch
+        goes through ``self.step`` (``ops/bpr_step.BPRStep``): the plain
+        lines on CPU tables, two kernel calls on CUDA tables."""
         loss = torch.zeros((), device=self.device)
         inv = torch.zeros((), dtype=torch.int64, device=self.device)
         B = self.batch_size
         bits = bits.to(self.device)
-        mask_of = lambda t: (None if masks is None else torch.as_tensor(
-            masks[t], dtype=torch.float32, device=self.device))
+        rankgap = self.mode == "stream" and self.sampler == "rankgap"
+        sample, step = self.step.epoch(state.u_fac, state.i_fac, lr,
+                                       bits.contiguous() if rankgap else None,
+                                       loss, inv)
+
+        def mask(t, u, p, neg):
+            if masks is not None:
+                return torch.as_tensor(masks[t], dtype=torch.float32,
+                                       device=self.device)
+            return self.model.triple_rank_mask(u, p, neg,
+                                               generator=self.mask_gen)
+
         if self.mode == "posneg":
+            count("bpr.batches", self.n_batches)
             for b in range(self.n_batches):
                 with span("bpr.sample"):
-                    drawn = self.sample_posneg(bits[b])
-                bl, bi = self._step(state, *drawn, lr, mask_of(b))
-                loss, inv = loss + bl, inv + bi
+                    u, p, neg, w = self.sample_posneg(bits[b])
+                step(b, neg, w, mask(b, u, p, neg), u, p)
         else:
-            sample = (self.sample_rankgap if self.sampler == "rankgap"
-                      else self.sample_gap)
+            order = border.tolist()
+            count("bpr.batches", len(order))
             # step t takes batch border[t] and the words bits[t]
-            for t, b in enumerate(border.tolist()):
+            for t, b in enumerate(order):
                 sl = slice(b * B, (b + 1) * B)
-                start, deg = self.pos_start[sl], self.pos_deg[sl]
                 with span("bpr.sample"):
-                    neg, ok = sample(start, deg, bits[t, 0], bits[t, 1])
-                w = self.pos_valid[sl] * ok.to(torch.float32)
-                bl, bi = self._step(state, self.pos_u[sl], self.pos_i[sl],
-                                    neg, w, lr, mask_of(t),
-                                    self.u_plans[b] if self.u_plans else None)
-                loss, inv = loss + bl, inv + bi
+                    if rankgap:
+                        neg, w = sample(t, b)
+                    else:
+                        neg, ok = self.sample_gap(self.pos_start[sl],
+                                                  self.pos_deg[sl],
+                                                  bits[t, 0], bits[t, 1])
+                        w = self.pos_valid[sl] * ok.to(torch.float32)
+                step(b, neg, w, mask(t, self.pos_u[sl], self.pos_i[sl], neg))
         self.last_loss, self.last_inversions = loss, inv
         return state
 

@@ -25,6 +25,7 @@ from matfac_tpu.train.loop import train_model as j_train_model
 from matfac_tpu.utils import freq
 from matfac_tpu_torch.models.base import init_state, state_from_numpy
 from matfac_tpu_torch.models.bpr import ModelBPRPoissonDropout, ModelMFBPR
+from matfac_tpu_torch.ops.bpr_step import bpr_pair_terms
 from matfac_tpu_torch.serving import Recommender
 from matfac_tpu_torch.solvers import bpr as tbpr
 from matfac_tpu_torch.train.loop import train_model
@@ -201,9 +202,8 @@ def test_pair_terms_with_a_mask_match_jax():
          ).astype(np.float32)
     want = jbpr.bpr_pair_terms(*(jnp.asarray(a) for a in (pu, qp, qn, w,
                                                            m)), 0.01, 0.03)
-    got = tbpr.bpr_pair_terms(*(torch.from_numpy(a) for a in (pu, qp, qn,
-                                                              w)),
-                              0.01, 0.03, torch.from_numpy(m))
+    got = bpr_pair_terms(*(torch.from_numpy(a) for a in (pu, qp, qn, w)),
+                         0.01, 0.03, torch.from_numpy(m))
     for g, j in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=RTOL,
                                    atol=ATOL)

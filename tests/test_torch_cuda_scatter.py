@@ -32,7 +32,6 @@ from matfac_tpu_torch.ops.scatter import (index_add_ordered_,
 from matfac_tpu_torch.ops.svd_init import svd_init
 from matfac_tpu_torch.parallel.dsgd import DSGDShardedSolver
 from matfac_tpu_torch.parallel.mesh import make_mesh
-from matfac_tpu_torch.solvers import bpr as bpr_mod
 from matfac_tpu_torch.solvers.bpr import BPRSolver
 from matfac_tpu_torch.solvers.bpr_dense import DenseBPRSolver
 from matfac_tpu_torch.solvers.sgd import SGDSolver
@@ -354,17 +353,6 @@ def test_an_id_out_of_range_traps():
     assert out.returncode != 0 and "no trap" not in out.stdout, out
 
 
-def _epoch_through(module, route, run):
-    """``run()`` with ``module.index_add_ordered_`` swapped for
-    ``route``."""
-    real = module.index_add_ordered_
-    module.index_add_ordered_ = route
-    try:
-        return run()
-    finally:
-        module.index_add_ordered_ = real
-
-
 @pytest.mark.cuda
 def test_sgd_epoch_equals_the_index_put_route():
     """Each batch of one SGDSolver epoch: the fused step's scatters, by the
@@ -396,9 +384,10 @@ def test_sgd_epoch_equals_the_index_put_route():
 
 @pytest.mark.cuda
 def test_stream_bpr_epoch_equals_the_index_put_route():
-    """One stream BPR epoch (user side staged, item side sorted per call)
-    equals, bit for bit, the same epoch through
-    ``index_put_(accumulate=True)``."""
+    """Each batch of one stream BPR epoch: the fused step's scatters (user
+    side by the staged plan, item side by the plan sorted in the call)
+    equal ``index_put_(accumulate=True)`` of the step's own gradient rows
+    onto the batch's starting tables, bit for bit."""
     dev = _cuda()
     data = _data()
     iu, ii = freq.invalid_users_items(data.train_mat, data.n_users,
@@ -408,9 +397,21 @@ def test_stream_bpr_epoch_equals_the_index_put_route():
     s = BPRSolver(ModelMFBPR(p, data.n_users, data.n_items), p,
                   data.train_mat, iu, ii, device=dev)
     border, bits = s.draw()
-    s0 = _start(data.n_users, data.n_items, p.fac_dim)
-    a = s.epoch_with(_on(s0, dev), 0.1, border, bits)
-    b = _epoch_through(bpr_mod, _put,
-                       lambda: s.epoch_with(_on(s0, dev), 0.1, border, bits))
-    torch.cuda.synchronize()
-    assert _same(a, b)
+    U, I = _on(_start(data.n_users, data.n_items, p.fac_dim), dev)[:2]
+    U0 = U.clone()
+    loss = torch.zeros((), device=dev)
+    inv = torch.zeros((), dtype=torch.int64, device=dev)
+    sample, step = s.step.epoch(U, I, 0.1, bits, loss, inv)
+    gu, gi, _ = s.step._scratch
+    B = s.batch_size
+    for t, b in enumerate(border.tolist()):
+        sl = slice(b * B, (b + 1) * B)
+        want_u, want_i = U.clone(), I.clone()
+        neg, w = sample(t, b)
+        step(b, neg, w, None)
+        want_u.index_put_((s.pos_u[sl],), gu, accumulate=True)
+        want_i.index_put_((torch.cat([s.pos_i[sl], neg]),), gi,
+                          accumulate=True)
+        torch.cuda.synchronize()
+        assert torch.equal(U, want_u) and torch.equal(I, want_i), b
+    assert not torch.equal(U, U0)

@@ -198,12 +198,12 @@ def _bpr_solver():
 
 
 def _stage_as_on_the_card(s):
-    """The plans a solver stages on a CUDA device (sgd: its step's),
-    staged here on the CPU from the solver's own static index (the CPU
-    solver stages none)."""
+    """The plans a solver's step stages on a CUDA device, staged here on
+    the CPU from the solver's own static index (the CPU solver stages
+    none)."""
     if hasattr(s, "pos_u"):
-        s.u_plans = stage_plans(s.pos_u.view(s.n_batches, s.batch_size),
-                                s.model.n_users)
+        s.step.u_plans = stage_plans(
+            s.pos_u.view(s.n_batches, s.batch_size), s.model.n_users)
         return
     shape = (s.n_batches, s.batch_size)
     s.step.u_plans = stage_plans(s.rows.view(shape), s.model.n_users)
@@ -223,9 +223,10 @@ def test_sgd_solver_stages_each_batch_stable_sort():
 
 def test_bpr_solver_stages_the_user_side_of_each_batch():
     s, _, _ = _bpr_solver()
-    assert s.u_plans is None
+    assert s.step.u_plans is None
     _stage_as_on_the_card(s)
-    _held_to_argsort(s.u_plans, s.pos_u.view(s.n_batches, s.batch_size))
+    _held_to_argsort(s.step.u_plans,
+                     s.pos_u.view(s.n_batches, s.batch_size))
 
 
 def _plan(n, dtype=torch.int64):

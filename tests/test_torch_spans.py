@@ -146,8 +146,9 @@ def test_a_span_whose_body_raises_is_closed():
 def test_a_training_loop_records_each_epoch(method, monkeypatch):
     """Under the profiler: one solver-epoch span and one ``loop.sync`` an
     epoch; sgd's ``sgd.step`` a batch inside its epoch and, on the CPU,
-    its two ordered scatters inside the step, its batches counted; BPR's sampler and three
-    scatters a batch, the stripes' schedule and launch."""
+    its two ordered scatters inside the step, its batches counted; BPR's
+    sampler and step a batch, its two scatters inside the step, its batches
+    counted; the stripes' schedule and launch."""
     prof = _recorder()
     rep, solver = _train(method)
     prof.stop()
@@ -168,18 +169,23 @@ def test_a_training_loop_records_each_epoch(method, monkeypatch):
         assert "sgd.step" not in counts
     elif method == "bpr":
         assert names.count("bpr.sample") == solver.n_batches * EPOCHS
+        assert names.count("bpr.step") == solver.n_batches * EPOCHS
         assert n_scatter == 2 * solver.n_batches * EPOCHS
+        # the epochs' batches counted; the CPU's plain steps call no kernel
+        counts = tprof.records()["counts"]
+        assert counts.get("bpr.batches") == solver.n_batches * EPOCHS
+        assert "bpr.step" not in counts
     else:
         assert n_scatter == 0
         assert names.count("stripes.launch") == EPOCHS
         assert names.count("stripes.schedule") == EPOCHS
         assert "stripes.ranks" not in names      # plain MF draws no ranks
     for s in spans:
-        if s.name in ("sgd.step", "bpr.sample", "stripes.launch",
-                      "stripes.schedule"):
+        if s.name in ("sgd.step", "bpr.sample", "bpr.step",
+                      "stripes.launch", "stripes.schedule"):
             assert s.parent == epoch
         if s.name == "scatter.ordered":
-            assert s.parent == ("sgd.step" if method == "sgd" else epoch)
+            assert s.parent == ("sgd.step" if method == "sgd" else "bpr.step")
 
 
 def test_a_request_counts_four_card_syncs():
