@@ -46,6 +46,7 @@ from matfac_tpu_torch.config import Params
 from matfac_tpu_torch.data.batching import RowBucket, bucketed_rows
 from matfac_tpu_torch.models.base import MFState
 from matfac_tpu_torch.parallel import distributed
+from matfac_tpu_torch.train.profiler import count, span
 
 
 def solve_spd_cg(gram: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
@@ -99,23 +100,27 @@ def _solve_bucket(target: torch.Tensor, source: torch.Tensor, ids, cols,
     rows and ``real_ids`` are their ids (dummy rows' writes are dropped).
     ``reg_exp``: per-row lambda = reg * max(count, 1) ** reg_exp over the
     row's valid rated entries (iALS's scaled lambda); 0 is the reference's
-    flat lambda, exactly."""
+    flat lambda, exactly. Spans ``als.gram`` (gather, Gram, right-hand
+    side) and ``als.solve`` (factorization, solves, write-back)."""
     k = target.shape[1]
-    q = source[cols].float()                               # [nb, cap, k]
-    w = mask * (vals > 0).to(mask.dtype)                   # rating>0 gate
-    # Gram: sum_c w q q^T (w is 0/1, so one-sided masking suffices)
-    yty = torch.bmm((q * w[:, :, None]).mT, q)
-    b = torch.bmm((vals * w)[:, None, :], q)[:, 0]
-    if reg_exp:
-        cnt = torch.clamp_min(w.sum(dim=1), 1.0)
-        yty = yty + (reg * cnt ** reg_exp)[:, None, None] * _eye(k, q.device)
-    else:
-        yty = yty + reg * _eye(k, q.device)
-    if cg_iters > 0:
-        sol = solve_spd_cg(yty, b, target[ids].float(), cg_iters)
-    else:
-        sol = chol_solve(cholesky_nan(yty), b)
-    target[real_ids] = sol[sel].to(target.dtype)
+    with span("als.gram"):
+        q = source[cols].float()                           # [nb, cap, k]
+        w = mask * (vals > 0).to(mask.dtype)               # rating>0 gate
+        # Gram: sum_c w q q^T (w is 0/1, so one-sided masking suffices)
+        yty = torch.bmm((q * w[:, :, None]).mT, q)
+        b = torch.bmm((vals * w)[:, None, :], q)[:, 0]
+    with span("als.solve"):
+        if reg_exp:
+            cnt = torch.clamp_min(w.sum(dim=1), 1.0)
+            yty = yty + (reg * cnt ** reg_exp)[:, None, None] \
+                * _eye(k, q.device)
+        else:
+            yty = yty + reg * _eye(k, q.device)
+        if cg_iters > 0:
+            sol = solve_spd_cg(yty, b, target[ids].float(), cg_iters)
+        else:
+            sol = chol_solve(cholesky_nan(yty), b)
+        target[real_ids] = sol[sel].to(target.dtype)
 
 
 # chunk large buckets so that the gathered [nb, cap, k] block and the
@@ -129,7 +134,11 @@ class ALSSolver:
     epoch (user pass then item pass, like modelMF.cpp:795-880).
     ``cg_iters`` > 0: warm-started CG solves; 0: exact Cholesky solves.
     ``split``: solve this process's share of the rows and all-gather the
-    rest (a mesh run across processes; the module docstring says how)."""
+    rest (a mesh run across processes; the module docstring says how).
+
+    An epoch is the span ``als.epoch``; each chunk adds, to the counters
+    ``als.rows`` (real rows solved), ``als.slots`` (nb x cap gathered) and
+    ``als.ratings`` (rated slots), sizes fixed when it was staged."""
 
     def __init__(self, model, params: Params, train_mat,
                  invalid_users: np.ndarray, invalid_items: np.ndarray,
@@ -165,9 +174,14 @@ class ALSSolver:
             return (idx(ids), idx(cols), f32(vals), f32(mask), idx(sel),
                     idx(ids[sel]))
 
+        def sizes(ids, cols, vals, mask):
+            # (real rows, gathered slots, rated slots) of a chunk
+            return (int((mask.sum(axis=1) > 0).sum()), int(mask.size),
+                    int(np.count_nonzero(mask)))
+
         me, procs = ((distributed.process_index(),
                       distributed.process_count()) if split else (0, 1))
-        self._stage, self._solved = [], []
+        self._stage, self._sizes, self._solved = [], [], []
         for bs in (self.u_buckets, self.i_buckets):
             cs = [c for b in bs for c in chunks(b)]
             # work a batch: its Gram (rows x cap x k^2) and its solve
@@ -175,6 +189,7 @@ class ALSSolver:
             runs = distributed.balanced_split(
                 [c[1].size + len(c[0]) * k / 3 for c in cs], procs)
             self._stage.append([stage(*cs[j]) for j in runs[me]])
+            self._sizes.append([sizes(*cs[j]) for j in runs[me]])
             # each process's solved rows, for the all-gather
             real = lambda c: c[0][c[3].sum(axis=1) > 0]
             self._solved.append([idx(np.concatenate(
@@ -187,18 +202,26 @@ class ALSSolver:
         if self.split:
             distributed.allgather_rows(table, self._solved[side])
 
+    def _pass(self, side: int, target: torch.Tensor, source: torch.Tensor,
+              reg: float) -> None:
+        """Solve ``side``'s rows of ``target`` (0: users, 1: items) from
+        ``source``, chunk by chunk, then share them."""
+        for chunk, (rows, slots, rated) in zip(self._stage[side],
+                                               self._sizes[side]):
+            _solve_bucket(target, source, *chunk, reg,
+                          cg_iters=self.cg_iters, reg_exp=self.reg_exp)
+            count("als.rows", rows)
+            count("als.slots", slots)
+            count("als.ratings", rated)
+        self._share(side, target)
+
     def epoch(self, state: MFState, lr: float) -> MFState:
         del lr   # ALS has no step size and draws nothing
-        u_fac, i_fac = state.u_fac.clone(), state.i_fac.clone()
-        for chunk in self._stage[0]:
-            _solve_bucket(u_fac, i_fac, *chunk, float(self.params.u_reg),
-                          cg_iters=self.cg_iters, reg_exp=self.reg_exp)
-        self._share(0, u_fac)
-        for chunk in self._stage[1]:
-            _solve_bucket(i_fac, u_fac, *chunk, float(self.params.i_reg),
-                          cg_iters=self.cg_iters, reg_exp=self.reg_exp)
-        self._share(1, i_fac)
-        return state._replace(u_fac=u_fac, i_fac=i_fac)
+        with span("als.epoch"):
+            u_fac, i_fac = state.u_fac.clone(), state.i_fac.clone()
+            self._pass(0, u_fac, i_fac, float(self.params.u_reg))
+            self._pass(1, i_fac, u_fac, float(self.params.i_reg))
+            return state._replace(u_fac=u_fac, i_fac=i_fac)
 
 
 def _subspace_solve_bucket(target: torch.Tensor, source: torch.Tensor, ids,

@@ -180,3 +180,51 @@ def test_gram_int8_takes_the_int8_product_on_the_card(monkeypatch):
                             cg_iters=2, gram_int8=True,
                             mask8=torch.ones(16, 16, dtype=torch.int8,
                                              device=dev))
+
+
+@pytest.mark.cuda
+def test_bucketed_als_epoch_makes_no_card_sync():
+    """One bucketed ALS epoch (exact solves) on the card under a recording
+    profiler, with ``set_sync_debug_mode("error")``: neither the sweep nor
+    its spans and counters wait for the card. Item 0 is rated by every
+    user, so its bucket is the widest (a saturated item). The first epoch
+    runs before the mode is set, so that cuBLAS and cuSOLVER are set up
+    outside the checked one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matfac_tpu_torch.data.csr import RatingMatrix
+    from matfac_tpu_torch.train import profiler as tprof
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    nu, ni, k = 600, 150, 8
+    dense = rng.random((nu, ni)) < 0.2
+    dense[:, 0] = True
+    r, c = np.nonzero(dense)
+    vals = rng.integers(1, 11, r.size).astype(np.float32) * 0.5
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=nu))])
+    mat = RatingMatrix(indptr, c.astype(np.int32), vals, ni)
+    p = Params(fac_dim=k, u_reg=0.05, i_reg=0.05, seed=3)
+    model = ModelMF(p, nu, ni)
+    none = np.zeros(nu, bool), np.zeros(ni, bool)
+    solver = als.ALSSolver(model, p, mat, *none, device=dev)
+    assert solver.i_buckets[-1].row_ids[0] == 0 and \
+        solver.i_buckets[-1].cap >= nu
+    state = init_state(p, nu, ni, device=dev)
+    state = solver.epoch(state, 0.0)
+    torch.cuda.synchronize()
+    tprof.reset()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = solver.epoch(state, 0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        prof.stop()
+    assert bool(torch.isfinite(state.u_fac).all())
+    rec = tprof.records()
+    tprof.reset()
+    assert [s.name for s in rec["spans"]].count("als.epoch") == 1
+    buckets = solver.u_buckets + solver.i_buckets
+    assert rec["counts"]["als.slots"] == sum(b.mask.size for b in buckets)
+    assert rec["counts"]["als.ratings"] == 2 * r.size
